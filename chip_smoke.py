@@ -5,14 +5,32 @@
 Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
      power limit, turns TF32 off;
-  2. build: compiles both CUDA kernels from gaot3d_tpu_torch/csrc with nvcc;
-  3. K1 flash-attention forward vs its plain twin at B1 H8 S16384 D32 bf16
-     and at a ragged S=1000;
-  4. K5 encoder payload + scatter vs its twin on the degree sections of a
-     524,288-point cloud (radius 0.033, slot budget 5, 64x64x32 grid);
-  5. serving: the DrivAerNet++ recipe model (random weights from a seed) is
-     exported, loaded on the card and answers 3 requests of 524,288 points;
-     one request is answered again with every kernel replaced by its twin.
+  2. build: compiles the five CUDA sources of gaot3d_tpu_torch/csrc with nvcc,
+     all at the same time;
+  3. [k1] flash-attention forward vs its plain version at B1 H8 S16384 D32
+     bf16 and at a ragged S=1000;
+  4. [k5] encoder payload + scatter vs its plain version on the degree
+     sections of a 524,288-point cloud (radius 0.033, slot budget 5, 64x64x32
+     grid), and [k5b] its backward (dfeats, dW, db) vs autograd through the
+     plain version on the same sections;
+  5. [serve] the DrivAerNet++ recipe model (random weights from a seed) is
+     exported, loaded on the card and answers 2 requests of 524,288 points;
+     the second is answered once more for the warm forward time, the first
+     once more with every kernel replaced by its plain version;
+  6. [k4] the dropout-bits exporter vs the plain Philox, bit for bit;
+  7. [k1d] the forward at dropout rate 0.1 drawing from a seed vs its plain
+     version fed the exported bits; keep rate; determinism;
+  8. [k2] the fused backward at rates 0 and 0.1 vs the plain backward with
+     the same bits, at the recipe shape and at ragged S=1000, Skv=130;
+  9. [replay] the seeded forward and backward reproduce, from the bits the
+     exporter writes for their seed, the same results (the path K4 serves);
+ 10. [train] the recipe model takes 3 AdamW steps (mix schedule, dropout 0.1)
+     on one 524,288-point cloud; launches per step must be exactly K1 10,
+     K2 10, K5 5, K5b 5; then one forward-and-backward on a 32x32x16 grid
+     with 65,536 points is repeated with every kernel replaced by its plain
+     version at the same seed; then a breakdown of one step.
+Yardsticks off the main path: torch's scaled_dot_product_attention forward
+and backward at the recipe shape (`library_ms`).
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}.
 """
@@ -31,9 +49,47 @@ LATENT = (64, 64, 32)
 RADIUS = 0.033
 BUDGET = 5
 CHUNK = 65_536
-K1_BOUND = 2e-2   # max abs, bf16 outputs
+K1_BOUND = 2e-2   # out: max abs over the plain output's max abs (two bf16 steps at the top)
+K2_BOUND = 2e-2   # dq, dk, dv: max abs over the plain gradient's max abs, bf16 roundings
 K5_BOUND = 1e-5   # relative, f32 accumulator summed with float atomics
-E2E_BOUND = 5e-2  # relative L2, kernels vs twins through 10 bf16-attention layers
+K5B_BOUND = 1e-4  # relative to each gradient's max abs: per-CTA sums, then float atomics
+E2E_BOUND = 1e-3  # relative L2 (and loss), kernels vs plain through 10 bf16-attention layers
+RATE = 0.1
+SHAPE = (1, 8, 16384, 32)  # B, H, S, D of the recipe's attention
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense). The last two are not
+# on the data sheet: an SM has 128 f32 lanes, 64 int32 lanes and 16
+# special-function lanes, so they are the f32 FMA rate (67e12 / 2) times 1/2
+# and 1/8.
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+INT32_OPS = F32_FLOPS / 2 / 2
+SFU_OPS = F32_FLOPS / 2 / 8
+# integer operations of one Philox4x32-10 call that depend on the element: 10
+# rounds of two 32x32->64 multiplies and two three-input xors (the key
+# schedule is the same for every element)
+PHILOX_OPS = 40
+
+
+def bound(n_bytes, **ops_over_rate):
+    """The least time the card could take, in ms, and what sets it: bytes
+    over the memory rate, or the slowest kind of operation over its peak."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = max(ops_over_rate.values())
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def attention_bound(B, H, S, Skv, D, products, n_tensors, dropout, itemsize=2):
+    """Bound of an attention kernel: `products` tile products of 2*S*Skv*D
+    flops a head, one exponential a score, one Philox call per four scores
+    under dropout; `n_tensors` [B,H,S,D] tensors moved."""
+    scores = B * H * S * Skv
+    ops = {"tensor": products * 2 * scores * D / BF16_FLOPS, "exp": scores / SFU_OPS}
+    if dropout:
+        ops["philox"] = scores / 4 * PHILOX_OPS / INT32_OPS
+    return bound(n_tensors * B * H * max(S, Skv) * D * itemsize + 2 * B * H * S * 4, **ops)
 
 
 def cuda_ms(fn, reps=5):
@@ -59,27 +115,48 @@ def card_name_and_power():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def host_sections(pos, grid):
+def host_sections(pos, grid, radius=RADIUS, budget=BUDGET):
     """Budgeted bidirectional slots of one cloud, degree-sectioned."""
     from gaot3d_tpu_torch.data.host_graph import (build_edge_slots_host,
                                                   section_slots_by_degree_np)
 
-    lat, msk = build_edge_slots_host(pos, grid, RADIUS, strategy="bidirectional",
-                                     budget=BUDGET)
+    lat, msk = build_edge_slots_host(pos, grid, radius, strategy="bidirectional",
+                                     budget=budget)
     return section_slots_by_degree_np(lat, msk, CHUNK)
 
 
+def max_degree(pos, grid, radius):
+    from gaot3d_tpu_torch.data.host_graph import build_edge_slots_host
+
+    _, full_mask = build_edge_slots_host(pos, grid, radius, strategy="bidirectional")
+    return int(full_mask.sum(axis=1).max())
+
+
+def qkv(rng, shape, skv=None):
+    import torch
+
+    B, H, S, D = shape
+    return [torch.from_numpy(rng.standard_normal((B, H, s, D), dtype=np.float32))
+            .to("cuda", torch.bfloat16) for s in (S, skv or S, skv or S)]
+
+
 def phase_build():
-    from gaot3d_tpu_torch.kernels import build, encoder_payload, flash_attention
+    from gaot3d_tpu_torch.kernels import (build, dropout_bits, encoder_payload,
+                                          flash_attention)
 
     t0 = time.perf_counter()
-    flash_attention._library()
-    encoder_payload._library()
-    print(f"[build] both kernels built in {time.perf_counter() - t0:.1f} s")
-    for name in ("flash_attn_fwd", "encoder_payload"):
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    build.build_together([dropout_bits._library, flash_attention._library,
+                          flash_attention._backward_library, encoder_payload._library,
+                          encoder_payload._backward_library])
+    print(f"[build] five kernel libraries built together in {time.perf_counter() - t0:.1f} s")
+    for name in ("dropout_bits", "flash_attn_fwd", "flash_attn_bwd", "encoder_payload",
+                 "encoder_payload_bwd"):
+        regs = [int(line.split("Used ")[1].split(" registers")[0])
+                for line in build.build_log(name).splitlines() if " registers" in line]
+        spills = [line.strip() for line in build.build_log(name).splitlines()
+                  if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        print(f"[build] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+              f"spills: {spills or 'none'}")
 
 
 def phase_k1():
@@ -91,32 +168,37 @@ def phase_k1():
     rng = np.random.default_rng(0)
     rec = {}
     for S in (16384, 1000):
-        q, k, v = (torch.from_numpy(rng.standard_normal((1, 8, S, 32), dtype=np.float32))
-                   .to("cuda", torch.bfloat16) for _ in range(3))
+        q, k, v = qkv(rng, (1, 8, S, 32))
         out, lse = flash_attention(q, k, v)
         ref, ref_lse = flash_attention_reference(q, k, v)
         torch.cuda.synchronize()
         if not (torch.isfinite(out.float()).all() and torch.isfinite(lse).all()):
             raise RuntimeError(f"K1 S={S}: non-finite output")
         err = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
-        print(f"[k1] S={S} max_abs_err out {err:.3e} lse {err_lse:.3e}")
-        if err > K1_BOUND or err_lse > 1e-3:
+        print(f"[k1] S={S} max_abs_err out {err:.3e} (plain max-abs {top:.3e}, limit "
+              f"{K1_BOUND * top:.3e}) lse {err_lse:.3e}")
+        if err > K1_BOUND * top or err_lse > 1e-3:
             raise RuntimeError(f"K1 S={S} disagrees with its twin: {err} / {err_lse}")
         if S == 16384:
             rec = {"max_abs_err": err, "ms": cuda_ms(lambda: flash_attention(q, k, v)),
-                   "plain_ms": cuda_ms(lambda: flash_attention_reference(q, k, v))}
+                   "plain_ms": cuda_ms(lambda: flash_attention_reference(q, k, v)),
+                   **attention_bound(1, 8, S, S, 32, products=2, n_tensors=4, dropout=False),
+                   "library_ms": cuda_ms(
+                       lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))}
             print(f"[k1] B1 H8 S16384 D32 bf16: kernel {rec['ms']:.3f} ms, "
-                  f"twin {rec['plain_ms']:.3f} ms (median of 5)")
+                  f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+                  f"({rec['bound_by']}), library {rec['library_ms']:.3f} ms (median of 5)")
     return rec
 
 
 def phase_k5():
     import torch
 
-    from gaot3d_tpu_torch.data.host_graph import build_edge_slots_host
-    from gaot3d_tpu_torch.kernels.encoder_payload import (encoder_accumulate,
-                                                          encoder_accumulate_reference)
+    from gaot3d_tpu_torch.kernels.encoder_payload import (
+        encoder_accumulate, encoder_accumulate_backward,
+        encoder_accumulate_backward_reference, encoder_accumulate_reference)
     from gaot3d_tpu_torch.models.mlp import ChannelMLP, reset_linear_
     from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
 
@@ -124,14 +206,14 @@ def phase_k5():
     rng = np.random.default_rng(1)
     pos = rng.uniform(-1, 1, (N_POINTS, 3)).astype(np.float32)
     # the budget must cover the max degree, or compaction drops edges
-    _, full_mask = build_edge_slots_host(pos, grid, RADIUS, strategy="bidirectional")
-    max_degree = int(full_mask.sum(axis=1).max())
-    if max_degree > BUDGET:
-        raise RuntimeError(f"slot budget {BUDGET} < max degree {max_degree}")
+    degree = max_degree(pos, grid, RADIUS)
+    if degree > BUDGET:
+        raise RuntimeError(f"slot budget {BUDGET} < max degree {degree}")
     perm, secs = host_sections(pos, grid)
+    valid_edges = int(sum(s[1].sum() for s in secs))
     print(f"[k5] sections K={[int(s[0].shape[1]) for s in secs]} "
           f"rows={[int(s[0].shape[0]) for s in secs]} "
-          f"valid_edges={int(sum(s[1].sum() for s in secs))} max_degree={max_degree}")
+          f"valid_edges={valid_edges} max_degree={degree}")
     C = 32
     mlp = ChannelMLP([6, 64, 64, 64, C])
     gen = torch.Generator().manual_seed(1)
@@ -165,32 +247,105 @@ def phase_k5():
     print(f"[k5] accumulator max_abs_err {err:.3e} relative {rel:.3e}")
     if rel > K5_BOUND:
         raise RuntimeError(f"K5 disagrees with its twin: relative {rel}")
+    # bytes: points, features, slots, masks and weights read once, the
+    # accumulator read and written; operations: the MLP's FMAs for the valid
+    # rows of this cloud (forward once; backward recompute, chain and dW: 3x)
+    n_weights = sum(w.numel() for w in ws)
+    slot_bytes = sum(lat.numel() * 5 for lat, _ in sec_t)
+    moved = pos_t.numel() * 4 + feats.numel() * 4 + slot_bytes + n_weights * 4
     rec = {"max_abs_err": err, "ms": cuda_ms(lambda: run(encoder_accumulate)),
-           "plain_ms": cuda_ms(lambda: run(encoder_accumulate_reference))}
+           "plain_ms": cuda_ms(lambda: run(encoder_accumulate_reference)),
+           **bound(moved + 2 * acc.numel() * 4, fma=valid_edges * 2 * n_weights / F32_FLOPS),
+           "library_ms": None}
     print(f"[k5] all sections of 524,288 points: kernel {rec['ms']:.3f} ms, "
-          f"twin {rec['plain_ms']:.3f} ms (median of 5)")
-    return rec
+          f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+          f"({rec['bound_by']}) (median of 5)")
+
+    # K5b: gradients of the five sections from one accumulator cotangent
+    g = torch.from_numpy(rng.standard_normal((1, grid.num_tokens, C + 11),
+                                             dtype=np.float32)).cuda()
+
+    def run_backward(fn):
+        off, dfeats, dws, dbs = 0, [], None, None
+        for lat, msk in sec_t:
+            ns = lat.shape[1]
+            df, dw, db = fn(g, pos_t[:, off:off + ns], feats[:, off:off + ns].contiguous(),
+                            lat, msk, ws, bs, grid, chunk=CHUNK)
+            dfeats.append(df)
+            dws = dw if dws is None else [a + b for a, b in zip(dws, dw)]
+            dbs = db if dbs is None else [a + b for a, b in zip(dbs, db)]
+            off += ns
+        return [torch.cat(dfeats, dim=1)] + dws + dbs
+
+    got_b = run_backward(encoder_accumulate_backward)
+    ref_b = run_backward(encoder_accumulate_backward_reference)
+    torch.cuda.synchronize()
+    names = ["dfeats"] + [f"dW{i}" for i in range(len(ws))] + [f"db{i}" for i in range(len(ws))]
+    worst, worst_abs = 0.0, 0.0
+    for name, a, b in zip(names, got_b, ref_b):
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"K5b: non-finite {name}")
+        abs_err = (a - b).abs().max().item()
+        rel_b = abs_err / b.abs().max().item()
+        worst, worst_abs = max(worst, rel_b), max(worst_abs, abs_err)
+        if rel_b > K5B_BOUND:
+            raise RuntimeError(f"K5b {name} disagrees with autograd through the plain "
+                               f"version: relative {rel_b}")
+    rec_b = {"max_abs_err": worst_abs,
+             "ms": cuda_ms(lambda: run_backward(encoder_accumulate_backward)),
+             "plain_ms": cuda_ms(lambda: run_backward(encoder_accumulate_backward_reference)),
+             **bound(moved + g.numel() * 4 + feats.numel() * 4,
+                     fma=3 * valid_edges * 2 * n_weights / F32_FLOPS),
+             "library_ms": None}
+    print(f"[k5b] dfeats, dW, db of all sections: worst relative {worst:.3e}; kernel "
+          f"{rec_b['ms']:.3f} ms, plain {rec_b['plain_ms']:.3f} ms, bound "
+          f"{rec_b['bound_ms']:.3f} ms ({rec_b['bound_by']}) (median of 5)")
+    return rec, rec_b
 
 
-def recipe_model():
+def recipe_model(latent=LATENT, radius=RADIUS, budget=BUDGET):
+    """The DrivAerNet++ pressure recipe at full width and depth, on the card,
+    with random weights from seed 0."""
     import torch
 
     from gaot3d_tpu_torch.models import (AttentionConfig, FFNConfig, MAGNOConfig,
                                          TransformerConfig, init_model)
 
     magno = MAGNOConfig(
-        lifting_channels=32, gno_radius=RADIUS, neighbor_strategy="bidirectional",
+        lifting_channels=32, gno_radius=radius, neighbor_strategy="bidirectional",
         use_geoembed=[True, False], in_gno_channel_mlp_hidden_layers=[64, 64, 64],
         out_gno_channel_mlp_hidden_layers=[64, 64], projection_channels=256,
-        mlp_type="linear", edge_chunk_size=CHUNK, slot_budget=BUDGET,
+        mlp_type="linear", edge_chunk_size=CHUNK, slot_budget=budget,
         kernel_dtype="float32", edge_layout="sectioned")
     attn = TransformerConfig(
         patch_size=2, hidden_size=256, num_layers=10, positional_embedding="rope",
         attn_config=AttentionConfig(hidden_size=256, num_heads=8, num_kv_heads=8,
-                                    atten_dropout=0.1, attention_dtype="bfloat16"),
+                                    atten_dropout=RATE, attention_dtype="bfloat16"),
         ffn_config=FFNConfig(hidden_size=1024))
-    return init_model(3, 1, "gaot_3d", magno, attn, latent_tokens=LATENT,
+    return init_model(3, 1, "gaot_3d", magno, attn, latent_tokens=latent,
                       generator=torch.Generator().manual_seed(0))
+
+
+def cloud(seed, n_points, grid, radius=RADIUS, budget=BUDGET):
+    """One random cloud with features and a target, uploaded in its degree
+    sections' node order: (pos, feats, target, mask, slots, n_sections, host
+    seconds of graph build and upload)."""
+    import torch
+
+    from gaot3d_tpu_torch.ops.grid_graph import SectionedEdgeSlots
+
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-1, 1, (n_points, 3)).astype(np.float32)
+    feats = rng.standard_normal((n_points, 3), dtype=np.float32)
+    target = rng.standard_normal((n_points, 1), dtype=np.float32)
+    t0 = time.perf_counter()
+    perm, secs = host_sections(pos, grid, radius, budget)
+    t1 = time.perf_counter()
+    tensors = [torch.from_numpy(x[perm][None]).cuda() for x in (pos, feats, target)]
+    mask = torch.ones((1, n_points), dtype=torch.bool, device="cuda")
+    slots = SectionedEdgeSlots.from_numpy([(l[None], m[None]) for l, m in secs], device="cuda")
+    torch.cuda.synchronize()
+    return (*tensors, mask, slots, len(secs), (t1 - t0, time.perf_counter() - t1))
 
 
 def phase_serve():
@@ -198,45 +353,26 @@ def phase_serve():
 
     from gaot3d_tpu_torch.kernels import encoder_payload as k5
     from gaot3d_tpu_torch.kernels import flash_attention as k1
-    from gaot3d_tpu_torch.models import fused_encoder
-    from gaot3d_tpu_torch.ops import attention
-    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid, SectionedEdgeSlots
+    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
     from gaot3d_tpu_torch.serve import export_inference, load_inference
 
     grid = LatentGrid(dims=LATENT)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "recipe.pt")
         export_inference(recipe_model(), path)
-        infer = load_inference(path, device="cuda")
+        infer = load_inference(path)
 
-    def request(seed):
-        rng = np.random.default_rng(seed)
-        pos = rng.uniform(-1, 1, (N_POINTS, 3)).astype(np.float32)
-        feats = rng.standard_normal((N_POINTS, 3), dtype=np.float32)
-        t0 = time.perf_counter()
-        perm, secs = host_sections(pos, grid)
-        t1 = time.perf_counter()
-        args = (torch.from_numpy(pos[perm][None]).cuda(),
-                torch.from_numpy(feats[perm][None]).cuda(),
-                torch.ones((1, N_POINTS), dtype=torch.bool, device="cuda"))
-        slots = SectionedEdgeSlots.from_numpy([(l[None], m[None]) for l, m in secs],
-                                              device="cuda")
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        return args, slots, len(secs), (t1 - t0, t2 - t1)
-
-    k1.flash_attention.launches = 0
-    k5.encoder_accumulate.launches = 0
+    fwd, acc = k1.flash_attention, k5.encoder_accumulate
+    fwd.launches = acc.launches = 0
     outs = []
-    for i, seed in enumerate((11, 12, 13)):
-        args, slots, nsec, (t_graph, t_upload) = request(seed)
-        n1, n5 = k1.flash_attention.launches, k5.encoder_accumulate.launches
+    for i, seed in enumerate((11, 12)):
+        pos, feats, _, mask, slots, nsec, (t_graph, t_upload) = cloud(seed, N_POINTS, grid)
+        n1, n5 = fwd.launches, acc.launches
         t0 = time.perf_counter()
-        out = infer(*args, slots, slots)
+        out = infer(pos, feats, mask, slots, slots)
         torch.cuda.synchronize()
         t_fwd = time.perf_counter() - t0
-        d1 = k1.flash_attention.launches - n1
-        d5 = k5.encoder_accumulate.launches - n5
+        d1, d5 = fwd.launches - n1, acc.launches - n5
         ok = tuple(out.shape) == (1, N_POINTS, 1) and bool(torch.isfinite(out).all())
         print(f"[serve] request {i + 1}: graph build {t_graph * 1e3:.1f} ms, upload "
               f"{t_upload * 1e3:.1f} ms, forward {t_fwd * 1e3:.1f} ms; out "
@@ -244,24 +380,337 @@ def phase_serve():
               f"({nsec} sections)")
         if not ok or d1 != 10 or d5 != nsec:
             raise RuntimeError(f"request {i + 1}: bad output or kernel launch counts")
-        outs.append((args, slots, out))
-    launches = {"k1": k1.flash_attention.launches, "k5": k5.encoder_accumulate.launches}
+        outs.append(((pos, feats, mask), slots, out))
+    # the warm forward: the last request's cloud, already on the card, again
+    args, slots, out = outs[-1]
+    t0 = time.perf_counter()
+    warm = infer(*args, slots, slots)
+    torch.cuda.synchronize()
+    print(f"[serve] request 2 answered again (warm): forward "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    if not torch.isfinite(warm).all():
+        raise RuntimeError("the warm forward gave a non-finite output")
+    launches = {"k1": fwd.launches, "k5": acc.launches}
 
     args, slots, out = outs[0]
-    with mock.patch.object(attention, "flash_attention", k1.flash_attention_reference), \
-            mock.patch.object(fused_encoder, "encoder_accumulate",
-                              k5.encoder_accumulate_reference):
-        twin = infer(*args, slots, slots)
+    with plain_versions():
+        plain = infer(*args, slots, slots)
     torch.cuda.synchronize()
-    if (k1.flash_attention.launches, k5.encoder_accumulate.launches) != (
-            launches["k1"], launches["k5"]):
-        raise RuntimeError("the twin run launched a kernel")
-    rel = ((out - twin).norm() / twin.norm()).item()
-    print(f"[serve] request 1 with every kernel replaced by its twin: relative L2 "
+    if (fwd.launches, acc.launches) != (launches["k1"], launches["k5"]):
+        raise RuntimeError("the plain run launched a kernel")
+    rel = ((out - plain).norm() / plain.norm()).item()
+    print(f"[serve] request 1 with every kernel replaced by its plain version: relative L2 "
           f"difference {rel:.3e}")
     if not rel <= E2E_BOUND:
-        raise RuntimeError(f"kernels and twins disagree end to end: {rel}")
+        raise RuntimeError(f"kernels and plain versions disagree end to end: {rel}")
     return launches
+
+
+def plain_versions():
+    """Context in which the model's autograd functions call the plain
+    versions of all four kernels instead of launching them."""
+    import contextlib
+
+    from gaot3d_tpu_torch.kernels import encoder_payload as k5
+    from gaot3d_tpu_torch.kernels import flash_attention as k1
+
+    stack = contextlib.ExitStack()
+    for mod, name, plain in (
+            (k1, "flash_attention", k1.flash_attention_plain),
+            (k1, "flash_attention_backward", k1.flash_attention_backward_plain),
+            (k5, "encoder_accumulate", k5.encoder_accumulate_reference),
+            (k5, "encoder_accumulate_backward", k5.encoder_accumulate_backward_reference)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
+
+
+def phase_k4():
+    import torch
+
+    from gaot3d_tpu_torch.kernels.dropout_bits import (bits_as_int64, dropout_bits_reference,
+                                                       export_dropout_bits)
+
+    seed = 0x5EED_0123_4567_89AB
+    rec = {}
+    for BH, S, Skv in ((8, 4096, 4096), (3, 1000, 130)):
+        got = export_dropout_bits(seed, BH, S, Skv)
+        ref = dropout_bits_reference(seed, BH, S, Skv, device="cuda")
+        torch.cuda.synchronize()
+        wrong = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        word_err = max(float((bits_as_int64(got[bh]) - bits_as_int64(ref[bh])).abs().max())
+                       for bh in range(BH))
+        print(f"[k4] BH={BH} S={S} Skv={Skv}: {wrong} of {got.numel()} words differ from the "
+              f"plain Philox, by {word_err:.0f} at most")
+        if wrong:
+            raise RuntimeError("K4 disagrees with the plain Philox")
+        if S == 4096:
+            n = got.numel()
+            rec = {"max_abs_err": word_err,
+                   "ms": cuda_ms(lambda: export_dropout_bits(seed, BH, S, Skv)),
+                   "plain_ms": cuda_ms(
+                       lambda: dropout_bits_reference(seed, BH, S, Skv, device="cuda")),
+                   **bound(4 * n, philox=n / 4 * PHILOX_OPS / INT32_OPS), "library_ms": None}
+            print(f"[k4] BH8 S4096: kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
+                  f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}) (median of 5)")
+    return rec
+
+
+def dropout_replay(q, k, v, dout, rate, seed):
+    """The replay check that the JAX package's bench runs on its chip: run
+    forward and backward drawing from `seed`, export the bits of that seed
+    (K4), run both again reading the bits, and raise unless out, lse, dk and
+    dv agree bit for bit and dq to one bf16 rounding step of its max-abs (its
+    float atomics land in a run-dependent order)."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import dropout_bits as k4
+    from gaot3d_tpu_torch.kernels import flash_attention as k1
+
+    B, H, S, _ = q.shape
+    out, lse = k1.flash_attention(q, k, v, rate, seed=seed)
+    grads = k1.flash_attention_backward(q, k, v, out, lse, dout, rate, seed=seed)
+    bits = k4.export_dropout_bits(seed, B * H, S, k.shape[2])
+    out_b, lse_b = k1.flash_attention(q, k, v, rate, dropout_bits=bits)
+    grads_b = k1.flash_attention_backward(q, k, v, out_b, lse_b, dout, rate, dropout_bits=bits)
+    for name, a, b in (("out", out, out_b), ("lse", lse, lse_b), ("dk", grads[1], grads_b[1]),
+                       ("dv", grads[2], grads_b[2])):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"dropout replay: {name} from the seed and from its exported "
+                               "bits differ")
+    dq_diff = (grads[0].float() - grads_b[0].float()).abs().max().item()
+    dq_max = grads[0].float().abs().max().item()
+    if dq_diff > 2.0 ** -7 * dq_max:
+        raise RuntimeError(f"dropout replay: dq differs by {dq_diff} of {dq_max}")
+    kept = sum(int((k4.bits_as_int64(bits[bh]) >= k4.keep_threshold(rate)).sum())
+               for bh in range(B * H))
+    return {"keep_rate": kept / bits.numel(), "dq_max_abs_diff": dq_diff}
+
+
+def phase_attention_train():
+    """[k1d], [k2] and [replay]: the forward with dropout, the fused backward
+    and the replay path at the recipe's attention shape, bits for all 8 heads
+    (8.6 GB) exported once by K4."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaot3d_tpu_torch.kernels import dropout_bits as k4
+    from gaot3d_tpu_torch.kernels import flash_attention as k1
+
+    rng = np.random.default_rng(2)
+    B, H, S, D = SHAPE
+    q, k, v = qkv(rng, SHAPE)
+    dout = qkv(rng, SHAPE)[0]
+    seed = 0x0DD5_EED5_0000_0001
+    bits = k4.export_dropout_bits(seed, B * H, S, S)
+
+    # [k1d]
+    out, lse = k1.flash_attention(q, k, v, RATE, seed=seed)
+    again, _ = k1.flash_attention(q, k, v, RATE, seed=seed)
+    ref, ref_lse = k1.flash_attention_reference(q, k, v, RATE, bits)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise RuntimeError("K1 with dropout: two runs with one seed differ")
+    err = (out.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    kept = sum(int((k4.bits_as_int64(bits[bh]) >= k4.keep_threshold(RATE)).sum())
+               for bh in range(B * H)) / bits.numel()
+    print(f"[k1d] rate {RATE} S={S}: max_abs_err out {err:.3e} (plain max-abs {top:.3e}, limit "
+          f"{K1_BOUND * top:.3e}) lse {err_lse:.3e}; keep rate {kept:.6f}; two seeded runs "
+          f"identical")
+    if not (torch.isfinite(out.float()).all() and err <= K1_BOUND * top and err_lse <= 1e-3):
+        raise RuntimeError(f"K1 with dropout disagrees with its plain version: {err} / {err_lse}")
+    if abs(kept - (1 - RATE)) > 1e-3:
+        raise RuntimeError(f"keep rate {kept} is not within 1e-3 of {1 - RATE}")
+    rec_k1d = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: k1.flash_attention(q, k, v, RATE, seed=seed)),
+        "plain_ms": cuda_ms(lambda: k1.flash_attention_reference(q, k, v, RATE, bits), reps=3),
+        **attention_bound(B, H, S, S, D, products=2, n_tensors=4, dropout=True),
+        "library_ms": cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=RATE))}
+    print(f"[k1d] B1 H8 S16384 D32 bf16 rate {RATE}: kernel {rec_k1d['ms']:.3f} ms, plain "
+          f"{rec_k1d['plain_ms']:.3f} ms, bound {rec_k1d['bound_ms']:.3f} ms "
+          f"({rec_k1d['bound_by']}), library {rec_k1d['library_ms']:.3f} ms")
+
+    # [k2]
+    def check_backward(q, k, v, dout, rate, seed, bits, label):
+        out, lse = k1.flash_attention(q, k, v, rate, seed=seed)
+        got = k1.flash_attention_backward(q, k, v, out, lse, dout, rate, seed=seed)
+        want = k1.flash_attention_backward_reference(q, k, v, out, lse, dout, rate, bits)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(a.float()).all():
+                raise RuntimeError(f"K2 {label}: non-finite {name}")
+            abs_err = (a.float() - b.float()).abs().max().item()
+            rel = abs_err / b.float().abs().max().item()
+            print(f"[k2] {label} {name}: max_abs_err {abs_err:.3e}, over the plain max-abs "
+                  f"{rel:.3e}")
+            if rel > K2_BOUND:
+                raise RuntimeError(f"K2 {label}: {name} disagrees with the plain backward")
+            worst = max(worst, abs_err)
+        return out, lse, worst
+
+    check_backward(q, k, v, dout, 0.0, None, None, f"rate 0 S={S}")
+    out, lse, worst = check_backward(q, k, v, dout, RATE, seed, bits, f"rate {RATE} S={S}")
+    rq, rk, rv = qkv(rng, (1, 8, 1000, 32), skv=130)
+    rdo = qkv(rng, (1, 8, 1000, 32))[0]
+    rbits = k4.export_dropout_bits(seed, 8, 1000, 130)
+    check_backward(rq, rk, rv, rdo, RATE, seed, rbits, f"rate {RATE} ragged S=1000 Skv=130")
+    ms0 = cuda_ms(lambda: k1.flash_attention_backward(q, k, v, out, lse, dout))
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, dropout_p=RATE)
+    rec_k2 = {
+        "max_abs_err": worst,
+        "ms": cuda_ms(lambda: k1.flash_attention_backward(q, k, v, out, lse, dout, RATE,
+                                                          seed=seed)),
+        "plain_ms": cuda_ms(lambda: k1.flash_attention_backward_reference(
+            q, k, v, out, lse, dout, RATE, bits), reps=3),
+        **attention_bound(B, H, S, S, D, products=5, n_tensors=8, dropout=True),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dout,
+                                                          retain_graph=True))}
+    print(f"[k2] B1 H8 S16384 D32 bf16: kernel {rec_k2['ms']:.3f} ms at rate {RATE}, "
+          f"{ms0:.3f} ms at rate 0, plain {rec_k2['plain_ms']:.3f} ms, bound "
+          f"{rec_k2['bound_ms']:.3f} ms ({rec_k2['bound_by']}), library backward "
+          f"{rec_k2['library_ms']:.3f} ms")
+    del lib_out, ql, kl, vl, bits
+
+    # [replay]: the path that K4 serves, counted on its own
+    k4.export_dropout_bits.launches = 0
+    info = dropout_replay(q, k, v, dout, RATE, seed)
+    torch.cuda.synchronize()
+    replay_launches = k4.export_dropout_bits.launches
+    print(f"[replay] seeded forward and backward reproduced from the exported bits: keep "
+          f"rate {info['keep_rate']:.6f}, dq max_abs_diff {info['dq_max_abs_diff']:.3e}; K4 "
+          f"launches {replay_launches}")
+    if replay_launches < 1:
+        raise RuntimeError("the replay path did not launch K4")
+    return rec_k1d, rec_k2, replay_launches
+
+
+def grad_vector(model):
+    import torch
+
+    return torch.cat([p.grad.detach().float().flatten() for p in model.parameters()])
+
+
+def phase_train():
+    import torch
+
+    from gaot3d_tpu_torch.kernels import encoder_payload as k5
+    from gaot3d_tpu_torch.kernels import flash_attention as k1
+    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
+    from gaot3d_tpu_torch.train import (OptimizerargsConfig, TrainBatch, make_optimizer,
+                                        masked_mse, train_step)
+
+    counters = {"k1": k1.flash_attention, "k2": k1.flash_attention_backward,
+                "k5": k5.encoder_accumulate, "k5b": k5.encoder_accumulate_backward}
+    grid = LatentGrid(dims=LATENT)
+    model = recipe_model()
+    pos, feats, target, mask, slots, nsec, _ = cloud(21, N_POINTS, grid)
+    batch = TrainBatch(pos, feats, target, mask, slots, slots)
+    optimizer = make_optimizer("adamw", model.parameters(),
+                               OptimizerargsConfig(scheduler="mix"), steps_per_epoch=1)
+    generator = torch.Generator().manual_seed(5)
+    before = [p.detach().clone() for p in model.parameters()]
+    total = dict.fromkeys(counters, 0)
+    for step in range(3):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        lr = optimizer.learning_rate
+        t0 = time.perf_counter()
+        loss, grad_norm = train_step(model, optimizer, batch, generator)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {name: fn.launches for name, fn in counters.items()}
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+        print(f"[train] step {step}: loss {loss.item():.6f} grad_norm {grad_norm.item():.6f} "
+              f"lr {lr:.3e} step {ms:.1f} ms peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches K1 {got['k1']} "
+              f"K2 {got['k2']} K5 {got['k5']} K5b {got['k5b']}; finite={finite}")
+        if not finite:
+            raise RuntimeError(f"step {step}: non-finite loss or gradient")
+        if got != {"k1": 10, "k2": 10, "k5": nsec, "k5b": nsec} or nsec != 5:
+            raise RuntimeError(f"step {step}: launches {got}, expected 10 / 10 / 5 / 5")
+        for name in total:
+            total[name] += got[name]
+    still = [n for (n, p), b in zip(model.named_parameters(), before) if torch.equal(p, b)]
+    if still:
+        raise RuntimeError(f"parameters that did not move in 3 steps: {still}")
+    print(f"[train] every one of {len(before)} parameter tensors moved")
+
+    # breakdown of one more step: device time of each part, then a profile
+    model.train()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    optimizer.zero_grad()
+    marks[0].record()
+    loss = masked_mse(model(pos, feats, mask, encoder_slots=[slots], decoder_slots=[slots],
+                            generator=generator), target, mask)
+    marks[1].record()
+    loss.backward()
+    marks[2].record()
+    optimizer.step()
+    marks[3].record()
+    torch.cuda.synchronize()
+    parts = [marks[i].elapsed_time(marks[i + 1]) for i in range(3)]
+    print(f"[train] one step by CUDA events: forward+loss {parts[0]:.1f} ms, backward "
+          f"{parts[1]:.1f} ms, optimizer {parts[2]:.1f} ms")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, optimizer, batch, generator)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    busy = sum(r[1] for r in rows)
+    if busy > 0:
+        print(f"[train] profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle "
+              f"share {100 * (1 - busy / wall):.1f}%")
+        for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
+            print(f"[train]   {ms:8.2f} ms {count:4d}x {key[:90]}")
+    else:
+        print("[train] torch.profiler recorded no device time here: idle share not measured")
+    del model, optimizer, batch, before
+
+    # kernels against their plain versions through one forward and backward:
+    # same widths and depth on a 32x32x16 grid with 65,536 points, where the
+    # plain [S, S] logits under autograd fit the run's time (2,048 tokens)
+    small = LatentGrid(dims=(32, 32, 16))
+    radius = 2 * RADIUS
+    # the budget is the max degree of the cloud that cloud(22, ...) draws first
+    budget = max_degree(np.random.default_rng(22).uniform(-1, 1, (65_536, 3)).astype(np.float32),
+                        small, radius)
+    pos, feats, target, mask, slots, nsec, _ = cloud(22, 65_536, small, radius, budget)
+    model = recipe_model(small.dims, radius, budget).train()
+
+    def forward_backward():
+        model.zero_grad(set_to_none=True)
+        pred = model(pos, feats, mask, encoder_slots=[slots], decoder_slots=[slots],
+                     generator=torch.Generator().manual_seed(9))
+        loss = masked_mse(pred, target, mask)
+        loss.backward()
+        return loss.item(), grad_vector(model)
+
+    for fn in counters.values():
+        fn.launches = 0
+    loss_k, grad_k = forward_backward()
+    launched = {name: fn.launches for name, fn in counters.items()}
+    with plain_versions():
+        loss_p, grad_p = forward_backward()
+    torch.cuda.synchronize()
+    if {name: fn.launches for name, fn in counters.items()} != launched:
+        raise RuntimeError("the plain run launched a kernel")
+    rel = ((grad_k - grad_p).norm() / grad_p.norm()).item()
+    print(f"[train] 32x32x16 grid, 65,536 points, {nsec} sections (budget {budget}), rate "
+          f"{RATE}, one seed: loss {loss_k:.6f} with kernels, {loss_p:.6f} with plain versions; "
+          f"relative L2 of the gradient ({grad_p.numel()} values) {rel:.3e}")
+    if not (rel <= E2E_BOUND and abs(loss_k - loss_p) <= E2E_BOUND * abs(loss_p)):
+        raise RuntimeError(f"kernels and plain versions disagree through the train step: {rel}")
+    return total
 
 
 def main():
@@ -279,17 +728,33 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     k1 = phase_k1()
-    k5 = phase_k5()
-    launches = phase_serve()
+    k5, k5b = phase_k5()
+    serve = phase_serve()
+    k4 = phase_k4()
+    k1d, k2, replay_launches = phase_attention_train()
+    train = phase_train()
+    pallas = "gaot3d_tpu/ops/pallas_attention.py"
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda",
-         "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu",
-         "replaces": "gaot3d_tpu/ops/pallas_attention.py:394",
-         "launches": launches["k1"], **k1},
+         "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:394",
+         "launches": serve["k1"], **k1},
+        {"name": "flash_attn_fwd_dropout", "route": "cuda",
+         "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:144",
+         "launches": train["k1"], **k1d},
+        {"name": "flash_attn_bwd", "route": "cuda",
+         "source": "gaot3d_tpu_torch/csrc/flash_attn_bwd.cu", "replaces": f"{pallas}:502",
+         "launches": train["k2"], **k2},
+        {"name": "dropout_bits", "route": "cuda",
+         "source": "gaot3d_tpu_torch/csrc/dropout_bits.cu", "replaces": f"{pallas}:709",
+         "launches": replay_launches, **k4},
         {"name": "encoder_payload", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/encoder_payload.cu",
          "replaces": "gaot3d_tpu/ops/pallas_encoder.py:203",
-         "launches": launches["k5"], **k5},
+         "launches": serve["k5"] + train["k5"], **k5},
+        {"name": "encoder_payload_bwd", "route": "cuda",
+         "source": "gaot3d_tpu_torch/csrc/encoder_payload_bwd.cu",
+         "replaces": "gaot3d_tpu/ops/pallas_encoder.py:246",
+         "launches": train["k5b"], **k5b},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

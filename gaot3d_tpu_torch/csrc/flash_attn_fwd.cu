@@ -1,11 +1,20 @@
-// Non-causal flash-attention forward for Hopper (sm_90a), eval path.
+// Non-causal flash-attention forward for Hopper (sm_90a), eval and train.
 //
 // Replaces gaot3d_tpu/ops/pallas_attention.py `_flash_fwd_impl` (kernel
-// `_make_fwd_kernel`) at dropout rate 0. Same math: q is prescaled by
-// 1/sqrt(D) in f32 and rounded back to the input type; an online softmax runs
-// over key tiles in f32; P is rounded to the value type before P.V; the
-// denominator uses the unrounded P. Outputs `out` (input type) and
-// lse = m + log(max(l, 1e-30)) (f32), which the backward pass will need.
+// `_make_fwd_kernel`). Same math: q is prescaled by 1/sqrt(D) in f32 and
+// rounded back to the input type; an online softmax runs over key tiles in
+// f32; P is rounded to the value type before P.V; the denominator uses the
+// unrounded P. Outputs `out` (input type) and lse = m + log(max(l, 1e-30))
+// (f32), which the backward pass needs.
+//
+// Probability dropout (training): the denominator sums the probabilities
+// BEFORE dropout; a kept probability is multiplied by 1/(1-rate), a dropped
+// one set to 0, and only then is P rounded to the value type for P.V. The
+// keep bits come from the counter-based stream of philox.cuh, or from an
+// explicit [bh, sq, skv] tensor. The stream hands out four words per 2x2
+// block of (q row, key), so the tensor-core body maps its fragment rows
+// (g, g + 8) to the q rows (2g, 2g + 1) of the warp's 16: a thread's four
+// scores per 8-key block are then exactly one Philox call.
 //
 // On the TPU the kv-block axis was a sequential grid dimension with the
 // running (m, l, acc) in VMEM scratch. Here one CTA owns a 64-row q tile of
@@ -33,7 +42,11 @@
 
 #include <type_traits>
 
+#include "philox.cuh"
+
 namespace {
+
+using gaot::DropoutParams;
 
 constexpr int BLOCK_M = 64;  // q rows per CTA, one per thread
 constexpr int BLOCK_N = 64;  // keys per shared-memory tile
@@ -65,7 +78,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(BLOCK_M)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int sq, int skv, float scale) {
+                     float* __restrict__ lse, int sq, int skv, float scale,
+                     bool drop, DropoutParams dp) {
   __shared__ __align__(16) float ks[BLOCK_N][D];
   __shared__ __align__(16) float vs[BLOCK_N][D];
 
@@ -87,6 +101,7 @@ __global__ void __launch_bounds__(BLOCK_M)
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
   float m = -INFINITY;
   float l = 0.f;
+  const float kept = drop ? dp.inv_keep : 1.f;  // factor of a kept probability
 
   for (int kv0 = 0; kv0 < skv; kv0 += BLOCK_N) {
     __syncthreads();  // every thread is done with the previous tile
@@ -125,12 +140,24 @@ __global__ void __launch_bounds__(BLOCK_M)
     const float alpha = expf(m - m_safe);
 #pragma unroll
     for (int d = 0; d < D; ++d) acc[d] *= alpha;
+    uint64_t keep = ~0ull;  // bit j: key kv0 + j of this row is kept
+    if (drop) {
+      keep = 0ull;
+#pragma unroll 1
+      for (int j = 0; j < BLOCK_N; j += 2) {
+        uint32_t w[4];
+        gaot::dropout_block_bits(dp, bh, row, kv0 + j, sq, skv, w);
+        const int o = (row & 1) * 2;
+        keep |= (uint64_t)(w[o] >= dp.thresh) << j;
+        keep |= (uint64_t)(w[o + 1] >= dp.thresh) << (j + 1);
+      }
+    }
     float psum = 0.f;
 #pragma unroll
     for (int j = 0; j < BLOCK_N; ++j) {
       const float p = expf(s[j] - m_safe);
-      psum += p;
-      const float pr = Cvt<T>::round(p);
+      psum += p;  // the denominator sums the probabilities before dropout
+      const float pr = Cvt<T>::round((keep >> j) & 1ull ? p * kept : 0.f);
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
         const float4 vv = *reinterpret_cast<const float4*>(&vs[j][d]);
@@ -161,7 +188,8 @@ __global__ void __launch_bounds__(BLOCK_M)
 // accumulator to the next product in registers. K sits in shared memory
 // row-major and V transposed, both padded by 8 elements per row so that the
 // fragment loads hit 32 distinct banks. Row max and row sum are reduced over
-// the 4 lanes that share a row.
+// the 4 lanes that share a row. Fragment rows (g, g + 8) hold the q rows
+// (2g, 2g + 1) of the warp's 16, see the note on dropout above.
 // ---------------------------------------------------------------------------
 constexpr int MMA_WARPS = 4;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -189,13 +217,13 @@ __device__ __forceinline__ uint32_t load_q_pair(const __nv_bfloat16* qb, int row
   return pack_bf16(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale));
 }
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(MMA_WARPS * 32)
     flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                         int sq, int skv, float scale) {
+                         int sq, int skv, float scale, DropoutParams dp) {
   constexpr int KS = D + 8;        // K row stride (elements)
   constexpr int VS = BLOCK_N + 8;  // V^T row stride (elements)
   constexpr int NT = MMA_WARPS * 32;
@@ -208,8 +236,8 @@ __global__ void __launch_bounds__(MMA_WARPS * 32)
   const int g = lane >> 2;  // row within the 8-row half of the fragment
   const int t = lane & 3;   // column pair
   const int bh = blockIdx.y;
-  const int r0 = blockIdx.x * BLOCK_M + warp * 16 + g;
-  const int r1 = r0 + 8;
+  const int r0 = blockIdx.x * BLOCK_M + warp * 16 + 2 * g;
+  const int r1 = r0 + 1;
   const __nv_bfloat16* qb = q + (size_t)bh * sq * D;
   const __nv_bfloat16* kb = k + (size_t)bh * skv * D;
   const __nv_bfloat16* vb = v + (size_t)bh * skv * D;
@@ -299,12 +327,20 @@ __global__ void __launch_bounds__(MMA_WARPS * 32)
     uint32_t pa[BLOCK_N / 16][4];
 #pragma unroll
     for (int nb = 0; nb < BLOCK_N / 8; ++nb) {
-      const float p0 = exp2f(fmaf(s[nb][0], LOG2E, -ms0));
-      const float p1 = exp2f(fmaf(s[nb][1], LOG2E, -ms0));
-      const float p2 = exp2f(fmaf(s[nb][2], LOG2E, -ms1));
-      const float p3 = exp2f(fmaf(s[nb][3], LOG2E, -ms1));
-      l0 += p0 + p1;
+      float p0 = exp2f(fmaf(s[nb][0], LOG2E, -ms0));
+      float p1 = exp2f(fmaf(s[nb][1], LOG2E, -ms0));
+      float p2 = exp2f(fmaf(s[nb][2], LOG2E, -ms1));
+      float p3 = exp2f(fmaf(s[nb][3], LOG2E, -ms1));
+      l0 += p0 + p1;  // the denominator sums the probabilities before dropout
       l1 += p2 + p3;
+      if constexpr (DROP) {
+        float km[4];  // (r0, c), (r0, c + 1), (r1, c), (r1, c + 1): one 2x2 block
+        gaot::dropout_block_scale(dp, bh, r0, kv0 + nb * 8 + 2 * t, sq, skv, km);
+        p0 *= km[0];
+        p1 *= km[1];
+        p2 *= km[2];
+        p3 *= km[3];
+      }
       pa[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(p0, p1);
       pa[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2, p3);
     }
@@ -348,28 +384,36 @@ __global__ void __launch_bounds__(MMA_WARPS * 32)
 
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, void* out, float* lse,
-            int bh, int sq, int skv, float scale, cudaStream_t stream) {
+            int bh, int sq, int skv, float scale, bool drop, DropoutParams dp,
+            cudaStream_t stream) {
   const dim3 grid((sq + BLOCK_M - 1) / BLOCK_M, bh);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
   if constexpr (std::is_same_v<T, __nv_bfloat16> && D % 16 == 0) {
-    flash_fwd_mma_kernel<D><<<grid, MMA_WARPS * 32, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), lse, sq, skv, scale);
+    if (drop) {
+      flash_fwd_mma_kernel<D, true><<<grid, MMA_WARPS * 32, 0, stream>>>(
+          qt, kt, vt, ot, lse, sq, skv, scale, dp);
+    } else {
+      flash_fwd_mma_kernel<D, false><<<grid, MMA_WARPS * 32, 0, stream>>>(
+          qt, kt, vt, ot, lse, sq, skv, scale, dp);
+    }
   } else {
-    flash_fwd_kernel<T, D><<<grid, BLOCK_M, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), lse, sq, skv, scale);
+    flash_fwd_kernel<T, D><<<grid, BLOCK_M, 0, stream>>>(qt, kt, vt, ot, lse, sq, skv,
+                                                         scale, drop, dp);
   }
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* out,
-               float* lse, int bh, int sq, int skv, int d, float scale,
-               cudaStream_t stream) {
+               float* lse, int bh, int sq, int skv, int d, float scale, bool drop,
+               DropoutParams dp, cudaStream_t stream) {
   switch (d) {
-    case 8: launch<T, 8>(q, k, v, out, lse, bh, sq, skv, scale, stream); break;
-    case 16: launch<T, 16>(q, k, v, out, lse, bh, sq, skv, scale, stream); break;
-    case 32: launch<T, 32>(q, k, v, out, lse, bh, sq, skv, scale, stream); break;
-    case 64: launch<T, 64>(q, k, v, out, lse, bh, sq, skv, scale, stream); break;
+    case 8: launch<T, 8>(q, k, v, out, lse, bh, sq, skv, scale, drop, dp, stream); break;
+    case 16: launch<T, 16>(q, k, v, out, lse, bh, sq, skv, scale, drop, dp, stream); break;
+    case 32: launch<T, 32>(q, k, v, out, lse, bh, sq, skv, scale, drop, dp, stream); break;
+    case 64: launch<T, 64>(q, k, v, out, lse, bh, sq, skv, scale, drop, dp, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -381,16 +425,25 @@ extern "C" {
 
 // q [bh, sq, d], k and v [bh, skv, d], out [bh, sq, d] in one type
 // (dtype 0: float32, 1: bfloat16), lse [bh, sq] float32; all contiguous.
-// Returns the launch's cudaError_t (0 on success).
+// drop != 0 applies probability dropout: keep iff bits >= thresh, kept
+// probabilities times inv_keep; the bits are `bits` [bh, sq, skv] uint32 when
+// given, else drawn from (seed_lo, seed_hi). Returns the launch's cudaError_t
+// (0 on success).
 int gaot_flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
                         void* lse, int bh, int sq, int skv, int d, int dtype,
-                        float scale, void* stream) {
+                        float scale, int drop, const void* bits, unsigned int seed_lo,
+                        unsigned int seed_hi, unsigned int thresh, float inv_keep,
+                        void* stream) {
   if (bh <= 0 || bh > 65535 || sq <= 0 || skv <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0) return dispatch_d<float>(q, k, v, out, l, bh, sq, skv, d, scale, s);
+  const DropoutParams dp{static_cast<const uint32_t*>(bits), seed_lo, seed_hi, thresh,
+                         inv_keep};
+  const bool dr = drop != 0;
+  if (dtype == 0)
+    return dispatch_d<float>(q, k, v, out, l, bh, sq, skv, d, scale, dr, dp, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, l, bh, sq, skv, d, scale, s);
+    return dispatch_d<__nv_bfloat16>(q, k, v, out, l, bh, sq, skv, d, scale, dr, dp, s);
   return (int)cudaErrorInvalidValue;
 }
 

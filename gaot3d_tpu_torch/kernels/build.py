@@ -5,6 +5,8 @@ A library goes to `.build/gaot3d_tpu_torch/` and is rebuilt when any of its
 sources is newer than it. The compiler writes to a temporary name that is
 renamed into place, so concurrent processes never load a half-written file.
 A failed build raises with the compiler's output: nothing falls back.
+Libraries build independently of each other, so `build_together` can run one
+compiler per source at the same time.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Sequence
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -24,7 +27,8 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the two dicts; each library has its own lock
+_name_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -53,6 +57,8 @@ def load_library(name: str, sources: Sequence[str],
     """Compile `sources` with `command(out_path)` into BUILD_DIR/lib{name}.so
     when stale, load it and cache the handle for the process."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _loaded:
             return _loaded[name]
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -86,8 +92,18 @@ def build_log(name: str) -> str:
         return f.read()
 
 
-def load_cuda_library(name: str, source: str) -> ctypes.CDLL:
-    """nvcc one csrc/ file with a plain C interface into a shared library."""
+def load_cuda_library(name: str, source: str, headers: Sequence[str] = ()) -> ctypes.CDLL:
+    """nvcc one csrc/ file with a plain C interface into a shared library;
+    `headers` are the csrc/ files it includes (a newer one rebuilds it)."""
     src = os.path.join(CSRC_DIR, source)
+    deps = [src] + [os.path.join(CSRC_DIR, h) for h in headers]
     return load_library(
-        name, [src], lambda out: [find_nvcc(), *NVCC_FLAGS, "-o", out, src])
+        name, deps, lambda out: [find_nvcc(), *NVCC_FLAGS, "-o", out, src])
+
+
+def build_together(loaders: Sequence[Callable[[], ctypes.CDLL]]) -> None:
+    """Run the given library loaders at the same time, one thread (and so one
+    compiler process) each; raises the first failure."""
+    with ThreadPoolExecutor(max_workers=max(1, len(loaders))) as pool:
+        for fut in [pool.submit(fn) for fn in loaders]:
+            fut.result()

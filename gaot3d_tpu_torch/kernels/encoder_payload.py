@@ -1,10 +1,13 @@
-"""Fused encoder payload + scatter (K5): the CUDA kernel
-`csrc/encoder_payload.cu` and its plain PyTorch twins.
+"""Fused encoder payload + scatter, forward (K5, `csrc/encoder_payload.cu`)
+and backward (K5b, `csrc/encoder_payload_bwd.cu`), with their plain PyTorch
+versions and the `torch.autograd.Function` that joins them.
 
-Replaces gaot3d_tpu/ops/pallas_encoder.py `_payload_fwd_call` (reached
-through `encoder_payload`) fused with the masked segment sum that consumed its
-output (models/fused_encoder.py `_pass_chunk` + `_reduce`). The kernel's
-design notes, and what bounds it on an H100, are in its source.
+Replaces gaot3d_tpu/ops/pallas_encoder.py `_payload_fwd_call` and
+`_payload_bwd_call` (reached through `encoder_payload` and its custom VJP)
+fused with the masked segment sum that consumed the payload
+(models/fused_encoder.py `_pass_chunk` + `_reduce`) and that sum's gather
+backward. The kernels' design notes, and what bounds them on an H100, are in
+their sources.
 
 The per-row payload is [ mlp([point | cell]) * feats | 1 | d | y | yy^T sym ]
 with y = point - cell centre, d = |y| and the symmetric second moments in the
@@ -15,13 +18,19 @@ slot whose cell lies outside the grid is dropped, as XLA's scatter drops it.
   [B, M, C+11]: the kernel for CUDA tensors, the twin for CPU tensors.
 - `encoder_payload_reference` is exactly the JAX `encoder_payload` output.
 - `encoder_accumulate_reference` is that payload plus a masked `index_add_`.
+- `encoder_accumulate_backward` gives (dfeats, dW, db) from the accumulator's
+  cotangent: the kernel for CUDA tensors, for CPU tensors
+  `encoder_accumulate_backward_reference`, which is autograd through the
+  payload reference. Positions get no gradient, as in the JAX code.
+- `accumulate` is the differentiable entry point. It adds into `acc` in
+  place; the gradient with respect to `acc` is the identity.
 
 MLP weights are passed in torch layout (weight [out, in], bias [out]).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +49,17 @@ def _library() -> ctypes.CDLL:
     lib.gaot_encoder_accumulate.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6
         + [ctypes.c_void_p] * 2)
+    return lib
+
+
+def _backward_library() -> ctypes.CDLL:
+    lib = load_cuda_library("encoder_payload_bwd", "encoder_payload_bwd.cu")
+    lib.gaot_encoder_backward.restype = ctypes.c_int
+    lib.gaot_encoder_backward.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6
+        + [ctypes.c_void_p] * 4)
+    lib.gaot_encoder_backward_smem.restype = ctypes.c_longlong
+    lib.gaot_encoder_backward_smem.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -87,11 +107,57 @@ def encoder_accumulate_reference(pos, feats, lat_idx, mask, weights, biases,
     return acc
 
 
+def encoder_accumulate_backward_reference(
+        g: torch.Tensor, pos, feats, lat_idx, mask, weights, biases, grid: LatentGrid,
+        chunk: Optional[int] = None
+) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+    """Plain version of `encoder_accumulate_backward`: autograd through the
+    payload reference, `chunk` nodes at a time, each row's cotangent gathered
+    from g [B, M, C+11] at its cell (zero for rows the forward skipped)."""
+    B, n, K = lat_idx.shape
+    M, P = g.shape[1], g.shape[2]
+    keep = mask & (lat_idx >= 0) & (lat_idx < M)
+    idx = torch.where(keep, lat_idx, torch.zeros_like(lat_idx)).long()
+    ws = [w.detach().requires_grad_() for w in weights]
+    bs = [b.detach().requires_grad_() for b in biases]
+    dfeats = torch.zeros_like(feats)
+    dws = [torch.zeros_like(w) for w in ws]
+    dbs = [torch.zeros_like(b) for b in bs]
+    step = n if chunk is None else chunk
+    for c0 in range(0, n, step):
+        c1 = min(c0 + step, n)
+        f = feats[:, c0:c1].detach().requires_grad_()
+        with torch.enable_grad():
+            payload = encoder_payload_reference(pos[:, c0:c1], f, lat_idx[:, c0:c1], ws, bs,
+                                                grid)
+        rows = torch.gather(g, 1, idx[:, c0:c1].reshape(B, -1, 1).expand(B, (c1 - c0) * K, P))
+        rows = rows * keep[:, c0:c1].reshape(B, -1, 1)
+        grads = torch.autograd.grad(payload, [f, *ws, *bs], rows)
+        dfeats[:, c0:c1] = grads[0]
+        for acc_w, gw in zip(dws, grads[1:1 + len(ws)]):
+            acc_w += gw
+        for acc_b, gb in zip(dbs, grads[1 + len(ws):]):
+            acc_b += gb
+    return dfeats, dws, dbs
+
+
 def _pack_mlp(weights, biases) -> torch.Tensor:
     parts = []
     for w, b in zip(weights, biases):
         parts += [w.t().reshape(-1), b.reshape(-1)]
     return torch.cat(parts).to(torch.float32).contiguous()
+
+
+def _unpack_mlp(packed: torch.Tensor, weights, biases):
+    """Inverse of `_pack_mlp`: tensors shaped like `weights` and `biases`."""
+    ws, bs, off = [], [], 0
+    for w, b in zip(weights, biases):
+        out, inp = w.shape
+        ws.append(packed[off:off + inp * out].reshape(inp, out).t().contiguous())
+        off += inp * out
+        bs.append(packed[off:off + out].clone())
+        off += out
+    return ws, bs
 
 
 def _check(pos, feats, lat_idx, mask, weights, biases, grid, acc):
@@ -156,3 +222,81 @@ def encoder_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Te
 
 
 encoder_accumulate.launches = 0
+
+
+def encoder_accumulate_backward(
+        g: torch.Tensor, pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Tensor,
+        mask: torch.Tensor, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
+        grid: LatentGrid, chunk: Optional[int] = None
+) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+    """Gradients of `encoder_accumulate` given the accumulator's cotangent g
+    [B, M, C+11]: (dfeats [B,n,C], dW per layer in torch layout, db per
+    layer). `chunk` only bounds the plain version's memory."""
+    if pos.device.type == "cpu":
+        return encoder_accumulate_backward_reference(g, pos, feats, lat_idx, mask, weights,
+                                                     biases, grid, chunk)
+    if pos.device.type != "cuda":
+        raise ValueError(f"encoder_accumulate_backward: no kernel for device {pos.device}")
+    _check(pos, feats, lat_idx, mask, weights, biases, grid, g)
+    params = _pack_mlp(weights, biases)
+    B, n, K = lat_idx.shape
+    hid, C = weights[0].shape[0], feats.shape[-1]
+    lib = _backward_library()
+    need = lib.gaot_encoder_backward_smem(params.numel(), len(weights) - 2, hid, C)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"the backward needs {need} bytes of shared memory for this kernel "
+                         f"MLP, more than the {MAX_SHARED_BYTES} a block has")
+    dfeats = torch.zeros_like(feats)
+    dparams = torch.zeros_like(params)
+    _, d1, d2 = grid.dims
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gaot_encoder_backward(
+            pos.data_ptr(), feats.data_ptr(), lat_idx.data_ptr(), mask.data_ptr(),
+            params.data_ptr(), params.numel(), len(weights) - 2, hid, C, B, n, K,
+            grid.num_tokens, d1, d2, *grid.lo, *grid.spacing, g.data_ptr(),
+            dfeats.data_ptr(), dparams.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"encoder_payload_bwd launch failed: cudaError {err}")
+    encoder_accumulate_backward.launches += 1
+    dws, dbs = _unpack_mlp(dparams, weights, biases)
+    return dfeats, dws, dbs
+
+
+encoder_accumulate_backward.launches = 0
+
+
+class _EncoderAccumulate(torch.autograd.Function):
+    """K5 forward, K5b backward. `acc` is updated in place and returned; its
+    gradient is the identity, so one accumulator can be threaded through the
+    degree sections."""
+
+    @staticmethod
+    def forward(ctx, acc, pos, feats, lat_idx, mask, grid, chunk, *mlp):
+        n_layers = len(mlp) // 2
+        weights, biases = mlp[:n_layers], mlp[n_layers:]
+        encoder_accumulate(pos, feats, lat_idx, mask, [w.detach() for w in weights],
+                           [b.detach() for b in biases], grid, acc, chunk)
+        ctx.mark_dirty(acc)
+        ctx.save_for_backward(pos, feats, lat_idx, mask, *mlp)
+        ctx.static = (grid, chunk, n_layers)
+        return acc
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, feats, lat_idx, mask, *mlp = ctx.saved_tensors
+        grid, chunk, n_layers = ctx.static
+        dfeats, dws, dbs = encoder_accumulate_backward(
+            g.contiguous(), pos, feats, lat_idx, mask, [w.detach() for w in mlp[:n_layers]],
+            [b.detach() for b in mlp[n_layers:]], grid, chunk)
+        return (g, None, dfeats, None, None, None, None, *dws, *dbs)
+
+
+def accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Tensor,
+               mask: torch.Tensor, weights: Sequence[torch.Tensor],
+               biases: Sequence[torch.Tensor], grid: LatentGrid, acc: torch.Tensor,
+               chunk: Optional[int] = None) -> torch.Tensor:
+    """Differentiable `encoder_accumulate` (with respect to feats, weights,
+    biases and acc): adds into `acc` in place and returns it."""
+    return _EncoderAccumulate.apply(acc, pos, feats, lat_idx, mask, grid, chunk, *weights,
+                                    *biases)

@@ -14,16 +14,29 @@ from .transformer import AttentionConfig, FFNConfig, TransformerConfig
 SUPPORTED_MODELS = ["gaot_3d"]
 
 
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; raises when it names a CUDA device and
+    none is present, so that nothing runs on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but no CUDA device is present; pass device='cpu' "
+            "to run the plain versions on the CPU")
+    return device
+
+
 def init_model(input_size: int, output_size: int, model: str = "gaot_3d",
                magno_config: Optional[MAGNOConfig] = None,
                attn_config: Optional[TransformerConfig] = None,
                latent_tokens=(32, 32, 32), grid: Optional[LatentGrid] = None, *,
                generator: Optional[torch.Generator] = None,
-               device=None) -> GAOT3D:
+               device="cuda") -> GAOT3D:
     """Build a GAOT3D with torch.nn.Linear-style random weights drawn from
-    `generator` (a CPU torch.Generator), then move it to `device`."""
+    `generator` (a CPU torch.Generator), then move it to `device`: the card
+    unless the caller asks for the CPU."""
     if model.lower() != "gaot_3d":
         raise ValueError(f"model {model} not supported currently! supported: {SUPPORTED_MODELS}")
+    require_device(device)
     net = GAOT3D(input_size, output_size, magno_config, attn_config, latent_tokens, grid)
     for m in net.modules():
         if isinstance(m, (torch.nn.Linear, torch.nn.Conv1d)):

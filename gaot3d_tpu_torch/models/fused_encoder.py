@@ -6,10 +6,12 @@ sectioned layouts).
 Every valid (node, slot) edge adds one payload row
 [ gno values (C) | 1 | d | y (3) | yy^T sym (6) ] into acc[b, cell]; the
 encoder-payload kernel K5 (kernels/encoder_payload.py) computes and scatters
-the rows in one pass. `_finalize` turns the accumulator into the GNO mean and
-the statistical features: count, mean distance, distance variance, centroid
-offset and PCA eigenvalues of the local covariance, z-normalised over the
-whole batch (ddof 1) and fed through the geoembed MLP.
+the rows in one pass, and under autograd its backward K5b returns the
+gradients of the lifted features and of the kernel MLP. `_finalize` turns the
+accumulator into the GNO mean and the statistical features: count, mean
+distance, distance variance, centroid offset and PCA eigenvalues of the local
+covariance, z-normalised over the whole batch (ddof 1) and fed through the
+geoembed MLP.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels.encoder_payload import encoder_accumulate
+from ..kernels.encoder_payload import accumulate
 from ..ops.eigh3 import eigvalsh3x3_desc
 from ..ops.grid_graph import EdgeSlots, LatentGrid, SectionedEdgeSlots
 from .integral_transform import IntegralTransform, effective_chunk
@@ -78,7 +80,7 @@ class FusedEncoderScale:
                      lifted_feats: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
         """Add the payload of one [B, n, K] slot tensor into acc."""
         fcs = self.gno.channel_mlp.fcs
-        return encoder_accumulate(
+        return accumulate(
             point_pos.contiguous(), lifted_feats.contiguous(),
             slots.lat_idx.contiguous(), slots.mask.contiguous(),
             [fc.weight for fc in fcs], [fc.bias for fc in fcs], self.grid, acc,
@@ -88,10 +90,18 @@ class FusedEncoderScale:
         """Moment accumulator [B, M, C+11] -> (gno_out, geo_out)."""
         B, M, _ = acc.shape
         C = self.lifting_channels
-        cnt = acc[..., C]
-        d_sum = acc[..., C + 1]
-        y_sum = acc[..., C + 2:C + 5]
-        yy = acc[..., C + 5:]  # sym moments 00, 01, 02, 11, 12, 22
+        # The 11 moment columns are functions of the positions alone, and
+        # positions take no gradient (the JAX VJP returns none either), so
+        # they are cut from the graph. Differentiating them would also put
+        # NaN into the accumulator's cotangent: the closed-form eigenvalues
+        # have an infinite derivative at an isotropic covariance (every empty
+        # or single-point cell after the 1e-6 regulariser), and inf * 0 from
+        # the torch.where guards below is NaN.
+        moments = acc[..., C:].detach()
+        cnt = moments[..., 0]
+        d_sum = moments[..., 1]
+        y_sum = moments[..., 2:5]
+        yy = moments[..., 5:]  # sym moments 00, 01, 02, 11, 12, 22
         n_safe = cnt.clamp_min(1.0)
         gno_out = acc[..., :C] / n_safe[..., None]
 

@@ -1,8 +1,10 @@
 """GAOT3D: MAGNO encoder -> U-ViT processor -> MAGNO decoder (port of
 gaot3d_tpu/models/gaot3d.py).
 
-The forward pass takes precomputed edge slots for both sides (the serving
-path); the on-device stencil build is not ported. Patchify and unpatchify
+The forward pass takes precomputed edge slots for both sides; the on-device
+stencil build is not ported. In training the forward takes a
+`torch.Generator`, from which the processor draws its attention-dropout
+seeds. Patchify and unpatchify
 are the reference's exact reshapes and transposes.
 """
 from __future__ import annotations
@@ -92,7 +94,8 @@ class GAOT3D(nn.Module):
         self.register_buffer("pos_emb", torch.from_numpy(absolute_sincos_embedding(ppos, width))
                              if self.absolute else None, persistent=False)
 
-    def process(self, rndata: torch.Tensor) -> torch.Tensor:
+    def process(self, rndata: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Patchify -> transformer -> unpatchify: [B, M, C] -> [B, M, C]."""
         D, H, W = self.grid.dims
         P = self.attn_config.patch_size
@@ -106,7 +109,7 @@ class GAOT3D(nn.Module):
             x = x + self.pos_emb
         else:
             rel = self.patch_pos
-        x = self.processor(x, relative_positions=rel)
+        x = self.processor(x, relative_positions=rel, generator=generator)
         x = x.reshape(B, nd, nh, nw, P, P, P, C)
         return x.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, D * H * W, C)
 
@@ -114,10 +117,12 @@ class GAOT3D(nn.Module):
                 point_mask: torch.Tensor, query_pos: Optional[torch.Tensor] = None,
                 query_mask: Optional[torch.Tensor] = None, condition=None,
                 encoder_slots: Optional[List] = None,
-                decoder_slots: Optional[List] = None) -> torch.Tensor:
+                decoder_slots: Optional[List] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, N, 3] points with [B, N, C_in] features -> [B, Q, out] on the
         query points (the input points by default). The masks are accepted
-        for signature parity; with precomputed slots the slots carry them."""
+        for signature parity; with precomputed slots the slots carry them.
+        `generator` seeds the attention dropout of a training forward."""
         if condition is not None:
             raise NotImplementedError("conditioned models are not ported yet")
         if encoder_slots is None or decoder_slots is None:
@@ -132,5 +137,5 @@ class GAOT3D(nn.Module):
         if dec is not enc:
             check_slots(dec, query_pos.shape[0], self.grid.num_tokens)
         rndata = self.encoder(point_pos, point_feats, enc)
-        rndata = self.process(rndata)
+        rndata = self.process(rndata, generator)
         return self.decoder(rndata, query_pos, dec)

@@ -12,13 +12,19 @@ Reference behaviours kept as they are:
     block, num_layers // 2 decoder blocks with skip_proj(cat[x, skip]).
 
 Module names are the reference state-dict keys (`processor.encoder_layers.0
-.attn.q_proj`, ...). Attention runs through ops.attention (the K1 kernel on
-CUDA).
+.attn.q_proj`, ...). Attention runs through ops.attention (the K1 and K2
+kernels on CUDA).
+
+Attention-probability dropout (training): the JAX code draws one key per
+attention layer through `make_rng("dropout")`. Here the processor draws one
+64-bit seed per block, in block order, from the `torch.Generator` its forward
+is handed, and each attention layer passes its seed to the kernels. There is
+no global random state: a training forward without a generator raises.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -103,7 +109,10 @@ class GroupQueryAttention(nn.Module):
         self.v_proj = nn.Linear(output_size, kv_hidden, bias=False)
         self.o_proj = nn.Linear(cfg.hidden_size, output_size, bias=False)
 
-    def forward(self, x: torch.Tensor, relative_positions=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relative_positions=None,
+                seed: Optional[int] = None) -> torch.Tensor:
+        """`seed` is this layer's dropout seed; it is needed only in training
+        with atten_dropout > 0."""
         B, S, _ = x.shape
         q = self.q_proj(x).reshape(B, S, self.num_heads, self.head_dim).transpose(1, 2)
         k = self.k_proj(x).reshape(B, S, self.num_kv_heads, self.head_dim).transpose(1, 2)
@@ -118,7 +127,10 @@ class GroupQueryAttention(nn.Module):
         if self.attention_dtype is not None:
             q, k, v = (t.to(self.attention_dtype) for t in (q, k, v))
         rate = self.atten_dropout if self.training else 0.0
-        out = scaled_dot_product_attention(q, k, v, dropout_rate=rate)
+        if rate > 0.0 and seed is None:
+            raise ValueError("attention dropout needs a seed: pass a torch.Generator to the "
+                             "model's forward (or call model.eval())")
+        out = scaled_dot_product_attention(q, k, v, dropout_rate=rate, seed=seed)
         out = out.transpose(1, 2).reshape(B, S, -1).to(x.dtype)
         return self.o_proj(out)
 
@@ -149,11 +161,11 @@ class TransformerBlock(nn.Module):
         self.ffn = FFN(hidden, ffn_config)
         self.skip_proj = nn.Linear(2 * hidden, hidden) if skip_connection else None
 
-    def forward(self, x, relative_positions=None, skip=None):
+    def forward(self, x, relative_positions=None, skip=None, seed: Optional[int] = None):
         if self.skip_proj is not None and skip is not None:
             x = self.skip_proj(torch.cat([x, skip], dim=-1))
         h = self.attn_norm(x) if self.attn_norm is not None else x
-        h = x + self.attn(h, relative_positions)
+        h = x + self.attn(h, relative_positions, seed)
         h = self.ffn_norm(h) if self.ffn_norm is not None else h
         return h + self.ffn(h)
 
@@ -180,18 +192,31 @@ class UViTProcessor(nn.Module):
             block(cfg.use_long_range_skip) for _ in range(n_half))
         self.output_proj = nn.Linear(hidden, output_size) if hidden != output_size else None
 
-    def forward(self, x: torch.Tensor, relative_positions=None) -> torch.Tensor:
+    def layer_seeds(self, generator: Optional[torch.Generator]) -> List[Optional[int]]:
+        """One dropout seed per block, in block order, drawn from `generator`
+        (None each when no generator is given)."""
+        n = len(self.encoder_layers) + len(self.decoder_layers) + (
+            self.middle_layer is not None)
+        if generator is None:
+            return [None] * n
+        draws = torch.randint(0, 2 ** 63 - 1, (n,), dtype=torch.int64, generator=generator,
+                              device=generator.device)
+        return [int(s) for s in draws.tolist()]
+
+    def forward(self, x: torch.Tensor, relative_positions=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.input_proj is not None:
             x = self.input_proj(x)
+        seeds = iter(self.layer_seeds(generator))
         skips = []
         for blk in self.encoder_layers:
-            x = blk(x, relative_positions)
+            x = blk(x, relative_positions, seed=next(seeds))
             skips.append(x)
         if self.middle_layer is not None:
-            x = self.middle_layer(x, relative_positions)
+            x = self.middle_layer(x, relative_positions, seed=next(seeds))
         for blk in self.decoder_layers:
             skip = skips.pop() if self.use_long_range_skip else None
-            x = blk(x, relative_positions, skip=skip)
+            x = blk(x, relative_positions, skip=skip, seed=next(seeds))
         if self.output_proj is not None:
             x = self.output_proj(x)
         return x

@@ -1,24 +1,26 @@
 """Attention dispatch (port of gaot3d_tpu/ops/attention.py
 `scaled_dot_product_attention`).
 
-Every call goes through the flash-attention forward K1
-(kernels/flash_attention.py): its CUDA kernel for CUDA tensors, its plain
-twin for CPU tensors. Probability dropout (training) is not ported yet, so a
-rate above 0 raises.
+Every call goes through the flash-attention kernels
+(kernels/flash_attention.py): K1 forward and, under autograd, K2 backward on
+CUDA tensors, their plain versions on CPU tensors. Probability dropout takes
+its mask from a 64-bit seed or from explicit bits.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import attention
 
 
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                 dropout_rate: float = 0.0) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v for q [B,H,S,D], k, v [B,H,Skv,D]."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention-probability dropout is not ported yet (eval only); "
-            "call model.eval() or set atten_dropout to 0")
-    out, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
-    return out
+                                 dropout_rate: float = 0.0, seed: Optional[int] = None,
+                                 dropout_bits: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v for q [B,H,S,D], k, v [B,H,Skv,D], with
+    dropout on the softmax weights when dropout_rate > 0 (needs `seed` or
+    `dropout_bits` [B*H, S, Skv] uint32)."""
+    return attention(q.contiguous(), k.contiguous(), v.contiguous(), dropout_rate, seed,
+                     dropout_bits)

@@ -7,7 +7,7 @@ precomputed edge structures as call-time arguments like
 `make_edge_arg_model`:
 
     export_inference(model, "model.pt")                          # once
-    infer = load_inference("model.pt", device="cuda")            # serve
+    infer = load_inference("model.pt")                           # serve, on the card
     pred = infer(pos, feats, mask, encoder_slots, decoder_slots)
 
 With sectioned slots, `pos` and `feats` are in the sections' permuted node
@@ -21,7 +21,7 @@ from typing import Callable
 
 import torch
 
-from .models import MAGNOConfig, TransformerConfig, init_model
+from .models import MAGNOConfig, TransformerConfig, init_model, require_device
 from .models.gaot3d import GAOT3D
 from .models.transformer import AttentionConfig, FFNConfig
 from .ops.grid_graph import LatentGrid
@@ -40,7 +40,7 @@ def model_config(model: GAOT3D) -> dict:
     }
 
 
-def model_from_config(config: dict, device=None) -> GAOT3D:
+def model_from_config(config: dict, device="cuda") -> GAOT3D:
     attn = dict(config["attn_config"])
     attn["attn_config"] = AttentionConfig(**attn["attn_config"])
     attn["ffn_config"] = FFNConfig(**attn["ffn_config"])
@@ -76,10 +76,12 @@ def make_edge_arg_model(model: GAOT3D, num_scales: int = 1) -> Callable:
     return infer
 
 
-def load_inference(path: str, device="cpu") -> Callable:
-    """Rebuild an exported model on `device` in eval mode and return its
-    call-time-edges forward (see make_edge_arg_model)."""
+def load_inference(path: str, device="cuda") -> Callable:
+    """Rebuild an exported model on `device` (the card unless the caller asks
+    for the CPU) in eval mode and return its call-time-edges forward (see
+    make_edge_arg_model)."""
+    device = require_device(device)
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    model = model_from_config(blob["config"])
+    model = model_from_config(blob["config"], device="cpu")
     model.load_state_dict(blob["state_dict"], strict=True)
     return make_edge_arg_model(model.to(device).eval())

@@ -1,4 +1,4 @@
-"""Load reference-keyed weights into the port.
+"""Reference-keyed weights in and out of the port.
 
 The port's module and parameter names are the keys that
 gaot3d_tpu/torch_export.py `state_dict_from_params` emits, so a JAX param
@@ -6,7 +6,7 @@ tree exported there loads here with `strict=True` and no second mapping.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -29,3 +29,17 @@ def load_numpy_state_dict(model: GAOT3D, state: Mapping[str, np.ndarray]) -> GAO
     model.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in state.items()},
                           strict=True)
     return model
+
+
+def numpy_state_dict(model: GAOT3D, grads: bool = False) -> Dict[str, np.ndarray]:
+    """The model's parameters as {reference key: np.ndarray}, or with
+    `grads=True` their gradients (every parameter must have one). The keys
+    are those of `state_dict_from_params`, so a JAX param or gradient tree
+    exported there compares entry by entry."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError(f"parameter {name} has no gradient")
+        out[name] = t.detach().cpu().numpy().copy()
+    return out

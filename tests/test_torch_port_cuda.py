@@ -1,4 +1,4 @@
-"""The port's CUDA kernels against their plain twins on the card.
+"""The port's CUDA kernels against their plain versions on the card.
 
 These tests need an NVIDIA GPU with nvcc (the kernels are built from
 gaot3d_tpu_torch/csrc at first use) and skip without one. The file imports no
@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from gaot3d_tpu_torch.kernels import dropout_bits as k4
 from gaot3d_tpu_torch.kernels import encoder_payload as k5
 from gaot3d_tpu_torch.kernels import flash_attention as k1
 from gaot3d_tpu_torch.models import (AttentionConfig, FFNConfig, MAGNOConfig,
@@ -29,10 +30,19 @@ def _exact_f32():
     torch.backends.cudnn.allow_tf32 = False
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+def _assert_out_close(out, ref):
+    """f32: 1e-5 absolute. bf16: 2e-2 of the plain output's max-abs, which is
+    two bf16 rounding steps at the top of the range (an absolute bound would
+    exceed a typical value at long sequences, where |out| ~ 1/sqrt(Skv))."""
+    err = (out.float() - ref.float()).abs().max().item()
+    limit = 1e-5 if out.dtype == torch.float32 else 2e-2 * ref.float().abs().max().item()
+    assert err <= limit, f"max abs error {err} over the limit {limit}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("S,Skv,D", [(1000, 1000, 32), (4096, 4096, 32), (77, 130, 8),
                                        (200, 333, 64), (129, 64, 16)])
-def test_flash_kernel_matches_twin(dtype, atol, S, Skv, D):
+def test_flash_kernel_matches_twin(dtype, S, Skv, D):
     rng = np.random.default_rng(S + D)
     q, k, v = (torch.from_numpy(rng.normal(size=(1, 4, s, D)).astype(np.float32))
                .to("cuda", dtype) for s in (S, Skv, Skv))
@@ -42,14 +52,11 @@ def test_flash_kernel_matches_twin(dtype, atol, S, Skv, D):
     assert k1.flash_attention.launches == before + 1
     ref, ref_lse = k1.flash_attention_reference(q, k, v)
     assert out.dtype == dtype and torch.isfinite(out.float()).all()
-    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    _assert_out_close(out, ref)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.parametrize("hid,C,K", [(64, 32, 5), (64, 32, 1), (16, 8, 3)])
-def test_encoder_kernel_matches_twin(hid, C, K):
-    """Float atomics sum in a different order on every run: the bound is
-    relative 1e-5 on the accumulator."""
+def _encoder_problem(hid, C, K):
     rng = np.random.default_rng(hid + K)
     B, n, grid = 1, 20000, LatentGrid(dims=(16, 16, 8))
     M = grid.num_tokens
@@ -65,7 +72,15 @@ def test_encoder_kernel_matches_twin(hid, C, K):
     bs = [torch.from_numpy(rng.normal(size=sizes[i + 1]).astype(np.float32) * 0.1).cuda()
           for i in range(4)]
     args = [torch.from_numpy(x).cuda() for x in (pos, feats, lat, msk)]
-    acc = torch.zeros((B, M, C + 11), device="cuda")
+    return rng, args, ws, bs, grid
+
+
+@pytest.mark.parametrize("hid,C,K", [(64, 32, 5), (64, 32, 1), (16, 8, 3)])
+def test_encoder_kernel_matches_twin(hid, C, K):
+    """Float atomics sum in a different order on every run: the bound is
+    relative 1e-5 on the accumulator."""
+    _, args, ws, bs, grid = _encoder_problem(hid, C, K)
+    acc = torch.zeros((1, grid.num_tokens, C + 11), device="cuda")
     before = k5.encoder_accumulate.launches
     k5.encoder_accumulate(*args, ws, bs, grid, acc)
     torch.cuda.synchronize()
@@ -74,6 +89,134 @@ def test_encoder_kernel_matches_twin(hid, C, K):
                                           torch.zeros_like(acc), chunk=8192)
     rel = ((acc - ref).abs().max() / ref.abs().max()).item()
     assert rel <= 1e-5
+
+
+@pytest.mark.parametrize("hid,C,K", [(64, 32, 5), (64, 32, 1), (16, 8, 3), (32, 16, 2)])
+def test_encoder_backward_kernel_matches_plain(hid, C, K):
+    """K5b against autograd through the payload reference. dW and db sum
+    20000*K rows in a run-dependent order (per-CTA partial sums, then float
+    atomics): relative 1e-4 of each tensor's max-abs."""
+    rng, args, ws, bs, grid = _encoder_problem(hid, C, K)
+    g = torch.from_numpy(rng.normal(size=(1, grid.num_tokens, C + 11)).astype(np.float32)).cuda()
+    before = k5.encoder_accumulate_backward.launches
+    got = k5.encoder_accumulate_backward(g, *args, ws, bs, grid)
+    torch.cuda.synchronize()
+    assert k5.encoder_accumulate_backward.launches == before + 1
+    want = k5.encoder_accumulate_backward_reference(g, *args, ws, bs, grid, chunk=4096)
+    pairs = [(got[0], want[0])] + list(zip(got[1], want[1])) + list(zip(got[2], want[2]))
+    for a, b in pairs:
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
+
+
+def test_encoder_autograd_threads_one_accumulator():
+    """`accumulate` twice into one accumulator under autograd equals the
+    plain versions' gradients; the accumulator's own gradient is the identity."""
+    rng, args, ws, bs, grid = _encoder_problem(16, 8, 3)
+    ws = [w.requires_grad_() for w in ws]
+    feats = args[1].requires_grad_()
+    acc0 = torch.zeros((1, grid.num_tokens, 19), device="cuda", requires_grad=True)
+    acc = k5.accumulate(args[0], feats, args[2], args[3], ws, bs, grid, acc0 * 1.0)
+    acc = k5.accumulate(args[0], feats, args[2], args[3], ws, bs, grid, acc)
+    g = torch.from_numpy(rng.normal(size=tuple(acc.shape)).astype(np.float32)).cuda()
+    got = torch.autograd.grad(acc, [acc0, feats, *ws], g)
+    want = k5.encoder_accumulate_backward_reference(g, *[a.detach() for a in args], ws, bs, grid)
+    torch.testing.assert_close(got[0], g)
+    torch.testing.assert_close(got[1], 2 * want[0], atol=1e-4, rtol=1e-4)
+    for a, b in zip(got[2:], want[1]):
+        assert ((a - 2 * b).abs().max() / b.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("S,Skv", [(4096, 4096), (77, 130), (1000, 1001)])
+def test_dropout_bits_kernel_matches_plain_bit_for_bit(S, Skv):
+    seed = 0x1234_5678_9ABC_DEF0 + S
+    before = k4.export_dropout_bits.launches
+    got = k4.export_dropout_bits(seed, 3, S, Skv)
+    torch.cuda.synchronize()
+    assert k4.export_dropout_bits.launches == before + 1
+    want = k4.dropout_bits_reference(seed, 3, S, Skv, device="cuda")
+    assert got.dtype == torch.uint32 and torch.equal(got.view(torch.int32),
+                                                     want.view(torch.int32))
+    assert not torch.equal(got.view(torch.int32),
+                           k4.export_dropout_bits(seed + 1, 3, S, Skv).view(torch.int32))
+
+
+_SHAPES = [(1000, 1000, 32), (4096, 4096, 32), (77, 130, 8), (200, 333, 64), (129, 64, 16)]
+
+
+def _qkv(dtype, S, Skv, D, H=4):
+    rng = np.random.default_rng(S + D)
+    return rng, [torch.from_numpy(rng.normal(size=(1, H, s, D)).astype(np.float32))
+                 .to("cuda", dtype) for s in (S, Skv, Skv)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,Skv,D", _SHAPES)
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_flash_dropout_kernel_matches_plain(dtype, S, Skv, D, rate):
+    """K1 drawing from a seed against the plain version fed the bits K4
+    exports for that seed; the explicit-bits input gives the same result bit
+    for bit, and so does a second run."""
+    _, (q, k, v) = _qkv(dtype, S, Skv, D)
+    seed = 99 + S
+    out, lse = k1.flash_attention(q, k, v, rate, seed=seed)
+    bits = k4.export_dropout_bits(seed, 4, S, Skv)
+    ref, ref_lse = k1.flash_attention_reference(q, k, v, rate, bits)
+    _assert_out_close(out, ref)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    again, _ = k1.flash_attention(q, k, v, rate, seed=seed)
+    from_bits, _ = k1.flash_attention(q, k, v, rate, dropout_bits=bits)
+    assert torch.equal(out, again) and torch.equal(out, from_bits)
+    other, _ = k1.flash_attention(q, k, v, rate, seed=seed + 1)
+    assert not torch.equal(out, other)
+
+
+def test_flash_dropout_rate_one_drops_everything_and_needs_a_mask():
+    _, (q, k, v) = _qkv(torch.bfloat16, 130, 130, 32)
+    out, _ = k1.flash_attention(q, k, v, 1.0, seed=1)
+    assert not out.float().any()
+    with pytest.raises(ValueError, match="seed or explicit bits"):
+        k1.flash_attention(q, k, v, 0.1)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("S,Skv,D", _SHAPES + [(1000, 130, 32)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_backward_kernel_matches_plain(dtype, rel, S, Skv, D, rate):
+    """K2 against the plain backward with the same bits. Bounds are relative
+    to each gradient's max-abs: bf16 rounds pm, ds and the results (2e-2);
+    f32 differs by summation order and by exp2 against exp (1e-4)."""
+    rng, (q, k, v) = _qkv(dtype, S, Skv, D)
+    dout = torch.from_numpy(rng.normal(size=tuple(q.shape)).astype(np.float32)).to("cuda", dtype)
+    seed = 7 + Skv
+    out, lse = k1.flash_attention(q, k, v, rate, seed=seed)
+    before = k1.flash_attention_backward.launches
+    got = k1.flash_attention_backward(q, k, v, out, lse, dout, rate, seed=seed)
+    torch.cuda.synchronize()
+    assert k1.flash_attention_backward.launches == before + 1
+    bits = k4.export_dropout_bits(seed, 4, S, Skv) if rate > 0 else None
+    want = k1.flash_attention_backward_reference(q, k, v, out, lse, dout, rate, bits)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == dtype and a.shape == b.shape
+        err = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+        assert err <= rel, f"{name}: {err}"
+    if rate > 0:
+        from_bits = k1.flash_attention_backward(q, k, v, out, lse, dout, rate,
+                                                dropout_bits=bits)
+        assert torch.equal(got[1], from_bits[1]) and torch.equal(got[2], from_bits[2])
+
+
+def test_attention_autograd_on_card_matches_cpu():
+    """`attention` under autograd: kernels on the card against the plain
+    versions on the CPU, f32, one seed."""
+    _, (q, k, v) = _qkv(torch.float32, 200, 130, 16)
+    cpu = [t.cpu().requires_grad_() for t in (q, k, v)]
+    gpu = [t.requires_grad_() for t in (q, k, v)]
+    dout = torch.ones(1, 4, 200, 16)
+    want = torch.autograd.grad(k1.attention(*cpu, 0.2, 5), cpu, dout)
+    got = torch.autograd.grad(k1.attention(*gpu, 0.2, 5), gpu, dout.cuda())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
 
 
 def test_model_on_card_matches_cpu():
@@ -89,7 +232,7 @@ def test_model_on_card_matches_cpu():
                                     atten_dropout=0.0, attention_dtype="float32"),
         ffn_config=FFNConfig(hidden_size=64))
     model = init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=(4, 4, 4),
-                       generator=torch.Generator().manual_seed(0)).eval()
+                       generator=torch.Generator().manual_seed(0), device="cpu").eval()
     rng = np.random.default_rng(0)
     pos = torch.from_numpy(rng.uniform(-1, 1, (1, 256, 3)).astype(np.float32))
     feats = torch.from_numpy(rng.normal(size=(1, 256, 2)).astype(np.float32))
@@ -103,3 +246,41 @@ def test_model_on_card_matches_cpu():
         got = model.cuda()(pos.cuda(), feats.cuda(), mask.cuda(), encoder_slots=[slots],
                            decoder_slots=[slots])
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_train_step_on_card_matches_cpu():
+    """One forward-and-backward in train mode with dropout: all four kernels
+    on the card against the plain versions on the CPU, same seeds, f32."""
+    from gaot3d_tpu_torch.train import TrainBatch, masked_mse
+
+    magno = MAGNOConfig(lifting_channels=8, use_geoembed=[True, False], gno_radius=0.45,
+                        in_gno_channel_mlp_hidden_layers=[16, 16],
+                        out_gno_channel_mlp_hidden_layers=[16], projection_channels=16,
+                        edge_chunk_size=16)
+    attn = TransformerConfig(
+        patch_size=2, hidden_size=32, num_layers=3, positional_embedding="rope",
+        attn_config=AttentionConfig(hidden_size=32, num_heads=4, num_kv_heads=2,
+                                    atten_dropout=0.2, attention_dtype="float32"),
+        ffn_config=FFNConfig(hidden_size=64))
+    rng = np.random.default_rng(1)
+    t = torch.from_numpy
+    pos = t(rng.uniform(-1, 1, (1, 256, 3)).astype(np.float32))
+    feats = t(rng.normal(size=(1, 256, 2)).astype(np.float32))
+    target = t(rng.normal(size=(1, 256, 1)).astype(np.float32))
+    lat = t(rng.integers(0, 40, (1, 256, 4)).astype(np.int32))  # cells 40..63 stay empty
+    msk = t(rng.random((1, 256, 4)) < 0.7)
+    mask = torch.ones(1, 256, dtype=torch.bool)
+    grads = []
+    for device in ("cpu", "cuda"):
+        model = init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=(4, 4, 4),
+                           generator=torch.Generator().manual_seed(0), device=device).train()
+        slots = EdgeSlots(lat.to(device), msk.to(device))
+        batch = TrainBatch(pos.to(device), feats.to(device), target.to(device),
+                           mask.to(device), slots, slots)
+        pred = model(batch.pos, batch.feats, batch.node_mask, encoder_slots=[slots],
+                     decoder_slots=[slots], generator=torch.Generator().manual_seed(3))
+        masked_mse(pred, batch.target, batch.node_mask).backward()
+        grads.append(torch.cat([p.grad.flatten().cpu() for p in model.parameters()]))
+    assert torch.isfinite(grads[1]).all()
+    rel = ((grads[1] - grads[0]).norm() / grads[0].norm()).item()
+    assert rel <= 1e-4

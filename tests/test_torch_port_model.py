@@ -55,7 +55,8 @@ def _pair(attention_dtype, seed=0):
     magno, attn = _port_configs(jmodel)
     sd = state_dict_from_params(params, jmodel.magno_config, jmodel.attn_config,
                                 latent_tokens=jmodel.latent_tokens)
-    pmodel = init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=jmodel.latent_tokens)
+    pmodel = init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=jmodel.latent_tokens,
+                        device="cpu")
     load_numpy_state_dict(pmodel, sd)
     return jmodel, params, pmodel.eval()
 
@@ -125,7 +126,8 @@ def test_whole_slice_slot_budget_compacts_wide_slots():
     params = jmodel.init({"params": jax.random.key(7)}, jnp.asarray(pos), jnp.asarray(feats),
                          jnp.asarray(mask), encoder_slots=[wide], decoder_slots=[wide])
     magno, attn = _port_configs(jmodel)
-    pmodel = init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=jmodel.latent_tokens)
+    pmodel = init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=jmodel.latent_tokens,
+                        device="cpu")
     load_numpy_state_dict(pmodel, state_dict_from_params(params, jmodel.magno_config,
                                                          jmodel.attn_config))
     got, want = _run_both(jmodel, params, pmodel.eval(), pos, feats, mask, wide,
@@ -182,14 +184,14 @@ def test_init_model_is_seeded_by_its_generator():
 
     def weights(seed):
         m = init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=(4, 4, 4),
-                       generator=torch.Generator().manual_seed(seed))
+                       generator=torch.Generator().manual_seed(seed), device="cpu")
         return torch.cat([p.detach().flatten() for p in m.parameters()])
 
     a, b, c = weights(0), weights(0), weights(1)
     assert torch.equal(a, b) and not torch.equal(a, c)
     bound = 1 / 6 ** 0.5  # the kernel MLP's first layer has fan_in 6
     m = init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=(4, 4, 4),
-                   generator=torch.Generator().manual_seed(0))
+                   generator=torch.Generator().manual_seed(0), device="cpu")
     w = m.encoder.gno.channel_mlp.fcs[0].weight
     assert w.abs().max() <= bound and w.abs().max() > 0.8 * bound
 
@@ -207,7 +209,7 @@ def test_unsupported_configs_raise(magno_kw, attn_kw, match):
     magno = dataclasses.replace(magno, **magno_kw)
     attn = dataclasses.replace(attn, **attn_kw)
     with pytest.raises(NotImplementedError, match=match):
-        init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=(4, 4, 4))
+        init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=(4, 4, 4), device="cpu")
 
 
 def test_unsupported_inputs_raise():
@@ -221,10 +223,26 @@ def test_unsupported_inputs_raise():
     slots = EdgeSlots.from_numpy(bad, msk_c)
     with pytest.raises(ValueError, match="outside the latent grid"):
         pmodel(t(pos), t(feats), t(mask), encoder_slots=[slots], decoder_slots=[slots])
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout needs a seed"):
+        # a training forward with dropout and no generator to seed it
         uni = EdgeSlots.from_numpy(lat_c, msk_c)
         _, _, drop = _pair("float32", seed=6)
         for m in drop.modules():
             if hasattr(m, "atten_dropout"):
                 m.atten_dropout = 0.1
         drop.train()(t(pos), t(feats), t(mask), encoder_slots=[uni], decoder_slots=[uni])
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """`init_model` and `load_inference` run on the card unless the caller
+    asks for the CPU; without a card they raise, they do not fall back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults work")
+    magno, attn = _port_configs(_flagship_model())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=(4, 4, 4))
+    _, _, pmodel = _pair("float32", seed=8)
+    path = os.path.join(tmp_path, "model.pt")
+    export_inference(pmodel, path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_inference(path)
