@@ -1,12 +1,15 @@
 """Smoke run of the PyTorch port (gaot3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--flat-seed N]
+
+`--flat-seed` (31) seeds the cloud of phases 11 and 12, for a second reading
+of their limits.
 
 Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
      power limit, turns TF32 off;
-  2. build: compiles the five CUDA sources of gaot3d_tpu_torch/csrc with nvcc,
-     all at the same time;
+  2. build: compiles the eight CUDA sources of gaot3d_tpu_torch/csrc with
+     nvcc, all at the same time;
   3. [k1] flash-attention forward vs its plain version at B1 H8 S16384 D32
      bf16 and at a ragged S=1000;
   4. [k5] encoder payload + scatter vs its plain version on the degree
@@ -29,11 +32,28 @@ Phases, each of which raises (exit code 1) on failure:
      K2 10, K5 5, K5b 5; then one forward-and-backward on a 32x32x16 grid
      with 65,536 points is repeated with every kernel replaced by its plain
      version at the same seed; then a breakdown of one step.
-Yardsticks off the main path: torch's scaled_dot_product_attention forward
-and backward at the recipe shape (`library_ms`).
+  11. [k7] the prefix sum, [k6] the sorted segment sum and [k8] the tile
+     segment sum vs their plain versions at a ragged small shape and at the
+     shapes one 65,536-node chunk of a 524,288-point cloud gives them (its
+     flat list, and for K7 under `sort` and K8 its 327,680 slots), each column
+     held to its own size, two launches compared bit for bit;
+ 12. [flat] the recipe over flat edge lists and the sorted reductions: config
+     A (flat 'dst' lists, K6 for the encoder, K7 folds by node for the
+     decoder) is exported, loaded and serves the cloud twice (accumulator bit
+     for bit), then takes 2 AdamW steps with dropout; config B (K7 folds on
+     both sides) and config C (slots sorted on the card, K8 or K7) serve it
+     too; all against the uniform-slot forward through K5, every column of the
+     encoder's accumulator to a stated limit and the output in relative L2;
+     then config A's
+     gradient through the kernels vs through the plain versions on a 32x32x16
+     grid.
+Yardsticks off the main path (`library_ms`): torch's
+scaled_dot_product_attention forward and backward at the recipe shape,
+`torch.cumsum` and `index_add_`.
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}.
 """
+import argparse
 import json
 import os
 import subprocess
@@ -53,6 +73,21 @@ K1_BOUND = 2e-2   # out: max abs over the plain output's max abs (two bf16 steps
 K2_BOUND = 2e-2   # dq, dk, dv: max abs over the plain gradient's max abs, bf16 roundings
 K5_BOUND = 1e-5   # relative, f32 accumulator summed with float atomics
 K5B_BOUND = 1e-4  # relative to each gradient's max abs: per-CTA sums, then float atomics
+K7_BOUND = 2e-6   # of the column's largest prefix |Z|, against the plain version (a float64
+#                   running sum): the kernel adds 32 rows in f32, then groups' and blocks' totals
+K6_BOUND = 1e-6   # of each column's max abs in the plain result: the same few f32 additions in
+#                   another order
+K8_BOUND = 1e-6   # as K6
+ACC_BOUND = 2e-6  # encoder accumulator of configs A and C (tile) against K5's, of each column's
+#                   max abs: the same rows summed cell by cell, the kernel MLP through cuBLAS
+#                   here and in K5's own order there
+FOLD_BOUND = 5e-7  # accumulator of the folds (config B, C sort), of each column's absolute sum
+#                   over the cells. A cell is Z[end] - Z[start] in each chunk; each prefix is
+#                   within K7_BOUND of the chunk's largest, which the chunk's share of that
+#                   absolute sum bounds for the columns that do not change sign (1, d, the
+#                   squares) and far exceeds for the others. The worst case is 2 * K7_BOUND;
+#                   the errors of the 2 * nc prefixes do not line up, and the limit is a
+#                   quarter of K7_BOUND
 E2E_BOUND = 1e-3  # relative L2 (and loss), kernels vs plain through 10 bf16-attention layers
 RATE = 0.1
 SHAPE = (1, 8, 16384, 32)  # B, H, S, D of the recipe's attention
@@ -142,15 +177,18 @@ def qkv(rng, shape, skv=None):
 
 def phase_build():
     from gaot3d_tpu_torch.kernels import (build, dropout_bits, encoder_payload,
-                                          flash_attention)
+                                          flash_attention, prefix_sum, segment_sum_sorted,
+                                          tile_segment_sum)
 
     t0 = time.perf_counter()
     build.build_together([dropout_bits._library, flash_attention._library,
                           flash_attention._backward_library, encoder_payload._library,
-                          encoder_payload._backward_library])
-    print(f"[build] five kernel libraries built together in {time.perf_counter() - t0:.1f} s")
+                          encoder_payload._backward_library, prefix_sum._library,
+                          segment_sum_sorted._library, tile_segment_sum._library])
+    print(f"[build] eight kernel libraries built together in {time.perf_counter() - t0:.1f} s")
     for name in ("dropout_bits", "flash_attn_fwd", "flash_attn_bwd", "encoder_payload",
-                 "encoder_payload_bwd"):
+                 "encoder_payload_bwd", "prefix_sum", "segment_sum_sorted",
+                 "tile_segment_sum"):
         regs = [int(line.split("Used ")[1].split(" registers")[0])
                 for line in build.build_log(name).splitlines() if " registers" in line]
         spills = [line.strip() for line in build.build_log(name).splitlines()
@@ -303,20 +341,21 @@ def phase_k5():
     return rec, rec_b
 
 
-def recipe_model(latent=LATENT, radius=RADIUS, budget=BUDGET):
+def recipe_model(latent=LATENT, radius=RADIUS, budget=BUDGET, **magno_overrides):
     """The DrivAerNet++ pressure recipe at full width and depth, on the card,
-    with random weights from seed 0."""
+    with random weights from seed 0; `magno_overrides` replace fields of its
+    MAGNOConfig (the edge layout and the reductions)."""
     import torch
 
     from gaot3d_tpu_torch.models import (AttentionConfig, FFNConfig, MAGNOConfig,
                                          TransformerConfig, init_model)
 
-    magno = MAGNOConfig(
+    magno = MAGNOConfig(**{**dict(
         lifting_channels=32, gno_radius=radius, neighbor_strategy="bidirectional",
         use_geoembed=[True, False], in_gno_channel_mlp_hidden_layers=[64, 64, 64],
         out_gno_channel_mlp_hidden_layers=[64, 64], projection_channels=256,
         mlp_type="linear", edge_chunk_size=CHUNK, slot_budget=budget,
-        kernel_dtype="float32", edge_layout="sectioned")
+        kernel_dtype="float32", edge_layout="sectioned"), **magno_overrides})
     attn = TransformerConfig(
         patch_size=2, hidden_size=256, num_layers=10, positional_embedding="rope",
         attn_config=AttentionConfig(hidden_size=256, num_heads=8, num_kv_heads=8,
@@ -407,19 +446,31 @@ def phase_serve():
 
 
 def plain_versions():
-    """Context in which the model's autograd functions call the plain
-    versions of all four kernels instead of launching them."""
+    """Context in which the model calls the plain version of every kernel
+    instead of launching it."""
     import contextlib
 
     from gaot3d_tpu_torch.kernels import encoder_payload as k5
     from gaot3d_tpu_torch.kernels import flash_attention as k1
+    from gaot3d_tpu_torch.kernels import prefix_sum as k7
+    from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
+    from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
+    from gaot3d_tpu_torch.ops import segment
+
+    def plain_tile(rows, sorted_seg, *, ts, num_segments, seg_tile, perm):
+        return k8.tile_segment_sum_reference(rows, sorted_seg, ts, num_segments, perm)
 
     stack = contextlib.ExitStack()
     for mod, name, plain in (
             (k1, "flash_attention", k1.flash_attention_plain),
             (k1, "flash_attention_backward", k1.flash_attention_backward_plain),
             (k5, "encoder_accumulate", k5.encoder_accumulate_reference),
-            (k5, "encoder_accumulate_backward", k5.encoder_accumulate_backward_reference)):
+            (k5, "encoder_accumulate_backward", k5.encoder_accumulate_backward_reference),
+            (k7, "prefix_sum", k7.prefix_sum_reference),
+            (segment, "segment_sum_sorted",
+             lambda data, ids, num_segments, passes=1:
+             k6.segment_sum_sorted_reference(data, ids, num_segments)),
+            (segment, "tile_segment_sum", plain_tile)):
         stack.enter_context(mock.patch.object(mod, name, plain))
     return stack
 
@@ -713,7 +764,367 @@ def phase_train():
     return total
 
 
+def flat_cloud(seed, n_points, grid, radius=RADIUS, budget=BUDGET, chunk=CHUNK):
+    """One random cloud in the caller's node order with its uniform slots and
+    both flat edge lists on the card, and the host seconds of each build."""
+    import torch
+
+    from gaot3d_tpu_torch.data.host_graph import (build_edge_slots_host,
+                                                  flatten_slots_host_batched)
+    from gaot3d_tpu_torch.ops.grid_graph import EdgeSlots
+
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-1, 1, (n_points, 3)).astype(np.float32)
+    feats = rng.standard_normal((n_points, 3), dtype=np.float32)
+    target = rng.standard_normal((n_points, 1), dtype=np.float32)
+    t0 = time.perf_counter()
+    lat, msk = build_edge_slots_host(pos, grid, radius, strategy="bidirectional", budget=budget)
+    t1 = time.perf_counter()
+    by_src = flatten_slots_host_batched(lat[None], msk[None], chunk, device="cuda")
+    t2 = time.perf_counter()
+    by_dst = flatten_slots_host_batched(lat[None], msk[None], chunk, order="dst", device="cuda")
+    t3 = time.perf_counter()
+    return {"pos": torch.from_numpy(pos[None]).cuda(),
+            "feats": torch.from_numpy(feats[None]).cuda(),
+            "target": torch.from_numpy(target[None]).cuda(),
+            "mask": torch.ones((1, n_points), dtype=torch.bool, device="cuda"),
+            "slots": EdgeSlots.from_numpy(lat[None], msk[None], device="cuda"),
+            "by_src": by_src, "by_dst": by_dst, "valid_edges": int(msk.sum()),
+            "seconds": {"graph": t1 - t0, "flatten_src": t2 - t1, "flatten_dst": t3 - t2}}
+
+
+def payload_like(rng, E, C=32):
+    """[E, C+11] float32 with the magnitudes of the encoder's payload rows:
+    C kernel-times-feature columns, a column of ones, a distance, an offset y
+    of the radius' size and its six products."""
+    import torch
+
+    y = rng.uniform(-RADIUS, RADIUS, (E, 3)).astype(np.float32)
+    cols = [rng.standard_normal((E, C), dtype=np.float32), np.ones((E, 1), np.float32),
+            np.linalg.norm(y, axis=1, keepdims=True), y,
+            np.stack([y[:, 0] * y[:, 0], y[:, 0] * y[:, 1], y[:, 0] * y[:, 2],
+                      y[:, 1] * y[:, 1], y[:, 1] * y[:, 2], y[:, 2] * y[:, 2]], axis=1)]
+    return torch.from_numpy(np.concatenate(cols, axis=1)).cuda()
+
+
+def phase_sorted_kernels(cloud_):
+    """[k7], [k6], [k8] on chunk 0 of the cloud's edges."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import prefix_sum as k7
+    from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
+    from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
+    from gaot3d_tpu_torch.ops.segment import make_tile_fold
+
+    rng = np.random.default_rng(3)
+    M = LATENT[0] * LATENT[1] * LATENT[2]
+    add_rate = F32_FLOPS / 2  # one addition a cycle a lane: half the FMA flop rate
+
+    # [k7]: inclusive prefix sum, limit relative to the column's largest prefix
+    E = cloud_["by_dst"].edges_per_chunk
+    rec7 = {}
+    for rows, C in ((1003, 43), (E, 32), (CHUNK * BUDGET, 43), (E, 43)):
+        x = payload_like(rng, rows)[:, :C].contiguous()
+        got, again, plain = k7.prefix_sum(x), k7.prefix_sum(x), k7.prefix_sum_reference(x)
+        library = torch.cumsum(x, dim=0)
+        torch.cuda.synchronize()
+        top = plain.abs().amax(dim=0)
+        rel = ((got - plain).abs() / top).max().item()
+        rel_library = ((library - plain).abs() / top).max().item()
+        print(f"[k7] [{rows}, {C}]: kernel vs plain {rel:.3e} of the column's largest prefix "
+              f"(limit {K7_BOUND:.0e}; torch.cumsum in float32 reads {rel_library:.3e}); two "
+              f"launches identical: {torch.equal(got, again)}")
+        if not (torch.isfinite(got).all() and rel <= K7_BOUND and torch.equal(got, again)):
+            raise RuntimeError(f"K7 [{rows}, {C}] disagrees with its plain version or itself")
+        if rows >= E:  # the main path's shapes: the flat lists' and, for `sort`, the slots'
+            rec = {"max_abs_err": (got - plain).abs().max().item(),
+                   "ms": cuda_ms(lambda: k7.prefix_sum(x)),
+                   "plain_ms": cuda_ms(lambda: k7.prefix_sum_reference(x)),
+                   **bound(2 * x.numel() * 4, add=x.numel() / add_rate),
+                   "library_ms": cuda_ms(lambda: torch.cumsum(x, 0))}
+            print(f"[k7] [{rows}, {C}] f32: kernel {rec['ms']:.3f} ms, plain "
+                  f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+                  f"({rec['bound_by']}), library torch.cumsum {rec['library_ms']:.3f} ms "
+                  f"(median of 5)")
+            rec7 = rec  # the [E, 43] shape, the last of the loop, is the one recorded
+
+    def library_index_add(ids, data):
+        return torch.zeros((M + 1, data.shape[1]), device="cuda").index_add_(0, ids, data)
+
+    # [k6]: rows that arrive sorted (chunk 0 of the 'dst' list), padding at the tail
+    def check_segments(name, limit, got, again, plain):
+        torch.cuda.synchronize()
+        width = got.shape[-1]
+        err = (got - plain).abs().reshape(-1, width).amax(dim=0)
+        top = plain.abs().reshape(-1, width).amax(dim=0)
+        rel = (err / top).max().item()
+        print(f"[{name}] max_abs_err {err.max().item():.3e}; over the column's max-abs in the "
+              f"plain result (from {top.min().item():.3e} to {top.max().item():.3e}) at most "
+              f"{rel:.3e} (limit {limit:.0e}); two launches identical: {torch.equal(got, again)}")
+        if not (torch.isfinite(got).all() and rel <= limit and torch.equal(got, again)):
+            raise RuntimeError(f"{name} disagrees with its plain version or itself")
+        return err.max().item()
+
+    ids_small = torch.from_numpy(np.sort(np.where(
+        rng.random(1003) < 0.9, rng.integers(0, 517, 1003), 517)).astype(np.int32)).cuda()
+    data_small = payload_like(rng, 1003)
+    check_segments("k6 ragged [1003, 43] -> [517, 43]", K6_BOUND,
+                   k6.segment_sum_sorted(data_small, ids_small, 517),
+                   k6.segment_sum_sorted(data_small, ids_small, 517),
+                   k6.segment_sum_sorted_reference(data_small, ids_small, 517))
+    mask = cloud_["by_dst"].mask[:, 0]
+    ids = torch.where(mask, cloud_["by_dst"].dst[:, 0], torch.full_like(mask, M, dtype=torch.int32))
+    data = payload_like(rng, E)[None]
+    n_valid = int(mask.sum())
+    err = check_segments(f"k6 [1, {E}, 43] ({n_valid} valid rows) -> [1, {M}, 43]", K6_BOUND,
+                         k6.segment_sum_sorted(data, ids, M), k6.segment_sum_sorted(data, ids, M),
+                         k6.segment_sum_sorted_reference(data, ids, M))
+    ids_long = ids[0].long()
+    rec6 = {"max_abs_err": err, "ms": cuda_ms(lambda: k6.segment_sum_sorted(data, ids, M)),
+            "plain_ms": cuda_ms(lambda: k6.segment_sum_sorted_reference(data, ids, M)),
+            **bound(n_valid * 43 * 4 + E * 4 + M * 43 * 4, add=n_valid * 43 / add_rate),
+            "library_ms": cuda_ms(lambda: library_index_add(ids_long, data[0]))}
+    print(f"[k6] one chunk: kernel {rec6['ms']:.3f} ms, plain {rec6['plain_ms']:.3f} ms, bound "
+          f"{rec6['bound_ms']:.3f} ms ({rec6['bound_by']}), library index_add_ "
+          f"{rec6['library_ms']:.3f} ms (median of 5)")
+
+    # [k8]: the slots of chunk 0, masked ones included, sorted on the card
+    fold_small = make_tile_fold(ids_small[torch.from_numpy(rng.permutation(1003)).cuda()], 517,
+                                seg_tile=100)
+    shuffled = payload_like(rng, 1003)
+
+    def tile(fold, rows, S, seg_tile=512):
+        return k8.tile_segment_sum(rows, fold.sorted_seg, ts=fold.ts, num_segments=S,
+                                   seg_tile=seg_tile, perm=fold.perm)
+
+    check_segments("k8 ragged [1003, 43] -> [517, 43], seg_tile 100", K8_BOUND,
+                   tile(fold_small, shuffled, 517, 100), tile(fold_small, shuffled, 517, 100),
+                   k8.tile_segment_sum_reference(shuffled, fold_small.sorted_seg, fold_small.ts,
+                                                 517, fold_small.perm))
+    lat = cloud_["slots"].lat_idx[0, :CHUNK].reshape(-1)
+    msk = cloud_["slots"].mask[0, :CHUNK].reshape(-1)
+    rows = payload_like(rng, lat.shape[0])
+    t_fold = cuda_ms(lambda: make_tile_fold(lat, M, msk))
+    fold = make_tile_fold(lat, M, msk)
+    n_valid8 = int(msk.sum())
+    err = check_segments(f"k8 [{lat.shape[0]}, 43] ({n_valid8} valid rows) -> [{M}, 43]",
+                         K8_BOUND, tile(fold, rows, M), tile(fold, rows, M),
+                         k8.tile_segment_sum_reference(rows, fold.sorted_seg, fold.ts, M,
+                                                       fold.perm))
+    sorted_ids = fold.sorted_seg.long()
+    rec8 = {"max_abs_err": err, "ms": cuda_ms(lambda: tile(fold, rows, M)),
+            "plain_ms": cuda_ms(lambda: k8.tile_segment_sum_reference(
+                rows, fold.sorted_seg, fold.ts, M, fold.perm)),
+            **bound(n_valid8 * 43 * 4 + 2 * lat.shape[0] * 4 + M * 43 * 4,
+                    add=n_valid8 * 43 / add_rate),
+            "library_ms": cuda_ms(lambda: library_index_add(sorted_ids, rows[fold.perm.long()]))}
+    print(f"[k8] one chunk: kernel {rec8['ms']:.3f} ms (the sort and tile boundaries before it "
+          f"{t_fold:.3f} ms), plain {rec8['plain_ms']:.3f} ms, bound {rec8['bound_ms']:.3f} ms "
+          f"({rec8['bound_by']}), library gather + index_add_ {rec8['library_ms']:.3f} ms "
+          f"(median of 5)")
+    return rec7, rec6, rec8
+
+
+def phase_flat(cloud_):
+    import torch
+
+    from gaot3d_tpu_torch.kernels import encoder_payload as k5
+    from gaot3d_tpu_torch.kernels import flash_attention as k1
+    from gaot3d_tpu_torch.kernels import prefix_sum as k7
+    from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
+    from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
+    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
+    from gaot3d_tpu_torch.serve import (export_inference, load_inference,
+                                        make_edge_arg_model)
+    from gaot3d_tpu_torch.train import (OptimizerargsConfig, TrainBatch, make_optimizer,
+                                        masked_mse, train_step)
+
+    counters = {"k1": k1.flash_attention, "k2": k1.flash_attention_backward,
+                "k5": k5.encoder_accumulate, "k5b": k5.encoder_accumulate_backward,
+                "k6": k6.segment_sum_sorted, "k7": k7.prefix_sum, "k8": k8.tile_segment_sum}
+    total = dict.fromkeys(counters, 0)
+    secs = cloud_["seconds"]
+    nc = cloud_["by_dst"].num_chunks
+    print(f"[flat] host: graph build {secs['graph'] * 1e3:.1f} ms, flatten by node "
+          f"{secs['flatten_src'] * 1e3:.1f} ms, flatten by cell {secs['flatten_dst'] * 1e3:.1f} "
+          f"ms (with upload); {cloud_['valid_edges']} valid edges in {nc} chunks of "
+          f"{cloud_['by_dst'].edges_per_chunk}")
+    pos, feats, mask = cloud_["pos"], cloud_["feats"], cloud_["mask"]
+    C = 32
+
+    def serve(infer, model, enc, dec, label, expect):
+        """Answer the cloud twice; return (output, the encoder's accumulator,
+        warm forward ms), with the launches of one request checked."""
+        fused = model.encoder.fused
+        finalize, seen = fused._finalize, []
+
+        def spy(acc):
+            seen.append(acc.detach().clone())
+            return finalize(acc)
+
+        outs, times = [], []
+        with mock.patch.object(fused, "_finalize", spy):
+            for _ in range(2):
+                for fn in counters.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                outs.append(infer(pos, feats, mask, enc, dec))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                got = {n: fn.launches for n, fn in counters.items() if fn.launches}
+                for n, v in got.items():
+                    total[n] += v
+        same = torch.equal(seen[0], seen[1])
+        ok = tuple(outs[1].shape) == (1, N_POINTS, 1) and bool(torch.isfinite(outs[1]).all())
+        print(f"[flat] {label}: forward {times[0]:.1f} ms, again {times[1]:.1f} ms; launches a "
+              f"request {got}; finite={ok}; accumulator of two requests identical: {same}")
+        if not ok or got != expect:
+            raise RuntimeError(f"{label}: bad output, or launches {got} where {expect} expected")
+        return outs[1], seen[1], same, times[1]
+
+    def against(label, out, acc, ref_out, ref_acc, fold):
+        """Hold a config to the K5 forward: every accumulator column to its
+        limit (ACC_BOUND of its max-abs, or for a fold FOLD_BOUND of its
+        absolute sum over the cells), then the output's relative L2."""
+        rel = ((out - ref_out).norm() / ref_out.norm()).item()
+        diff = (acc - ref_acc).abs().amax(dim=(0, 1))
+        top = ref_acc.abs().amax(dim=(0, 1))
+        limit = FOLD_BOUND * ref_acc.abs().sum(dim=(0, 1)) if fold else ACC_BOUND * top
+        used = diff / limit
+        moments = " ".join(f"{d / t:.1e}" for d, t in zip(diff[C:].tolist(), top[C:].tolist()))
+        print(f"[flat] {label} against the uniform-slot forward through K5: relative L2 "
+              f"{rel:.3e}; accumulator max_abs_err over the column's max-abs: gno columns "
+              f"{(diff[:C] / top[:C]).max().item():.1e}, the 11 moment columns (1, d, y, yy^T) "
+              f"{moments}; of each column's limit "
+              f"({'FOLD_BOUND of its absolute sum' if fold else 'ACC_BOUND of its max-abs'}) at "
+              f"most {used[:C].max().item():.2f} (gno) and {used[C:].max().item():.2f} (moments)")
+        if not (used <= 1).all():
+            raise RuntimeError(f"{label}: accumulator columns {(used > 1).nonzero().flatten().tolist()} "
+                               f"are beyond their limit against K5's")
+        if not rel <= E2E_BOUND:
+            raise RuntimeError(f"{label} disagrees with the K5 forward: {rel}")
+
+    # the reference: uniform slots through K5
+    ref_model = recipe_model(edge_layout="slots").eval()
+    ref_out, ref_acc, _, _ = serve(make_edge_arg_model(ref_model), ref_model, cloud_["slots"],
+                                   cloud_["slots"], "uniform slots, segment_impl scatter (K5)",
+                                   {"k1": 10, "k5": 1})
+    del ref_model
+
+    # config A through the entry points a server calls
+    config_a = dict(edge_layout="flat", flat_order="dst", flat_reduce_impl="pallas")
+    model_a = recipe_model(**config_a)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flat.pt")
+        export_inference(model_a, path)
+        loaded = load_inference(path)
+    infer_a = make_edge_arg_model(model_a.eval())
+    out_l = loaded(pos, feats, mask, cloud_["by_dst"], cloud_["by_src"])
+    out_a, acc_a, same_a, warm_a = serve(
+        infer_a, model_a, cloud_["by_dst"], cloud_["by_src"],
+        "config A (flat dst, flat_reduce_impl pallas)", {"k1": 10, "k6": nc, "k7": nc})
+    if not same_a:
+        raise RuntimeError("config A: the encoder accumulator differs between two requests")
+    if not torch.equal(out_l, out_a):
+        raise RuntimeError("config A: the exported and reloaded model answers differently")
+    against("config A", out_a, acc_a, ref_out, ref_acc, fold=False)
+
+    # config A: two train steps with dropout
+    batch = TrainBatch(pos, feats, cloud_["target"], mask, cloud_["by_dst"], cloud_["by_src"])
+    optimizer = make_optimizer("adamw", model_a.parameters(),
+                               OptimizerargsConfig(scheduler="mix"), steps_per_epoch=1)
+    generator = torch.Generator().manual_seed(6)
+    before = [p.detach().clone() for p in model_a.parameters()]
+    for step in range(2):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grad_norm = train_step(model_a, optimizer, batch, generator)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {n: fn.launches for n, fn in counters.items() if fn.launches}
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(p.grad).all()) for p in model_a.parameters())
+        print(f"[flat] config A train step {step}: loss {loss.item():.6f} grad_norm "
+              f"{grad_norm.item():.6f} step {ms:.1f} ms peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {got}; "
+              f"finite={finite}")
+        if not finite:
+            raise RuntimeError(f"config A step {step}: non-finite loss or gradient")
+        if got != {"k1": 10, "k2": 10, "k6": nc, "k7": nc}:
+            raise RuntimeError(f"config A step {step}: launches {got}")
+        for n, v in got.items():
+            total[n] += v
+    still = [n for (n, p), b in zip(model_a.named_parameters(), before) if torch.equal(p, b)]
+    if still:
+        raise RuntimeError(f"config A: parameters that did not move in 2 steps: {still}")
+    print(f"[flat] config A: every one of {len(before)} parameter tensors moved")
+    del model_a, optimizer, batch, before, loaded
+
+    # configs B and C, forward only
+    warm = {"A": warm_a}
+    for name, label, overrides, enc, dec, expect, fold in (
+            ("B", "config B (flat dst, flat_reduce_impl fold)",
+             dict(edge_layout="flat", flat_order="dst"), cloud_["by_dst"], cloud_["by_src"],
+             {"k1": 10, "k7": 2 * nc}, True),
+            ("C", "config C (slots, segment_impl tile)",
+             dict(edge_layout="slots", segment_impl="tile"), cloud_["slots"], cloud_["slots"],
+             {"k1": 10, "k8": nc}, False),
+            ("C sort", "config C (slots, segment_impl sort)",
+             dict(edge_layout="slots", segment_impl="sort"), cloud_["slots"], cloud_["slots"],
+             {"k1": 10, "k7": nc}, True)):
+        model = recipe_model(**overrides).eval()
+        out, acc, same, warm[name] = serve(make_edge_arg_model(model), model, enc, dec, label,
+                                           expect)
+        if not same:
+            raise RuntimeError(f"{label}: the encoder accumulator differs between two requests")
+        against(label, out, acc, ref_out, ref_acc, fold)
+        del model
+    print("[flat] forward answered again, ms: " + ", ".join(f"{k} {v:.1f}" for k, v in warm.items()))
+
+    # config A's gradient through the kernels against the plain versions
+    small = LatentGrid(dims=(32, 32, 16))
+    radius = 2 * RADIUS
+    budget = max_degree(np.random.default_rng(23).uniform(-1, 1, (65_536, 3)).astype(np.float32),
+                        small, radius)
+    sc = flat_cloud(23, 65_536, small, radius, budget, chunk=8192)
+    model = recipe_model(small.dims, radius, budget, edge_chunk_size=8192, **config_a).train()
+
+    def forward_backward():
+        model.zero_grad(set_to_none=True)
+        pred = model(sc["pos"], sc["feats"], sc["mask"], encoder_slots=[sc["by_dst"]],
+                     decoder_slots=[sc["by_src"]], generator=torch.Generator().manual_seed(9))
+        loss = masked_mse(pred, sc["target"], sc["mask"])
+        loss.backward()
+        return loss.item(), grad_vector(model)
+
+    for fn in counters.values():
+        fn.launches = 0
+    loss_k, grad_k = forward_backward()
+    launched = {n: fn.launches for n, fn in counters.items()}
+    with plain_versions():
+        loss_p, grad_p = forward_backward()
+    torch.cuda.synchronize()
+    if {n: fn.launches for n, fn in counters.items()} != launched:
+        raise RuntimeError("the plain run launched a kernel")
+    rel = ((grad_k - grad_p).norm() / grad_p.norm()).item()
+    print(f"[flat] config A, 32x32x16 grid, 65,536 points in 8 chunks (budget {budget}), rate "
+          f"{RATE}, one seed: launches {({n: v for n, v in launched.items() if v})}; loss "
+          f"{loss_k:.6f} with kernels, {loss_p:.6f} with plain versions; relative L2 of the "
+          f"gradient ({grad_p.numel()} values) {rel:.3e}")
+    if not (rel <= E2E_BOUND and abs(loss_k - loss_p) <= E2E_BOUND * abs(loss_p)):
+        raise RuntimeError(f"config A: kernels and plain versions disagree in training: {rel}")
+    if launched["k6"] != 8 or launched["k7"] != 8:
+        raise RuntimeError(f"config A on the small grid: launches {launched}")
+    return total
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--flat-seed", type=int, default=31,
+                        help="seed of the cloud of the [k6], [k7], [k8] and [flat] phases")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -721,6 +1132,7 @@ def main():
               file=sys.stderr)
         return 1
     import gaot3d_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
 
     card = card_name_and_power()
     print(f"[device] {card}")
@@ -733,6 +1145,10 @@ def main():
     k4 = phase_k4()
     k1d, k2, replay_launches = phase_attention_train()
     train = phase_train()
+    torch.cuda.empty_cache()
+    flat_input = flat_cloud(args.flat_seed, N_POINTS, LatentGrid(dims=LATENT))
+    k7, k6, k8 = phase_sorted_kernels(flat_input)
+    flat = phase_flat(flat_input)
     pallas = "gaot3d_tpu/ops/pallas_attention.py"
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda",
@@ -755,6 +1171,15 @@ def main():
          "source": "gaot3d_tpu_torch/csrc/encoder_payload_bwd.cu",
          "replaces": "gaot3d_tpu/ops/pallas_encoder.py:246",
          "launches": train["k5b"], **k5b},
+        {"name": "segment_sum_sorted", "route": "cuda",
+         "source": "gaot3d_tpu_torch/csrc/segment_sum_sorted.cu",
+         "replaces": "gaot3d_tpu/ops/pallas_segment.py:103", "launches": flat["k6"], **k6},
+        {"name": "prefix_sum", "route": "cuda",
+         "source": "gaot3d_tpu_torch/csrc/prefix_sum.cu",
+         "replaces": "gaot3d_tpu/ops/pallas_kernels.py:49", "launches": flat["k7"], **k7},
+        {"name": "tile_segment_sum", "route": "cuda",
+         "source": "gaot3d_tpu_torch/csrc/tile_segment_sum.cu",
+         "replaces": "gaot3d_tpu/ops/pallas_kernels.py:138", "launches": flat["k8"], **k8},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

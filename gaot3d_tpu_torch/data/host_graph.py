@@ -1,11 +1,13 @@
-"""Host-side edge-slot building and degree sectioning, in numpy (port of the
-host-side functions of gaot3d_tpu/ops/grid_graph.py: `stencil_widths`,
-`compact_slots_np`, `build_edge_slots_host`, `section_slots_by_degree_np`).
+"""Host-side edge-slot building, degree sectioning and flattening, in numpy
+(port of the host-side functions of gaot3d_tpu/ops/grid_graph.py:
+`stencil_widths`, `compact_slots_np`, `build_edge_slots_host`,
+`section_slots_by_degree_np`, `flatten_slots_host`,
+`flatten_slots_host_batched`).
 
-The stencil search runs in the native `native/gaot_graph.cpp`,
-compiled with g++ at first use into `.build/gaot3d_tpu_torch/`. A failed build
-raises: there is no numpy fallback, so the slots a server sees are always the
-ones the native search makes.
+The stencil search and the flattening run in the native
+`native/gaot_graph.cpp`, compiled with g++ at first use into
+`.build/gaot3d_tpu_torch/`. A failed build raises: there is no numpy fallback,
+so the edges a server sees are always the ones the native code makes.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import List, Tuple
 import numpy as np
 
 from ..kernels.build import REPO_ROOT, load_library
-from ..ops.grid_graph import LatentGrid
+from ..ops.grid_graph import FlatEdgeChunks, LatentGrid
 
 DECODER_STRATEGIES = ("knn", "radius", "bidirectional", "reverse")
 
@@ -53,6 +55,14 @@ def _graph_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,              # w0..w2
         ctypes.c_int,                                          # budget
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,        # out idx/mask/k
+        ctypes.c_int,                                          # n_threads
+    ]
+    lib.gaot_flatten_slots.restype = ctypes.c_int64
+    lib.gaot_flatten_slots.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,                      # lat_idx, mask
+        ctypes.c_int64, ctypes.c_int,                          # n, k
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int,          # chunk, E, order
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,     # src, dst, mask
         ctypes.c_int,                                          # n_threads
     ]
     return lib
@@ -141,3 +151,62 @@ def section_slots_by_degree_np(lat_idx: np.ndarray, mask: np.ndarray,
                          np.ascontiguousarray(msk_p[lo:hi, :ksec])))
         i = j
     return perm, sections
+
+
+def flatten_slots_host(lat_idx: np.ndarray, mask: np.ndarray, chunk: int,
+                       pad_multiple: int = 8192, edges_per_chunk: int = 0,
+                       order: str = "src"):
+    """[N, K] slots -> per-chunk flat (src [nc, E] int32 local to the chunk,
+    dst [nc, E] int32, mask [nc, E] bool).
+
+    E is the largest per-chunk valid count rounded up to `pad_multiple`, or
+    the caller's `edges_per_chunk`, which must cover that count: the native
+    code cuts a chunk's list at E, so too small an E raises instead of
+    dropping edges. order 'src' keeps the (node, slot) order, ascending by
+    node; 'dst' stable-sorts each chunk's valid rows by latent cell. Padding
+    is packed at the tail either way, with src = dst = 0."""
+    if order not in ("src", "dst"):
+        raise ValueError(f"unknown flat edge order: {order}")
+    N, K = lat_idx.shape
+    if N % chunk != 0:
+        raise ValueError(f"chunk {chunk} must divide N {N}")
+    nc = N // chunk
+    counts = mask.reshape(nc, chunk * K).sum(axis=1)
+    max_valid = int(counts.max()) if nc else 0
+    E = edges_per_chunk or -(-max(max_valid, 1) // pad_multiple) * pad_multiple
+    if max_valid > E:
+        raise ValueError(f"edges_per_chunk {E} < max per-chunk valid count {max_valid}: "
+                         "edges would be dropped")
+    lat_c = np.ascontiguousarray(lat_idx, np.int32)
+    msk_c = np.ascontiguousarray(mask, np.uint8)
+    src = np.empty((nc, E), np.int32)
+    dst = np.empty((nc, E), np.int32)
+    out_m = np.empty((nc, E), np.uint8)
+    got = _graph_library().gaot_flatten_slots(
+        lat_c.ctypes.data_as(ctypes.c_void_p), msk_c.ctypes.data_as(ctypes.c_void_p),
+        N, K, chunk, E, 1 if order == "dst" else 0,
+        src.ctypes.data_as(ctypes.c_void_p), dst.ctypes.data_as(ctypes.c_void_p),
+        out_m.ctypes.data_as(ctypes.c_void_p), max(1, os.cpu_count() or 1))
+    if got < 0:
+        raise RuntimeError(f"gaot_flatten_slots failed rc={got}")
+    if got > E:
+        raise ValueError(f"edges_per_chunk {E} < max per-chunk valid count {got}: "
+                         "edges would be dropped")
+    return src, dst, out_m.astype(bool)
+
+
+def flatten_slots_host_batched(lat_idx: np.ndarray, mask: np.ndarray, chunk: int,
+                               pad_multiple: int = 8192, order: str = "src",
+                               edges_per_chunk: int = 0, device=None) -> FlatEdgeChunks:
+    """[B, N, K] slots -> FlatEdgeChunks [B, nc, E] on `device`, with one E
+    for the batch: the largest over the samples, or the caller's
+    `edges_per_chunk` (`MAGNOConfig.flat_edges_per_chunk`)."""
+    per = [flatten_slots_host(np.asarray(lat_idx[b]), np.asarray(mask[b]), chunk,
+                              pad_multiple=pad_multiple, order=order,
+                              edges_per_chunk=edges_per_chunk)
+           for b in range(lat_idx.shape[0])]
+    E = max(p[0].shape[1] for p in per)
+    # padding is already packed at the tail, so growing E is a zero pad
+    per = [tuple(np.pad(a, ((0, 0), (0, E - a.shape[1]))) for a in p) for p in per]
+    return FlatEdgeChunks.from_numpy(*(np.stack([p[i] for p in per]) for i in range(3)),
+                                     device=device)

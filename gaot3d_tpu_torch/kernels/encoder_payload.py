@@ -16,7 +16,9 @@ slot whose cell lies outside the grid is dropped, as XLA's scatter drops it.
 
 - `encoder_accumulate` adds the payload of every valid row into acc
   [B, M, C+11]: the kernel for CUDA tensors, the twin for CPU tensors.
-- `encoder_payload_reference` is exactly the JAX `encoder_payload` output.
+- `payload_rows` is the payload of given (point, cell) rows, and
+  `encoder_payload_reference`, over [n, K] slots, is exactly the JAX
+  `encoder_payload` output.
 - `encoder_accumulate_reference` is that payload plus a masked `index_add_`.
 - `encoder_accumulate_backward` gives (dfeats, dW, db) from the accumulator's
   cotangent: the kernel for CUDA tensors, for CPU tensors
@@ -63,6 +65,26 @@ def _backward_library() -> ctypes.CDLL:
     return lib
 
 
+def payload_rows(pt: torch.Tensor, fe: torch.Tensor, idx: torch.Tensor,
+                 weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
+                 grid: LatentGrid) -> torch.Tensor:
+    """The payload of one edge per row: points pt [..., 3], their lifted
+    features fe [..., C] and latent cells idx [...] -> [..., C+11]. Plain
+    tensor code under autograd: the unfused encoder (sorted reductions, flat
+    edge lists) computes its rows here."""
+    cell = grid.positions_from_idx(idx, dtype=pt.dtype)
+    y = pt - cell
+    d = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
+    x = torch.cat([pt, cell], dim=-1)
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        x = F.linear(x, w, b)
+        if i < len(weights) - 1:
+            x = F.gelu(x)
+    y0, y1, y2 = y[..., 0:1], y[..., 1:2], y[..., 2:3]
+    return torch.cat([x * fe, torch.ones_like(d), d, y,
+                      y0 * y0, y0 * y1, y0 * y2, y1 * y1, y1 * y2, y2 * y2], dim=-1)
+
+
 def encoder_payload_reference(pos: torch.Tensor, feats: torch.Tensor,
                               lat_idx: torch.Tensor, weights: Sequence[torch.Tensor],
                               biases: Sequence[torch.Tensor],
@@ -71,20 +93,9 @@ def encoder_payload_reference(pos: torch.Tensor, feats: torch.Tensor,
     payload [..., n*K, C+11]."""
     *lead, n, K = lat_idx.shape
     C = feats.shape[-1]
-    cell = grid.positions_from_idx(lat_idx, dtype=pos.dtype)
     pt = pos[..., :, None, :].expand(*lead, n, K, 3)
-    y = pt - cell
-    d = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
-    x = torch.cat([pt, cell], dim=-1)
-    for i, (w, b) in enumerate(zip(weights, biases)):
-        x = F.linear(x, w, b)
-        if i < len(weights) - 1:
-            x = F.gelu(x)
-    vals = x * feats[..., :, None, :]
-    y0, y1, y2 = y[..., 0:1], y[..., 1:2], y[..., 2:3]
-    out = torch.cat([vals, torch.ones_like(d), d, y,
-                     y0 * y0, y0 * y1, y0 * y2, y1 * y1, y1 * y2, y2 * y2], dim=-1)
-    return out.reshape(*lead, n * K, C + 11)
+    fe = feats[..., :, None, :].expand(*lead, n, K, C)
+    return payload_rows(pt, fe, lat_idx, weights, biases, grid).reshape(*lead, n * K, C + 11)
 
 
 def encoder_accumulate_reference(pos, feats, lat_idx, mask, weights, biases,

@@ -7,7 +7,7 @@ import torch
 
 from ..ops.grid_graph import LatentGrid
 from .gaot3d import GAOT3D
-from .magno import MAGNOConfig, MAGNODecoder, MAGNOEncoder
+from .magno import MAGNOConfig, MAGNODecoder, MAGNOEncoder, parse_edge_layout
 from .mlp import reset_linear_
 from .transformer import AttentionConfig, FFNConfig, TransformerConfig
 
@@ -53,5 +53,6 @@ __all__ = [
     "AttentionConfig",
     "FFNConfig",
     "init_model",
+    "parse_edge_layout",
     "SUPPORTED_MODELS",
 ]

@@ -1,8 +1,9 @@
 """GAOT3D: MAGNO encoder -> U-ViT processor -> MAGNO decoder (port of
 gaot3d_tpu/models/gaot3d.py).
 
-The forward pass takes precomputed edge slots for both sides; the on-device
-stencil build is not ported. In training the forward takes a
+The forward pass takes precomputed edges for both sides (uniform slots,
+degree sections or flat edge lists, each side its own); the on-device stencil
+build is not ported. In training the forward takes a
 `torch.Generator`, from which the processor draws its attention-dropout
 seeds. Patchify and unpatchify
 are the reference's exact reshapes and transposes.
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.grid_graph import EdgeSlots, LatentGrid, SectionedEdgeSlots
+from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots
 from .magno import MAGNOConfig, MAGNODecoder, MAGNOEncoder
 from .transformer import TransformerConfig, UViTProcessor
 
@@ -47,12 +48,52 @@ def _slot_sections(slots) -> Sequence[EdgeSlots]:
         return (slots,)
     raise NotImplementedError(
         f"edge layout {type(slots).__name__} is not ported "
-        "(supported: EdgeSlots, SectionedEdgeSlots)")
+        "(supported: EdgeSlots, SectionedEdgeSlots, FlatEdgeChunks)")
 
 
-def check_slots(slots, batch: int, num_cells: int) -> None:
-    """Validate call-time slots: int32 cell ids and bool masks of [B, n, K],
-    and every valid slot's cell inside the grid (one device sync)."""
+def check_flat_edges(flat: FlatEdgeChunks, batch: int, num_nodes: int, num_cells: int,
+                     sorted_by: Optional[str] = None) -> None:
+    """Validate call-time flat edge lists: int32 src and dst and a bool mask
+    of [B, nc, E] with nc dividing the node count, every valid edge's node
+    inside its chunk and its cell inside the grid. With `sorted_by` ('src' or
+    'dst'), also the order a presorted reduction trusts: that key never
+    decreases along a chunk's valid edges and the padding sits at the tail.
+    One device sync in all."""
+    if flat.src.dtype != torch.int32 or flat.dst.dtype != torch.int32 \
+            or flat.mask.dtype != torch.bool:
+        raise ValueError("flat edges need int32 src and dst and a bool mask")
+    if flat.src.ndim != 3 or flat.src.shape != flat.dst.shape \
+            or flat.src.shape != flat.mask.shape or flat.src.shape[0] != batch:
+        raise ValueError(f"flat edges must be [{batch}, nc, E], got {tuple(flat.src.shape)}")
+    nc = flat.num_chunks
+    if nc == 0 or num_nodes % nc != 0:
+        raise ValueError(f"flat chunks ({nc}) must divide N ({num_nodes})")
+    chunk = num_nodes // nc
+    bad = flat.mask & ((flat.src < 0) | (flat.src >= chunk)
+                       | (flat.dst < 0) | (flat.dst >= num_cells))
+    flags = [bad.any()]
+    if sorted_by is not None:
+        # padding takes the largest key, as the folds map it (ops/segment.py)
+        ids = flat.src if sorted_by == "src" else flat.dst
+        key = torch.where(flat.mask, ids, torch.full_like(ids, torch.iinfo(torch.int32).max))
+        flags.append((key[..., 1:] < key[..., :-1]).any())
+    flags = torch.stack(flags).tolist()
+    if flags[0]:
+        raise ValueError(f"a valid flat edge points outside its chunk [0, {chunk}) or outside "
+                         f"the latent grid [0, {num_cells})")
+    if flags[-1]:
+        raise ValueError(f"flat edges are not sorted by {sorted_by} within a chunk with the "
+                         f"padding at the tail, as this side's reduction needs (build them with "
+                         f"flatten_slots_host(..., order='{sorted_by}'))")
+
+
+def check_slots(slots, batch: int, num_nodes: int, num_cells: int,
+                sorted_by: Optional[str] = None) -> None:
+    """Validate call-time edges. Slots: int32 cell ids and bool masks of
+    [B, n, K], and every valid slot's cell inside the grid (one device sync).
+    Flat edge lists: see `check_flat_edges`, which alone reads `sorted_by`."""
+    if isinstance(slots, FlatEdgeChunks):
+        return check_flat_edges(slots, batch, num_nodes, num_cells, sorted_by)
     bad = None
     for sec in _slot_sections(slots):
         if sec.lat_idx.dtype != torch.int32 or sec.mask.dtype != torch.bool:
@@ -133,9 +174,12 @@ class GAOT3D(nn.Module):
         if query_pos is None:
             query_pos = point_pos
         enc, dec = encoder_slots[0], decoder_slots[0]
-        check_slots(enc, point_pos.shape[0], self.grid.num_tokens)
-        if dec is not enc:
-            check_slots(dec, query_pos.shape[0], self.grid.num_tokens)
+        # the encoder folds by cell when its lists come sorted so; the decoder
+        # always folds by node, so one flat list cannot serve both sides then
+        enc_order = "dst" if self.encoder.fused.flat_dst_sorted else None
+        check_slots(enc, point_pos.shape[0], point_pos.shape[1], self.grid.num_tokens, enc_order)
+        if dec is not enc or isinstance(dec, FlatEdgeChunks):
+            check_slots(dec, query_pos.shape[0], query_pos.shape[1], self.grid.num_tokens, "src")
         rndata = self.encoder(point_pos, point_feats, enc)
         rndata = self.process(rndata, generator)
         return self.decoder(rndata, query_pos, dec)

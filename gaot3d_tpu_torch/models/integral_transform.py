@@ -1,11 +1,14 @@
 """Kernel integral transform (GNO), decoder direction (port of
-gaot3d_tpu/models/integral_transform.py `effective_chunk` and the decoder
-chunk body; callers slice node chunks directly instead of `reshape_chunks`).
+gaot3d_tpu/models/integral_transform.py `effective_chunk`, the decoder chunk
+bodies for slots and for flat edge lists, and the decoder branches of
+`__call__`; callers slice node chunks directly instead of `reshape_chunks`).
 
 Per edge between a point and a latent cell: kernel = MLP([cell | point]),
-value = kernel * latent features of the cell; each point takes the masked
-mean over its K slots. The encoder direction runs through
-models/fused_encoder.py; this module only holds its kernel-MLP weights.
+value = kernel * latent features of the cell; each point takes the mean over
+its valid edges: a masked mean over its K slots, or, for flat edge lists
+sorted by node, a presorted fold by node through the prefix-sum kernel K7.
+The encoder direction runs through models/fused_encoder.py; this module only
+holds its kernel-MLP weights.
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.grid_graph import LatentGrid
+from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid
+from ..ops.segment import fold_count, fold_sum_sorted, make_segment_fold_presorted
 from .mlp import ChannelMLP, kernel_mlp_apply
 
 
@@ -57,3 +61,57 @@ class IntegralTransform(nn.Module):
                                                                   device=vals.device)).sum(2)
         count = mask_c.sum(dim=-1, keepdim=True).clamp_min(1)
         return total / count.to(vals.dtype)
+
+    def decoder_chunk_flat(self, latent_feats: torch.Tensor, pos_c: torch.Tensor,
+                           src_e: torch.Tensor, dst_e: torch.Tensor,
+                           emask_e: torch.Tensor) -> torch.Tensor:
+        """Flat-edge form of `decoder_chunk`: packed valid edges [B, E] with
+        src LOCAL to the chunk and ascending, so the mean by node is a
+        presorted fold over n segments. latent_feats [B, M, C], pos_c
+        [B, n, 3] -> [B, n, C]."""
+        B, E = emask_e.shape
+        n = pos_c.shape[1]
+        C = latent_feats.shape[-1]
+        lat_pos = self.grid.positions_from_idx(dst_e, dtype=pos_c.dtype)
+        pt_pos = torch.gather(pos_c, 1, src_e.long()[..., None].expand(B, E, pos_c.shape[-1]))
+        # padding rows hold cell 0 and are zeroed, as the fold drops them
+        cell = dst_e.clamp(0, latent_feats.shape[1] - 1).long()[..., None].expand(B, E, C)
+        src = torch.gather(latent_feats, 1, cell) * emask_e[..., None].to(latent_feats.dtype)
+        vals = kernel_mlp_apply(torch.cat([lat_pos, pt_pos], dim=-1), self.channel_mlp.fcs) * src
+        outs = []
+        for v, s, m in zip(vals, src_e, emask_e):
+            ctx = make_segment_fold_presorted(s, n, m)
+            cnt = fold_count(ctx, v.dtype).clamp_min(1.0)
+            outs.append(fold_sum_sorted(ctx, v) / cnt[:, None])
+        return torch.stack(outs)
+
+    def forward(self, slots, point_pos: torch.Tensor, latent_feats: torch.Tensor,
+                direction: str = "decoder",
+                edge_chunk_size: Optional[int] = None) -> torch.Tensor:
+        """Decoder direction over a whole cloud: latent_feats [B, M, C],
+        point_pos [B, N, 3] -> [B, N, C], one node chunk at a time."""
+        if direction not in ("encoder", "decoder"):
+            raise ValueError(f"direction must be encoder|decoder, got {direction}")
+        if direction != "decoder":
+            raise ValueError("the encoder direction goes through the fused encoder "
+                             "(FusedEncoderScale), not IntegralTransform")
+        N = point_pos.shape[1]
+        if isinstance(slots, FlatEdgeChunks):
+            nc = slots.num_chunks
+            if N % nc != 0:
+                raise ValueError(f"flat chunks ({nc}) must divide N ({N})")
+            chunk = N // nc
+            outs = [self.decoder_chunk_flat(latent_feats, point_pos[:, c * chunk:(c + 1) * chunk],
+                                            slots.src[:, c], slots.dst[:, c], slots.mask[:, c])
+                    for c in range(nc)]
+        elif isinstance(slots, EdgeSlots):
+            chunk = effective_chunk(N, edge_chunk_size)
+            outs = [self.decoder_chunk(latent_feats, point_pos[:, c0:c0 + chunk],
+                                       slots.lat_idx[:, c0:c0 + chunk],
+                                       slots.mask[:, c0:c0 + chunk])
+                    for c0 in range(0, N, chunk)]
+        else:
+            raise NotImplementedError(
+                f"edge layout {type(slots).__name__} is not ported for the decoder GNO "
+                "(supported: EdgeSlots, FlatEdgeChunks)")
+        return torch.cat(outs, dim=1)

@@ -1,6 +1,7 @@
-"""MAGNO encoder and decoder over precomputed edge slots (port of
-gaot3d_tpu/models/magno.py `MAGNOConfig`, `MAGNOEncoder` on its fused path,
-and `MAGNODecoder` with its GNO-only fused head, sectioned and uniform).
+"""MAGNO encoder and decoder over precomputed edges (port of
+gaot3d_tpu/models/magno.py `MAGNOConfig`, `parse_edge_layout`, `MAGNOEncoder`
+on its fused path, and `MAGNODecoder` with its GNO-only head over uniform
+slots, degree sections and flat edge lists).
 
 Encoder: lift point features -> fused GNO + statistical geoembed
 (models/fused_encoder.py) -> recovery([gno | geo]) -> [B, M, C].
@@ -8,9 +9,17 @@ Decoder: per node chunk, GNO from the latent grid to the points, then the
 projection head (C -> projection_channels -> out, exact GELU).
 
 `MAGNOConfig` has the JAX fields and defaults, so one config drives both
-packages. Values the port does not support raise with a message; the
-TPU-only knobs (payload_impl, payload_layout, segment_impl, flat_*, remat*,
-use_graph_cache, gno_use_torch_*) are accepted and ignored.
+packages. The model dispatches on the type of the edge structure it is
+handed; four fields say how the encoder reduces, as in the JAX package:
+`segment_impl` (scatter | sort | tile) for slots, sections and src-ordered
+flat lists, `flat_order` (src | dst) for how the encoder's flat lists were
+built, `flat_reduce_impl` (fold | pallas) for dst-ordered flat lists. The
+data side reads `edge_layout` (scalar or [encoder, decoder] pair, see
+`parse_edge_layout`), `flat_order` and `flat_edges_per_chunk`
+(`data.host_graph.flatten_slots_host_batched`). Values the port does not
+support raise NotImplementedError, unknown values ValueError; the TPU-only
+knobs (payload_impl, payload_layout, remat*, use_graph_cache,
+gno_use_torch_*) are accepted and ignored.
 """
 from __future__ import annotations
 
@@ -20,7 +29,8 @@ from typing import Any, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ..ops.grid_graph import EdgeSlots, LatentGrid, SectionedEdgeSlots, compact_slots
+from ..ops.grid_graph import (EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots,
+                              compact_slots)
 from .fused_encoder import FusedEncoderScale, StatisticalGeoEmbedding
 from .integral_transform import IntegralTransform, effective_chunk
 from .mlp import ChannelMLP
@@ -85,8 +95,35 @@ def parse_geoembed_strategy(use_geoembed: Union[bool, List[bool]]) -> Tuple[bool
     raise ValueError(f"use_geoembed must be bool or list of length 2, got {use_geoembed}")
 
 
+def parse_edge_layout(edge_layout: Union[str, List[str]]) -> Tuple[str, str]:
+    """scalar-or-pair -> (encoder, decoder) layout, each 'slots' | 'flat' |
+    'sectioned'. 'sectioned' must cover both sides: its degree sort permutes
+    the sample's nodes, so a mixed pair would feed one side permuted inputs
+    against unpermuted edges."""
+    if isinstance(edge_layout, str):
+        pair = (edge_layout, edge_layout)
+    elif isinstance(edge_layout, (list, tuple)) and len(edge_layout) == 2:
+        pair = (edge_layout[0], edge_layout[1])
+    else:
+        raise ValueError(f"edge_layout must be str or list of length 2, got {edge_layout}")
+    for side in pair:
+        if side not in ("slots", "flat", "sectioned"):
+            raise ValueError(f"unknown edge_layout: {side!r}")
+    if "sectioned" in pair and pair != ("sectioned", "sectioned"):
+        raise ValueError("edge_layout 'sectioned' applies to both sides (the degree-sort "
+                         f"permutation reorders the sample's nodes), got {pair}")
+    return pair
+
+
 def check_supported(cfg: MAGNOConfig) -> None:
-    """Raise for the config values the port does not run."""
+    """Raise ValueError for unknown values of the reduction and layout fields
+    and NotImplementedError for the config values the port does not run."""
+    parse_edge_layout(cfg.edge_layout)
+    for name, known in (("segment_impl", ("scatter", "sort", "tile")),
+                        ("flat_order", ("src", "dst")),
+                        ("flat_reduce_impl", ("fold", "pallas"))):
+        if getattr(cfg, name) not in known:
+            raise ValueError(f"unknown {name}: {getattr(cfg, name)!r} (one of {known})")
     enc_geo, dec_geo = parse_geoembed_strategy(cfg.use_geoembed)
     unsupported = [
         (cfg.kernel_dtype != "float32",
@@ -127,7 +164,10 @@ class MAGNOEncoder(nn.Module):
             [2 * cfg.gno_coord_dim] + list(cfg.in_gno_channel_mlp_hidden_layers) + [C], grid)
         self.geoembed = StatisticalGeoEmbedding(cfg.gno_coord_dim, C)
         self.recovery = ChannelMLP([2 * C, C], cfg.mlp_type)
-        self.fused = FusedEncoderScale(self.gno, self.geoembed, grid, C, cfg.edge_chunk_size)
+        self.fused = FusedEncoderScale(
+            self.gno, self.geoembed, grid, C, cfg.edge_chunk_size,
+            segment_impl=cfg.segment_impl, flat_dst_sorted=cfg.flat_order == "dst",
+            flat_reduce_impl=cfg.flat_reduce_impl)
 
     def forward(self, point_pos: torch.Tensor, point_feats: torch.Tensor,
                 slots) -> torch.Tensor:
@@ -171,7 +211,7 @@ class MAGNODecoder(nn.Module):
                 slots) -> torch.Tensor:
         """latent_feats [B, M, C], query_pos [B, N, 3] -> [B, N, out]. With
         sectioned slots the rows come back in the sections' (degree-sorted)
-        node order."""
+        node order; with flat edge lists, in the caller's."""
         if isinstance(slots, SectionedEdgeSlots):
             if not self.fused_head:
                 raise ValueError("sectioned slots require fused_head=True")
@@ -184,8 +224,22 @@ class MAGNODecoder(nn.Module):
                 outs.append(self._decode(latent_feats, query_pos[:, off:off + ns], sec))
                 off += ns
             return torch.cat(outs, dim=1)
+        if isinstance(slots, FlatEdgeChunks):
+            # packed edge lists: no compaction applies; src must be ascending
+            # within a chunk (the fold by node trusts it)
+            if not self.fused_head:
+                return self.projection(self.gno(slots, query_pos, latent_feats))
+            nc, n = slots.num_chunks, query_pos.shape[1]
+            if n % nc != 0:
+                raise ValueError(f"flat chunks ({nc}) must divide N ({n})")
+            chunk = n // nc
+            return torch.cat([
+                self.projection(self.gno.decoder_chunk_flat(
+                    latent_feats, query_pos[:, c * chunk:(c + 1) * chunk], slots.src[:, c],
+                    slots.dst[:, c], slots.mask[:, c]))
+                for c in range(nc)], dim=1)
         if isinstance(slots, EdgeSlots):
             return self._decode(latent_feats, query_pos, _budgeted(slots, self.slot_budget))
         raise NotImplementedError(
             f"edge layout {type(slots).__name__} is not ported "
-            "(supported: EdgeSlots, SectionedEdgeSlots)")
+            "(supported: EdgeSlots, SectionedEdgeSlots, FlatEdgeChunks)")

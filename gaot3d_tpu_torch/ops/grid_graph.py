@@ -1,5 +1,6 @@
 """Latent grid and precomputed edge-slot containers (port of
-gaot3d_tpu/ops/grid_graph.py `LatentGrid`, `EdgeSlots`, `SectionedEdgeSlots`).
+gaot3d_tpu/ops/grid_graph.py `LatentGrid`, `EdgeSlots`, `FlatEdgeChunks`,
+`SectionedEdgeSlots`).
 
 Edges between N points and the regular latent grid live in a static slot
 layout: `lat_idx[..., n, k]` is the flattened latent cell of slot k of point n
@@ -70,6 +71,41 @@ class EdgeSlots(NamedTuple):
     def from_numpy(lat_idx: np.ndarray, mask: np.ndarray, device=None) -> "EdgeSlots":
         return EdgeSlots(
             torch.as_tensor(np.ascontiguousarray(lat_idx, np.int32), device=device),
+            torch.as_tensor(np.ascontiguousarray(mask, bool), device=device),
+        )
+
+
+class FlatEdgeChunks(NamedTuple):
+    """Compacted edge lists, one per node chunk of the model's edge loop.
+
+    The valid (node, slot) pairs of each chunk are packed into flat src/dst
+    lists padded to one per-chunk length E; padding sits at the tail with
+    mask false and src = dst = 0. `src` is the node index LOCAL to the chunk.
+    Built on the host by `data.host_graph.flatten_slots_host_batched`, in
+    'src' order (ascending node; what the decoder's fold by node needs) or in
+    'dst' order (each chunk's valid rows sorted by latent cell; what the
+    encoder's presorted reductions need, `MAGNOConfig.flat_order`). Outputs
+    come back in the caller's node order.
+    """
+
+    src: torch.Tensor  # [B, nc, E] int32, node index local to the chunk
+    dst: torch.Tensor  # [B, nc, E] int32, flattened latent cell index
+    mask: torch.Tensor  # [B, nc, E] bool
+
+    @property
+    def num_chunks(self) -> int:
+        return self.src.shape[-2]
+
+    @property
+    def edges_per_chunk(self) -> int:
+        return self.src.shape[-1]
+
+    @staticmethod
+    def from_numpy(src: np.ndarray, dst: np.ndarray, mask: np.ndarray,
+                   device=None) -> "FlatEdgeChunks":
+        return FlatEdgeChunks(
+            torch.as_tensor(np.ascontiguousarray(src, np.int32), device=device),
+            torch.as_tensor(np.ascontiguousarray(dst, np.int32), device=device),
             torch.as_tensor(np.ascontiguousarray(mask, bool), device=device),
         )
 

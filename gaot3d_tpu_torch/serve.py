@@ -10,8 +10,12 @@ precomputed edge structures as call-time arguments like
     infer = load_inference("model.pt")                           # serve, on the card
     pred = infer(pos, feats, mask, encoder_slots, decoder_slots)
 
-With sectioned slots, `pos` and `feats` are in the sections' permuted node
-order and so is the prediction.
+Each side takes any edge structure the model runs: `EdgeSlots`,
+`SectionedEdgeSlots` or `FlatEdgeChunks` (the encoder's built in the order
+the exported config's `flat_order` names, the decoder's always in 'src'
+order). With sectioned slots, `pos` and `feats` are in the sections' permuted
+node order and so is the prediction; with flat edge lists they stay in the
+caller's order.
 """
 from __future__ import annotations
 
@@ -79,7 +83,7 @@ def make_edge_arg_model(model: GAOT3D, num_scales: int = 1) -> Callable:
 def load_inference(path: str, device="cuda") -> Callable:
     """Rebuild an exported model on `device` (the card unless the caller asks
     for the CPU) in eval mode and return its call-time-edges forward (see
-    make_edge_arg_model)."""
+    make_edge_arg_model), which accepts slots, sections or flat edge lists."""
     device = require_device(device)
     blob = torch.load(path, map_location="cpu", weights_only=True)
     model = model_from_config(blob["config"], device="cpu")

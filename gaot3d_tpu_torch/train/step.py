@@ -19,14 +19,15 @@ from .schedule import ScheduledOptimizer
 
 @dataclass
 class TrainBatch:
-    """One batch with precomputed edge slots. With sectioned slots, pos, feats
-    and target are in the sections' permuted node order."""
+    """One batch with precomputed edges. With sectioned slots, pos, feats
+    and target are in the sections' permuted node order; with flat edge lists
+    they stay in the caller's."""
 
     pos: torch.Tensor  # [B, N, 3]
     feats: torch.Tensor  # [B, N, C_in]
     target: torch.Tensor  # [B, N, C_out]
     node_mask: torch.Tensor  # [B, N] bool
-    enc_slots: Any  # EdgeSlots or SectionedEdgeSlots
+    enc_slots: Any  # EdgeSlots, SectionedEdgeSlots or FlatEdgeChunks
     dec_slots: Any
 
 

@@ -13,6 +13,9 @@ import torch
 from gaot3d_tpu_torch.kernels import dropout_bits as k4
 from gaot3d_tpu_torch.kernels import encoder_payload as k5
 from gaot3d_tpu_torch.kernels import flash_attention as k1
+from gaot3d_tpu_torch.kernels import prefix_sum as k7
+from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
+from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
 from gaot3d_tpu_torch.models import (AttentionConfig, FFNConfig, MAGNOConfig,
                                      TransformerConfig, init_model)
 from gaot3d_tpu_torch.ops.grid_graph import EdgeSlots, LatentGrid
@@ -284,3 +287,210 @@ def test_train_step_on_card_matches_cpu():
     assert torch.isfinite(grads[1]).all()
     rel = ((grads[1] - grads[0]).norm() / grads[0].norm()).item()
     assert rel <= 1e-4
+
+
+# --- K7 prefix sum, K6 sorted segment sum, K8 tile segment sum ---------------
+
+
+@pytest.mark.parametrize("E,C", [(1, 1), (31, 43), (160, 43), (161, 43), (5000, 32), (100_003, 43),
+                                 (777, 1), (4097, 7), (300, 300), (40_000, 64)])
+def test_prefix_sum_kernel_matches_plain(E, C):
+    """Against the float64 cumsum: 2e-6 of the largest prefix of each column
+    (the kernel adds 32 rows in order, then group and block totals, so its
+    rounding follows the running sum). Against the plain float32 cumsum, whose
+    own rounding reads 1e-5 at 163,840 rows: 3e-5. Two launches bit for bit."""
+    rng = np.random.default_rng(E + C)
+    x = torch.from_numpy(rng.normal(size=(E, C)).astype(np.float32)).cuda()
+    before = k7.prefix_sum.launches
+    got = k7.prefix_sum(x)
+    again = k7.prefix_sum(x)
+    torch.cuda.synchronize()
+    assert k7.prefix_sum.launches == before + 2
+    assert torch.equal(got, again)
+    want = torch.cumsum(x.double(), dim=0)
+    top = want.abs().amax(dim=0).clamp_min(1.0)
+    assert ((got.double() - want).abs() / top).max().item() <= 2e-6
+    plain = k7.prefix_sum_reference(x)
+    assert ((got - plain).abs().double() / top).max().item() <= 3e-5
+
+
+def test_prefix_sum_kernel_counts_exactly():
+    """A column of ones reaches 163,840, exact in float32: the count column
+    of the encoder's payload must come out exact."""
+    x = torch.ones((163_840, 3), device="cuda")
+    x[:, 1] = 0.0
+    got = k7.prefix_sum(x)
+    want = torch.arange(1, 163_841, device="cuda", dtype=torch.float32)
+    assert torch.equal(got[:, 0], want) and torch.equal(got[:, 2], want)
+    assert not got[:, 1].any()
+
+
+def test_prefix_sum_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="float32"):
+        k7.prefix_sum(torch.zeros((4, 4), device="cuda", dtype=torch.float64))
+    with pytest.raises(ValueError, match=r"\[E, C\]"):
+        k7.prefix_sum(torch.zeros(4, device="cuda"))
+    assert k7.prefix_sum(torch.zeros((0, 5), device="cuda")).shape == (0, 5)
+
+
+def _sorted_rows(rng, E, S, P, n_valid, hot=None):
+    """Rows sorted by id with the invalid ones (id S) at the tail; `hot`
+    sends nine rows in ten to that one segment."""
+    ids = rng.integers(0, S, E)
+    if hot is not None:
+        ids[rng.random(E) < 0.9] = hot
+    ids[n_valid:] = S
+    ids = np.sort(ids).astype(np.int32)
+    data = rng.normal(size=(E, P)).astype(np.float32)
+    return torch.from_numpy(data).cuda(), torch.from_numpy(ids).cuda()
+
+
+def _assert_segment_sums(got, data, ids, S):
+    """Against the float64 sums: 1e-6 of the segment's sum of magnitudes
+    (float32 additions in row order; a dropped or doubled row of a segment of
+    n rows would read about 1/n of it)."""
+    keep = ids < S
+    idx = ids[keep].long()
+    want = torch.zeros((S, data.shape[1]), dtype=torch.float64, device=data.device)
+    want.index_add_(0, idx, data[keep].double())
+    size = torch.zeros_like(want).index_add_(0, idx, data[keep].double().abs())
+    assert torch.isfinite(got).all()
+    assert ((got.double() - want).abs() <= 1e-6 * size).all()
+
+
+def _assert_close_to_plain(got, plain, data, ids, S):
+    """Kernel against plain version, entry by entry within 2e-6 of the
+    segment's sum of magnitudes: each is a float32 sum of the same rows in
+    its own order (the plain `index_add_` adds with atomics on the card), so
+    the limit follows the segment's size; one limit for the whole result
+    would sit at the rounding noise of a segment of 60,000 rows and far above
+    a dropped row of a short one."""
+    keep = ids < S
+    size = torch.zeros((S, data.shape[1]), dtype=torch.float64, device=data.device)
+    size.index_add_(0, ids[keep].long(), data[keep].double().abs())
+    assert ((got.double() - plain.double()).abs() <= 2e-6 * size).all()
+
+
+_SEGMENT_CASES = [
+    # E, S, P, n_valid, hot
+    (1000, 64, 43, 900, None),       # ragged, a few rows a segment
+    (1003, 517, 43, 1003, None),     # S no multiple of any tile, no padding, empty segments
+    (50_000, 100_000, 43, 41_000, None),  # most segments empty
+    (70_001, 3000, 43, 65_000, 1234),  # one hot segment holds most rows
+    (4096, 700, 5, 0, None),         # every row invalid
+    (777, 1, 130, 700, None),        # one segment, more columns than one pass holds
+    (1, 9, 1, 1, None),
+]
+
+
+@pytest.mark.parametrize("E,S,P,n_valid,hot", _SEGMENT_CASES)
+def test_segment_sum_sorted_kernel_matches_plain(E, S, P, n_valid, hot):
+    rng = np.random.default_rng(E + S)
+    data, ids = _sorted_rows(rng, E, S, P, n_valid, hot)
+    before = k6.segment_sum_sorted.launches
+    got = k6.segment_sum_sorted(data, ids, S)
+    again = k6.segment_sum_sorted(data, ids, S, passes=2)
+    torch.cuda.synchronize()
+    assert k6.segment_sum_sorted.launches == before + 2
+    assert got.shape == (S, P) and torch.equal(got, again)
+    _assert_segment_sums(got, data, ids, S)
+    plain = k6.segment_sum_sorted_reference(data, ids, S)
+    _assert_close_to_plain(got, plain, data, ids, S)
+
+
+def test_segment_sum_sorted_kernel_batches_on_the_grid():
+    """Three batches with different valid counts in one launch, each equal to
+    its own unbatched launch bit for bit."""
+    rng = np.random.default_rng(5)
+    E, S, P = 3000, 257, 43
+    pairs = [_sorted_rows(rng, E, S, P, n) for n in (3000, 2100, 3)]
+    data = torch.stack([p[0] for p in pairs])
+    ids = torch.stack([p[1] for p in pairs])
+    before = k6.segment_sum_sorted.launches
+    got = k6.segment_sum_sorted(data, ids, S)
+    assert k6.segment_sum_sorted.launches == before + 1
+    for b, (d, i) in enumerate(pairs):
+        assert torch.equal(got[b], k6.segment_sum_sorted(d, i, S))
+        _assert_segment_sums(got[b], d, i, S)
+
+
+@pytest.mark.parametrize("seg_tile", [512, 8, 100])
+@pytest.mark.parametrize("E,S,P,n_valid,hot", _SEGMENT_CASES)
+def test_tile_segment_sum_kernel_matches_plain(E, S, P, n_valid, hot, seg_tile):
+    """From tile boundaries and from full starts, over sorted rows and over
+    unsorted rows read through perm: all four the same bits."""
+    rng = np.random.default_rng(E + S + seg_tile)
+    data, ids = _sorted_rows(rng, E, S, P, n_valid, hot)
+    ts = k8.tile_boundaries(ids, S, seg_tile)
+    before = k8.tile_segment_sum.launches
+    got = k8.tile_segment_sum(data, ids, ts=ts, num_segments=S, seg_tile=seg_tile)
+    torch.cuda.synchronize()
+    assert k8.tile_segment_sum.launches == before + 1
+    assert got.shape == (S, P)
+    _assert_segment_sums(got, data, ids, S)
+    starts = torch.searchsorted(ids, torch.arange(S + 1, dtype=torch.int32, device="cuda"),
+                                out_int32=True)
+    assert torch.equal(got, k8.tile_segment_sum(data, ids, starts, seg_tile=seg_tile,
+                                                max_blocks=1))
+    shuffle = torch.from_numpy(rng.permutation(E)).cuda()
+    perm = torch.argsort(shuffle).to(torch.int32)  # data[shuffle][perm] == data
+    assert torch.equal(got, k8.tile_segment_sum(data[shuffle], ids, ts=ts, num_segments=S,
+                                                seg_tile=seg_tile, perm=perm))
+    plain = k8.tile_segment_sum_reference(data, ids, ts, S)
+    _assert_close_to_plain(got, plain, data, ids, S)
+
+
+def test_sorted_reductions_agree_with_k5_on_the_model():
+    """The small model on the card: flat 'dst' edges through K6 and through
+    the K7 fold, and slots through K8 and the K7 sort fold, against slots
+    through K5, forward and gradients, f32 attention."""
+    from gaot3d_tpu_torch.data.host_graph import (build_edge_slots_host,
+                                                  flatten_slots_host_batched)
+
+    grid = LatentGrid(dims=(4, 4, 4))
+    rng = np.random.default_rng(2)
+    B, N, chunk = 2, 256, 64
+    pos = rng.uniform(-1, 1, (B, N, 3)).astype(np.float32)
+    feats = rng.normal(size=(B, N, 2)).astype(np.float32)
+    built = [build_edge_slots_host(pos[b], grid, 0.45, strategy="bidirectional", budget=12)
+             for b in range(B)]
+    lat, msk = np.stack([x[0] for x in built]), np.stack([x[1] for x in built])
+    slots = EdgeSlots.from_numpy(lat, msk, device="cuda")
+    by_src = flatten_slots_host_batched(lat, msk, chunk, pad_multiple=8, device="cuda")
+    by_dst = flatten_slots_host_batched(lat, msk, chunk, pad_multiple=8, order="dst",
+                                        device="cuda")
+    attn = TransformerConfig(
+        patch_size=2, hidden_size=32, num_layers=2, positional_embedding="rope",
+        attn_config=AttentionConfig(hidden_size=32, num_heads=4, num_kv_heads=2,
+                                    atten_dropout=0.0, attention_dtype="float32"),
+        ffn_config=FFNConfig(hidden_size=64))
+    pos_t, feats_t = torch.from_numpy(pos).cuda(), torch.from_numpy(feats).cuda()
+    mask = torch.ones(B, N, dtype=torch.bool, device="cuda")
+
+    def run(enc, dec, **kw):
+        magno = MAGNOConfig(lifting_channels=8, use_geoembed=[True, False], gno_radius=0.45,
+                            in_gno_channel_mlp_hidden_layers=[16, 16],
+                            out_gno_channel_mlp_hidden_layers=[16], projection_channels=16,
+                            edge_chunk_size=chunk, **kw)
+        model = init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=(4, 4, 4),
+                           generator=torch.Generator().manual_seed(0))
+        out = model(pos_t, feats_t, mask, encoder_slots=[enc], decoder_slots=[dec])
+        (out ** 2).sum().backward()
+        return out.detach(), torch.cat([p.grad.flatten() for p in model.parameters()])
+
+    want, want_g = run(slots, slots)
+    counters = {"k6": k6.segment_sum_sorted, "k7": k7.prefix_sum, "k8": k8.tile_segment_sum}
+    nc = N // chunk
+    for kw, enc, dec, expect in [
+            (dict(flat_order="dst", flat_reduce_impl="pallas"), by_dst, by_src,
+             {"k6": nc, "k7": B * nc, "k8": 0}),
+            (dict(flat_order="dst"), by_dst, by_src, {"k6": 0, "k7": 2 * B * nc, "k8": 0}),
+            (dict(segment_impl="tile"), slots, slots, {"k6": 0, "k7": 0, "k8": B * nc}),
+            (dict(segment_impl="sort"), slots, slots, {"k6": 0, "k7": B * nc, "k8": 0}),
+            (dict(segment_impl="tile"), by_src, slots, {"k6": 0, "k7": 0, "k8": B * nc})]:
+        for fn in counters.values():
+            fn.launches = 0
+        got, got_g = run(enc, dec, **kw)
+        assert {n: fn.launches for n, fn in counters.items()} == expect, kw
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+        assert ((got_g - want_g).norm() / want_g.norm()).item() <= 1e-4, kw
