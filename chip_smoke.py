@@ -1,14 +1,15 @@
 """Smoke run of the PyTorch port (gaot3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--flat-seed N]
+    python3 chip_smoke.py [--flat-seed N] [--only k3,trainer,trainer-split]
 
-`--flat-seed` (31) seeds the cloud of phases 11 and 12, for a second reading
-of their limits.
+`--flat-seed` (31) seeds the cloud of phases 13 and 14, for a second reading
+of their limits. `--only` runs just the named phases, builds each kernel at
+its first use and prints no record: for work on one phase.
 
 Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
      power limit, turns TF32 off;
-  2. build: compiles the eight CUDA sources of gaot3d_tpu_torch/csrc with
+  2. build: compiles the nine CUDA sources of gaot3d_tpu_torch/csrc with
      nvcc, all at the same time;
   3. [k1] flash-attention forward vs its plain version at B1 H8 S16384 D32
      bf16 and at a ragged S=1000;
@@ -27,17 +28,32 @@ Phases, each of which raises (exit code 1) on failure:
      the same bits, at the recipe shape and at ragged S=1000, Skv=130;
   9. [replay] the seeded forward and backward reproduce, from the bits the
      exporter writes for their seed, the same results (the path K4 serves);
- 10. [train] the recipe model takes 3 AdamW steps (mix schedule, dropout 0.1)
+ 10. [k3] the split backward (a dq kernel and a dk/dv kernel) at rates 0 and
+     0.1 at the recipe shape, and at six small shapes (f32, bf16, every head
+     dim, S and Skv no tile multiples): against the plain backward with the
+     same bits, against the fused kernel, and two launches bit for bit;
+ 11. [train] the recipe model takes 2 AdamW steps (mix schedule, dropout 0.1)
      on one 524,288-point cloud; launches per step must be exactly K1 10,
      K2 10, K5 5, K5b 5; then one forward-and-backward on a 32x32x16 grid
      with 65,536 points is repeated with every kernel replaced by its plain
      version at the same seed; then a breakdown of one step.
-  11. [k7] the prefix sum, [k6] the sorted segment sum and [k8] the tile
+ 12. [trainer] `gaot3d_tpu_torch.cli.run_config_file` on
+     configs/examples/synthetic/h100_500k.toml with its data and outputs
+     under .data/chip_smoke_trainer: the synthetic set (10 clouds of 500,000
+     points) is generated and swept, 3 epochs of 6 steps, validation after
+     epoch 2, test on 2 clouds; finite losses, the checkpoint, both .npz
+     files and the CSV row with the JAX trainer's columns; a new trainer that
+     reloads the checkpoint tests to the same metrics; every step launched
+     K1 10, K2 10, K3 0 and K5, K5b once a section. Then [trainer-split]: one
+     epoch of the same config with GAOT_ATTN_BWD_FUSED=0 in the environment:
+     every step K3's two kernels 10 times each and K2 never, finite losses,
+     every parameter tensor moved.
+ 13. [k7] the prefix sum, [k6] the sorted segment sum and [k8] the tile
      segment sum vs their plain versions at a ragged small shape and at the
      shapes one 65,536-node chunk of a 524,288-point cloud gives them (its
      flat list, and for K7 under `sort` and K8 its 327,680 slots), each column
      held to its own size, two launches compared bit for bit;
- 12. [flat] the recipe over flat edge lists and the sorted reductions: config
+ 14. [flat] the recipe over flat edge lists and the sorted reductions: config
      A (flat 'dst' lists, K6 for the encoder, K7 folds by node for the
      decoder) is exported, loaded and serves the cloud twice (accumulator bit
      for bit), then takes 2 AdamW steps with dropout; config B (K7 folds on
@@ -56,6 +72,7 @@ The last two lines are a JSON record of the kernels and
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -71,6 +88,8 @@ BUDGET = 5
 CHUNK = 65_536
 K1_BOUND = 2e-2   # out: max abs over the plain output's max abs (two bf16 steps at the top)
 K2_BOUND = 2e-2   # dq, dk, dv: max abs over the plain gradient's max abs, bf16 roundings
+K3_FUSED_BOUND = 2.0 ** -7  # split against fused, of the plain gradient's max abs: one bf16
+#                             step, for sums taken in another order before the one rounding
 K5_BOUND = 1e-5   # relative, f32 accumulator summed with float atomics
 K5B_BOUND = 1e-4  # relative to each gradient's max abs: per-CTA sums, then float atomics
 K7_BOUND = 2e-6   # of the column's largest prefix |Z|, against the plain version (a float64
@@ -116,14 +135,16 @@ def bound(n_bytes, **ops_over_rate):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def attention_bound(B, H, S, Skv, D, products, n_tensors, dropout, itemsize=2):
+def attention_bound(B, H, S, Skv, D, products, n_tensors, dropout, itemsize=2, passes=1):
     """Bound of an attention kernel: `products` tile products of 2*S*Skv*D
     flops a head, one exponential a score, one Philox call per four scores
-    under dropout; `n_tensors` [B,H,S,D] tensors moved."""
+    under dropout, the last two `passes` times over (a pair of kernels that
+    each recompute the probabilities and the mask); `n_tensors` [B,H,S,D]
+    tensors moved."""
     scores = B * H * S * Skv
-    ops = {"tensor": products * 2 * scores * D / BF16_FLOPS, "exp": scores / SFU_OPS}
+    ops = {"tensor": products * 2 * scores * D / BF16_FLOPS, "exp": passes * scores / SFU_OPS}
     if dropout:
-        ops["philox"] = scores / 4 * PHILOX_OPS / INT32_OPS
+        ops["philox"] = passes * scores / 4 * PHILOX_OPS / INT32_OPS
     return bound(n_tensors * B * H * max(S, Skv) * D * itemsize + 2 * B * H * S * 4, **ops)
 
 
@@ -182,17 +203,23 @@ def phase_build():
 
     t0 = time.perf_counter()
     build.build_together([dropout_bits._library, flash_attention._library,
-                          flash_attention._backward_library, encoder_payload._library,
+                          flash_attention._backward_library, flash_attention._split_library,
+                          encoder_payload._library,
                           encoder_payload._backward_library, prefix_sum._library,
                           segment_sum_sorted._library, tile_segment_sum._library])
-    print(f"[build] eight kernel libraries built together in {time.perf_counter() - t0:.1f} s")
-    for name in ("dropout_bits", "flash_attn_fwd", "flash_attn_bwd", "encoder_payload",
+    print(f"[build] nine kernel libraries built together in {time.perf_counter() - t0:.1f} s")
+    for name in ("dropout_bits", "flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_split",
+                 "encoder_payload",
                  "encoder_payload_bwd", "prefix_sum", "segment_sum_sorted",
                  "tile_segment_sum"):
-        regs = [int(line.split("Used ")[1].split(" registers")[0])
-                for line in build.build_log(name).splitlines() if " registers" in line]
-        spills = [line.strip() for line in build.build_log(name).splitlines()
-                  if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        regs, spills, entry = [], [], "?"
+        for line in build.build_log(name).splitlines():
+            if "Compiling entry function" in line:  # the mangled name keeps the template arguments
+                entry = line.split("'")[1]
+            elif " registers" in line:
+                regs.append(int(line.split("Used ")[1].split(" registers")[0]))
+            elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                spills.append(f"{entry}: {line.strip()}")
         print(f"[build] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"spills: {spills or 'none'}")
 
@@ -640,6 +667,99 @@ def phase_attention_train():
     return rec_k1d, rec_k2, replay_launches
 
 
+def phase_k3():
+    """[k3]: the split backward (a dq kernel and a dk/dv kernel) against the
+    plain backward, against the fused kernel and against itself."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaot3d_tpu_torch.kernels import dropout_bits as k4
+    from gaot3d_tpu_torch.kernels import flash_attention as k1
+
+    rng = np.random.default_rng(4)
+    seed = 0x0DD5_EED5_0000_0003
+
+    def inputs(shape, skv, dtype):
+        B, H, S, D = shape
+        return [torch.from_numpy(rng.standard_normal((B, H, s, D), dtype=np.float32))
+                .to("cuda", dtype) for s in (S, skv, skv, S)]
+
+    def check(q, k, v, dout, rate, label):
+        B, H, S, _ = q.shape
+        bits = k4.export_dropout_bits(seed, B * H, S, k.shape[2]) if rate > 0 else None
+        out, lse = k1.flash_attention(q, k, v, rate, seed=seed)
+        got = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate, seed=seed)
+        again = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate, seed=seed)
+        fused = k1.flash_attention_backward(q, k, v, out, lse, dout, rate, seed=seed)
+        want = k1.flash_attention_backward_reference(q, k, v, out, lse, dout, rate, bits)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, a, a2, f, b in zip(("dq", "dk", "dv"), got, again, fused, want):
+            if not torch.isfinite(a.float()).all():
+                raise RuntimeError(f"K3 {label}: non-finite {name}")
+            top = b.float().abs().max().item()
+            abs_err = (a.float() - b.float()).abs().max().item()
+            vs_fused = (a.float() - f.float()).abs().max().item()
+            same = torch.equal(a, a2)
+            print(f"[k3] {label} {name}: max_abs_err {abs_err:.3e}, over the plain max-abs "
+                  f"{abs_err / top:.3e} (limit {K2_BOUND:.0e}); against the fused kernel "
+                  f"{vs_fused / top:.3e} (limit {K3_FUSED_BOUND:.1e}); two launches identical: "
+                  f"{same}")
+            if abs_err > K2_BOUND * top:
+                raise RuntimeError(f"K3 {label}: {name} disagrees with the plain backward")
+            if vs_fused > K3_FUSED_BOUND * top:
+                raise RuntimeError(f"K3 {label}: {name} disagrees with the fused kernel")
+            if not same:
+                raise RuntimeError(f"K3 {label}: {name} differs between two launches")
+            worst = max(worst, abs_err)
+        return out, lse, bits, worst
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for shape, skv, dtype, rate in (((1, 2, 200, 32), 130, f32, RATE),
+                                    ((1, 2, 100, 64), 70, f32, 0.0),
+                                    ((1, 8, 1000, 32), 130, bf16, RATE),
+                                    ((2, 2, 130, 64), 200, bf16, RATE),
+                                    ((1, 3, 77, 16), 90, bf16, 0.0),
+                                    ((1, 2, 70, 8), 100, bf16, RATE)):
+        check(*inputs(shape, skv, dtype), rate,
+              f"{str(dtype).split('.')[1]} rate {rate} B{shape[0]} H{shape[1]} S={shape[2]} "
+              f"Skv={skv} D{shape[3]}")
+
+    B, H, S, D = SHAPE
+    q, k, v, dout = inputs(SHAPE, S, bf16)
+    recs = {}
+    for rate in (0.0, RATE):
+        out, lse, bits, worst = check(q, k, v, dout, rate, f"bf16 rate {rate} S={S}")
+        delta = (dout.float() * out.float()).sum(dim=-1)
+        args = (q, k, v, lse, dout, delta, rate, seed)
+        ms_dq = cuda_ms(lambda: k1.flash_attention_backward_dq(*args))
+        ms_dkv = cuda_ms(lambda: k1.flash_attention_backward_dkv(*args))
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, dropout_p=rate)
+        rec = {"max_abs_err": worst,
+               "ms": cuda_ms(lambda: k1.flash_attention_backward_split(
+                   q, k, v, out, lse, dout, rate, seed=seed)),
+               "ms_dq": ms_dq, "ms_dkv": ms_dkv,
+               "fused_ms": cuda_ms(lambda: k1.flash_attention_backward(
+                   q, k, v, out, lse, dout, rate, seed=seed)),
+               "plain_ms": cuda_ms(lambda: k1.flash_attention_backward_reference(
+                   q, k, v, out, lse, dout, rate, bits), reps=3),
+               **attention_bound(B, H, S, S, D, products=7, n_tensors=11, dropout=rate > 0,
+                                 passes=2),
+               "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dout,
+                                                                 retain_graph=True))}
+        print(f"[k3] B1 H8 S16384 D32 bf16 rate {rate}: dq kernel {ms_dq:.3f} ms, dk/dv kernel "
+              f"{ms_dkv:.3f} ms, both with delta {rec['ms']:.3f} ms; fused kernel "
+              f"{rec['fused_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound "
+              f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), library backward "
+              f"{rec['library_ms']:.3f} ms (median of 5)")
+        recs[rate] = rec
+        del lib_out, ql, kl, vl, bits
+    # the recorded entry is the train path's: rate 0.1; rate 0 rides along
+    return {**recs[RATE], "rate0": {n: recs[0.0][n] for n in
+                                    ("ms", "ms_dq", "ms_dkv", "fused_ms", "bound_ms")}}
+
+
 def grad_vector(model):
     import torch
 
@@ -666,7 +786,7 @@ def phase_train():
     generator = torch.Generator().manual_seed(5)
     before = [p.detach().clone() for p in model.parameters()]
     total = dict.fromkeys(counters, 0)
-    for step in range(3):
+    for step in range(2):
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -690,7 +810,7 @@ def phase_train():
             total[name] += got[name]
     still = [n for (n, p), b in zip(model.named_parameters(), before) if torch.equal(p, b)]
     if still:
-        raise RuntimeError(f"parameters that did not move in 3 steps: {still}")
+        raise RuntimeError(f"parameters that did not move in 2 steps: {still}")
     print(f"[train] every one of {len(before)} parameter tensors moved")
 
     # breakdown of one more step: device time of each part, then a profile
@@ -1120,10 +1240,238 @@ def phase_flat(cloud_):
     return total
 
 
+HERE = os.path.dirname(os.path.abspath(__file__))
+TRAINER_CONFIG = os.path.join(HERE, "configs", "examples", "synthetic", "h100_500k.toml")
+TRAINER_DIR = os.path.join(HERE, ".data", "chip_smoke_trainer")  # .gitignore lists .data/
+RELOAD_BOUND = 1e-4  # relative, test metrics after reloading the checkpoint: the same
+#                      weights and samples, K5's float atomics in another order
+
+
+def trainer_overrides(root, **optimizer_args):
+    """The recipe's config with its dataset and every output under `root`."""
+    out = os.path.join(root, "out")
+    return {"dataset": {"base_path": os.path.join(root, "synthetic_500k")},
+            "optimizer": {"args": optimizer_args},
+            "path": {"ckpt_path": os.path.join(out, "h100_500k.pt"),
+                     "loss_path": os.path.join(out, "loss.png"),
+                     "result_path": os.path.join(out, "result.png"),
+                     "database_path": os.path.join(out, "db.csv")}}
+
+
+class TrainerSpy:
+    """Context that records, for every train step the trainer takes, each
+    kernel's launches, the batch's number of sections and the device time
+    between two CUDA events (read after the run: nothing here waits for the
+    card), and the host seconds of every validate() call."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.steps, self.events, self.validate_s = [], [], []
+        self.before = None
+
+    def __enter__(self):
+        import torch
+
+        from gaot3d_tpu_torch.train import trainer as trainer_module
+
+        step, validate = trainer_module.train_step, trainer_module.StaticTrainer3D.validate
+
+        def spy_step(model, optimizer, batch, generator=None):
+            if self.before is None:
+                self.before = [p.detach().clone() for p in model.parameters()]
+            was = {n: fn.launches for n, fn in self.counters.items()}
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = step(model, optimizer, batch, generator)
+            end.record()
+            self.events.append((start, end))
+            self.steps.append({**{n: fn.launches - was[n] for n, fn in self.counters.items()},
+                               "sections": len(batch.enc_slots.sections)})
+            return out
+
+        def spy_validate(trainer, loader):
+            t0 = time.perf_counter()
+            out = validate(trainer, loader)
+            self.validate_s.append((time.perf_counter() - t0, len(loader.dataset)))
+            return out
+
+        self.patches = [mock.patch.object(trainer_module, "train_step", spy_step),
+                        mock.patch.object(trainer_module.StaticTrainer3D, "validate",
+                                          spy_validate)]
+        for patch in self.patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in self.patches:
+            patch.stop()
+
+    def step_ms(self):
+        """Device ms of every step but the first (which warms up)."""
+        return [a.elapsed_time(b) for a, b in self.events[1:]]
+
+
+def attention_counters():
+    from gaot3d_tpu_torch.kernels import encoder_payload as k5
+    from gaot3d_tpu_torch.kernels import flash_attention as k1
+
+    return {"k1": k1.flash_attention, "k2": k1.flash_attention_backward,
+            "k3_dq": k1.flash_attention_backward_dq, "k3_dkv": k1.flash_attention_backward_dkv,
+            "k5": k5.encoder_accumulate, "k5b": k5.encoder_accumulate_backward}
+
+
+def check_steps(label, spy, expect_per_step):
+    """Every recorded step launched what `expect_per_step` says (K5 and K5b:
+    one launch a section of the step's batch)."""
+    for i, step in enumerate(spy.steps):
+        want = {**expect_per_step, "k5": step["sections"], "k5b": step["sections"]}
+        got = {n: step[n] for n in want}
+        if got != want:
+            raise RuntimeError(f"{label} step {i}: launches {got}, expected {want}")
+
+
+def phase_trainer(card):
+    """[trainer]: the recipe's config through the CLI's entry point."""
+    import csv
+
+    import torch
+
+    from gaot3d_tpu_torch import cli
+    from gaot3d_tpu_torch.config import load_run_config
+    from gaot3d_tpu_torch.train.trainer import init_trainer
+    from gaot3d_tpu_torch.utils.dataclass_utils import merge_config
+
+    root = TRAINER_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    overrides = trainer_overrides(root)
+    counters = attention_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TrainerSpy(counters) as spy:
+        row, trainer = cli.run_config_file(TRAINER_CONFIG, overrides, return_trainer=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = {n: fn.launches for n, fn in counters.items()}
+
+    args = trainer.optimizer_config.args
+    steps_per_epoch = len(trainer.train_loader)
+    if len(spy.steps) != args.epoch * steps_per_epoch:
+        raise RuntimeError(f"[trainer] {len(spy.steps)} steps, expected "
+                           f"{args.epoch} x {steps_per_epoch}")
+    check_steps("[trainer]", spy, {"k1": 10, "k2": 10, "k3_dq": 0, "k3_dkv": 0})
+    sections = sorted({s["sections"] for s in spy.steps})
+
+    out = overrides["path"]
+    losses = np.load(out["loss_path"].rsplit(".", 1)[0] + ".npz")
+    want_epochs = [e for e in range(args.epoch) if (e + 1) % args.eval_every_eps == 0]
+    if losses["val_epoch"].tolist() != want_epochs or len(spy.validate_s) != len(want_epochs):
+        raise RuntimeError(f"[trainer] validated at epochs {losses['val_epoch'].tolist()}, "
+                           f"expected {want_epochs}")
+    if not (np.isfinite(losses["train_loss"]).all() and np.isfinite(losses["val_loss"]).all()):
+        raise RuntimeError("[trainer] non-finite loss")
+    result_npz = out["result_path"].rsplit(".", 1)[0] + ".npz"
+    for path in (out["ckpt_path"], result_npz, out["database_path"]):
+        if not os.path.exists(path):
+            raise RuntimeError(f"[trainer] {path} was not written")
+    with open(out["database_path"], newline="") as f:
+        rows = list(csv.DictReader(f))
+    columns = ("nparams", "p2r edges", "r2p edges", "training time", "inference time",
+               "MSE (x10^-2)", "MAE (x10^-1)")
+    missing = [c for c in columns if c not in rows[-1] or rows[-1][c] == ""]
+    if len(rows) != 1 or missing:
+        raise RuntimeError(f"[trainer] CSV has {len(rows)} rows, missing columns {missing}")
+    pred = np.load(result_npz)["prd"]
+    n_nodes = trainer.dataset_config.synthetic_num_nodes
+    if pred.shape != (n_nodes, 1) or not np.isfinite(pred).all():
+        raise RuntimeError(f"[trainer] result npz: prediction {pred.shape} or non-finite")
+
+    # a new trainer from the same config reloads the checkpoint and tests again
+    config = merge_config(load_run_config(TRAINER_CONFIG),
+                          {**overrides, "setup": {"train": False}})
+    again = init_trainer(config)
+    again.load_ckpt()
+    again.test()
+    for column in ("MSE (x10^-2)", "MAE (x10^-1)"):
+        a, b = float(row[column]), float(again.datarow[column])
+        if not abs(a - b) <= RELOAD_BOUND * abs(a):
+            raise RuntimeError(f"[trainer] {column} {a} after fit, {b} from the reloaded "
+                               "checkpoint")
+
+    stats = trainer.last_loader_stats
+    val_s, val_n = spy.validate_s[-1]
+    ms = spy.step_ms()
+    print(f"[trainer] {card}: {args.epoch} epochs of {steps_per_epoch} steps, validation at "
+          f"epochs {want_epochs}, test on {len(trainer.test_loader.dataset)} samples in "
+          f"{wall:.1f} s; dataset generated in {trainer.dataset_seconds:.1f} s, precompute "
+          f"sweep of {trainer.dataset_config.synthetic_num_samples} samples "
+          f"{trainer.precompute_seconds:.1f} s")
+    print(f"[trainer] {card}: train loss {losses['train_loss'].tolist()}, val loss "
+          f"{losses['val_loss'].tolist()}; MSE (x10^-2) {float(row['MSE (x10^-2)']):.4f}, "
+          f"reloaded {float(again.datarow['MSE (x10^-2)']):.4f}; nparams {row['nparams']}, "
+          f"p2r edges {row['p2r edges']}")
+    print(f"[trainer] {card}: step device time median {np.median(ms):.1f} ms (min "
+          f"{min(ms):.1f}, max {max(ms):.1f}); last epoch: wall "
+          f"{1e3 * stats['epoch_wall_s'] / stats['steps']:.1f} ms a step, loader stall "
+          f"{trainer.last_loader_stall_s:.3f} s (first wait "
+          f"{trainer.last_loader_first_wait_s:.3f} s), host_load_s "
+          f"{stats.get('host_load_s', 0.0):.3f}, put_s {stats.get('put_s', 0.0):.3f} for "
+          f"{stats['steps']} batches; validate {1e3 * val_s / val_n:.1f} ms a sample, test "
+          f"inference {1e3 * float(row['inference time']):.1f} ms a sample; peak memory "
+          f"{peak:.2f} GiB")
+    print(f"[trainer] launches a step: K1 10, K2 10, K3 0, K5 and K5b one a section "
+          f"(sections a batch: {sections}); in all {total}")
+    return total, float(np.median(ms))
+
+
+def phase_trainer_split(card, fused_ms):
+    """[trainer-split]: one epoch of the same config with the split backward
+    selected by GAOT_ATTN_BWD_FUSED=0 in the environment."""
+    import torch
+
+    from gaot3d_tpu_torch import cli
+
+    root = TRAINER_DIR
+    overrides = trainer_overrides(root, epoch=1, eval_every_eps=1)
+    overrides["setup"] = {"test": False}
+    counters = attention_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with mock.patch.dict(os.environ, {"GAOT_ATTN_BWD_FUSED": "0"}), \
+            TrainerSpy(counters) as spy:
+        _, trainer = cli.run_config_file(TRAINER_CONFIG, overrides, return_trainer=True)
+    torch.cuda.synchronize()
+    if os.environ.get("GAOT_ATTN_BWD_FUSED") == "0":
+        raise RuntimeError("[trainer-split] the environment was not restored")
+    total = {n: fn.launches for n, fn in counters.items()}
+    if len(spy.steps) != len(trainer.train_loader):
+        raise RuntimeError(f"[trainer-split] {len(spy.steps)} steps")
+    check_steps("[trainer-split]", spy, {"k1": 10, "k2": 0, "k3_dq": 10, "k3_dkv": 10})
+    losses = np.load(overrides["path"]["loss_path"].rsplit(".", 1)[0] + ".npz")
+    if not (np.isfinite(losses["train_loss"]).all() and np.isfinite(losses["val_loss"]).all()):
+        raise RuntimeError("[trainer-split] non-finite loss")
+    still = [n for (n, p), b in zip(trainer.model.named_parameters(), spy.before)
+             if torch.equal(p, b)]
+    if still:
+        raise RuntimeError(f"[trainer-split] parameters that did not move: {still}")
+    ms = spy.step_ms()
+    print(f"[trainer-split] {card}: {len(spy.steps)} steps with GAOT_ATTN_BWD_FUSED=0: train "
+          f"loss {losses['train_loss'].tolist()}, val loss {losses['val_loss'].tolist()}; every "
+          f"one of {len(spy.before)} parameter tensors moved; launches a step K1 10, K2 0, K3 dq "
+          f"10, K3 dk/dv 10; step device time median {np.median(ms):.1f} ms against "
+          f"{fused_ms:.1f} ms with the fused backward")
+    return total
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--flat-seed", type=int, default=31,
                         help="seed of the cloud of the [k6], [k7], [k8] and [flat] phases")
+    parser.add_argument("--only", default="",
+                        help="comma-separated subset of k3, trainer, trainer-split: run just "
+                             "these phases (kernels build at first use) and print no record")
     args = parser.parse_args()
     import torch
 
@@ -1138,13 +1486,30 @@ def main():
     print(f"[device] {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.only:
+        fused_ms = float("nan")
+        for name in args.only.split(","):
+            if name == "k3":
+                phase_k3()
+            elif name == "trainer":
+                _, fused_ms = phase_trainer(card)
+            elif name == "trainer-split":
+                phase_trainer_split(card, fused_ms)
+            else:
+                parser.error(f"unknown phase {name!r}")
+        return 0
     phase_build()
     k1 = phase_k1()
     k5, k5b = phase_k5()
     serve = phase_serve()
     k4 = phase_k4()
     k1d, k2, replay_launches = phase_attention_train()
+    k3 = phase_k3()
     train = phase_train()
+    torch.cuda.empty_cache()
+    fit, fused_ms = phase_trainer(card)
+    split = phase_trainer_split(card, fused_ms)
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     flat_input = flat_cloud(args.flat_seed, N_POINTS, LatentGrid(dims=LATENT))
     k7, k6, k8 = phase_sorted_kernels(flat_input)
@@ -1153,24 +1518,29 @@ def main():
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:394",
-         "launches": serve["k1"], **k1},
+         "launches": serve["k1"] + fit["k1"] - fit["k2"], **k1},  # the trainer's eval forwards
         {"name": "flash_attn_fwd_dropout", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:144",
-         "launches": train["k1"], **k1d},
+         "launches": train["k1"] + fit["k2"], **k1d},  # one train forward a fused backward
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_bwd.cu", "replaces": f"{pallas}:502",
-         "launches": train["k2"], **k2},
+         "launches": train["k2"] + fit["k2"], **k2},
+        # the two kernels of the pair launch together: `launches` is the dq kernel's count,
+        # held equal to the dk/dv kernel's by [trainer-split]
+        {"name": "flash_attn_bwd_split", "route": "cuda",
+         "source": "gaot3d_tpu_torch/csrc/flash_attn_bwd_split.cu", "replaces": f"{pallas}:544",
+         "launches": split["k3_dq"], "launches_dkv": split["k3_dkv"], **k3},
         {"name": "dropout_bits", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/dropout_bits.cu", "replaces": f"{pallas}:709",
          "launches": replay_launches, **k4},
         {"name": "encoder_payload", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/encoder_payload.cu",
          "replaces": "gaot3d_tpu/ops/pallas_encoder.py:203",
-         "launches": serve["k5"] + train["k5"], **k5},
+         "launches": serve["k5"] + train["k5"] + fit["k5"], **k5},
         {"name": "encoder_payload_bwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/encoder_payload_bwd.cu",
          "replaces": "gaot3d_tpu/ops/pallas_encoder.py:246",
-         "launches": train["k5b"], **k5b},
+         "launches": train["k5b"] + fit["k5b"], **k5b},
         {"name": "segment_sum_sorted", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/segment_sum_sorted.cu",
          "replaces": "gaot3d_tpu/ops/pallas_segment.py:103", "launches": flat["k6"], **k6},

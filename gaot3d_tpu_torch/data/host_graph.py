@@ -1,7 +1,7 @@
 """Host-side edge-slot building, degree sectioning and flattening, in numpy
 (port of the host-side functions of gaot3d_tpu/ops/grid_graph.py:
 `stencil_widths`, `compact_slots_np`, `build_edge_slots_host`,
-`section_slots_by_degree_np`, `flatten_slots_host`,
+`section_slots_by_degree_np`, `section_slots_shared`, `flatten_slots_host`,
 `flatten_slots_host_batched`).
 
 The stencil search and the flattening run in the native
@@ -14,12 +14,12 @@ from __future__ import annotations
 import ctypes
 import math
 import os
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..kernels.build import REPO_ROOT, load_library
-from ..ops.grid_graph import FlatEdgeChunks, LatentGrid
+from ..ops.grid_graph import FlatEdgeChunks, LatentGrid, SectionedEdgeSlots
 
 DECODER_STRATEGIES = ("knn", "radius", "bidirectional", "reverse")
 
@@ -151,6 +151,92 @@ def section_slots_by_degree_np(lat_idx: np.ndarray, mask: np.ndarray,
                          np.ascontiguousarray(msk_p[lo:hi, :ksec])))
         i = j
     return perm, sections
+
+
+def section_slots_shared(pairs: Sequence[Tuple[np.ndarray, np.ndarray]], chunk: int,
+                         node_mask: Optional[np.ndarray] = None,
+                         profile: Optional[Sequence[int]] = None, shards: int = 1,
+                         device=None) -> Tuple[np.ndarray, List[SectionedEdgeSlots]]:
+    """Batched degree sectioning with ONE shared node permutation a sample.
+
+    pairs: (lat_idx [B, N, K], mask [B, N, K]) numpy arrays that ride the same
+    permutation (the encoder and decoder slots of one batch). Returns (perms
+    [B, N] int64, one SectionedEdgeSlots a pair on `device`, all sharing one
+    section structure).
+
+    - Each sample gets its own permutation (apply perms[b] to its pos, feats,
+      targets and mask), ascending by the degree COMBINED over the pairs;
+      padded nodes (`node_mask` false) sort last, so the valid nodes stay a
+      prefix.
+    - Section boundaries and widths are shared across the batch and the
+      pairs: per chunk, K = the max degree over all samples and pairs.
+      `profile` (one K per chunk) pins the structure; it must cover the
+      observed degrees or the call raises, since edges would be dropped.
+    - Pairs that are the same two objects give the same SectionedEdgeSlots
+      object, so aliased directions stay one set of tensors downstream.
+    - The shard-aligned layout (shards > 1) belongs to node sharding, which
+      is not ported."""
+    if shards != 1:
+        raise NotImplementedError(
+            "shard-aligned sections (shards > 1) are not ported: node sharding is "
+            "ROADMAP item 9")
+    B, N, _ = pairs[0][1].shape
+    if N % chunk != 0:
+        raise ValueError(f"chunk {chunk} x shards {shards} must divide N {N}")
+    nc = N // chunk
+    uniq: List[Tuple[np.ndarray, np.ndarray]] = []  # pairs without repeats (by identity)
+    pair_slot = []
+    for lat, msk in pairs:
+        if lat.shape != (B, N, msk.shape[-1]) or msk.shape[:2] != (B, N):
+            raise ValueError("all pairs must share [B, N] leading dims")
+        found = next((u for u, (ul, um) in enumerate(uniq) if lat is ul and msk is um), None)
+        if found is None:
+            uniq.append((lat, msk))
+            found = len(uniq) - 1
+        pair_slot.append(found)
+    deg_all = sum(msk.sum(axis=2) for _, msk in uniq)
+    kmax_all = sum(msk.shape[-1] for _, msk in uniq)
+    key = deg_all if node_mask is None else np.where(node_mask, deg_all, kmax_all + 1)
+    perms = np.argsort(key, axis=1, kind="stable").astype(np.int64)
+    rows = np.arange(B)[:, None]
+    permuted = [(lat[rows, perms], msk[rows, perms]) for lat, msk in uniq]
+    ks_need = np.maximum.reduce([
+        np.maximum(m.sum(axis=2).reshape(B, nc, chunk).max(axis=(0, 2)), 1)
+        for _, m in permuted])
+    if profile is not None:
+        ks = np.asarray(profile, np.int64)
+        if ks.shape != (nc,):
+            raise ValueError(f"sectioned profile has {ks.shape} entries, need {nc} "
+                             f"(one per {chunk}-node chunk)")
+        if (ks_need > ks).any():
+            raise ValueError(f"pinned sectioned profile {ks.tolist()} is below the observed "
+                             f"per-chunk max degree {ks_need.tolist()} — edges would be dropped")
+    else:
+        ks = ks_need
+
+    outs = []
+    for lat_p, msk_p in permuted:
+        kp = lat_p.shape[-1]
+        sections = []
+        i = 0
+        while i < nc:
+            j = i
+            while j < nc and ks[j] == ks[i]:
+                j += 1
+            ksec = int(ks[i])
+            lo, hi = i * chunk, j * chunk
+            kw = min(ksec, kp)
+            if bool(msk_p[:, lo:hi, kw:].any()):
+                raise ValueError("slots are not valid-first packed: a row has a valid slot "
+                                 f"beyond its section width K={ksec} (compact first)")
+            li, mi = lat_p[:, lo:hi, :kw], msk_p[:, lo:hi, :kw]
+            if kw < ksec:  # pinned profile wider than this pair's K: pad
+                padw = ((0, 0), (0, 0), (0, ksec - kw))
+                li, mi = np.pad(li, padw), np.pad(mi, padw)
+            sections.append((li, mi))
+            i = j
+        outs.append(SectionedEdgeSlots.from_numpy(sections, device=device))
+    return perms, [outs[u] for u in pair_slot]
 
 
 def flatten_slots_host(lat_idx: np.ndarray, mask: np.ndarray, chunk: int,

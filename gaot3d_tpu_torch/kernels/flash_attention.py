@@ -1,11 +1,13 @@
 """Flash attention with probability dropout: the forward (K1,
 `csrc/flash_attn_fwd.cu`), the fused backward (K2, `csrc/flash_attn_bwd.cu`),
-their plain PyTorch versions and the `torch.autograd.Function` that joins them.
+the split backward (K3, `csrc/flash_attn_bwd_split.cu`: a dq kernel and a
+dk/dv kernel), their plain PyTorch versions and the `torch.autograd.Function`
+that joins them.
 
-Replaces gaot3d_tpu/ops/pallas_attention.py `_flash_fwd_impl` and the fused
-call of `_flash_bwd_impl`, reached through `flash_attention_dropout` (the TPU
-train and eval path). The kernels' design notes, and what bounds them on an
-H100, are in their sources.
+Replaces gaot3d_tpu/ops/pallas_attention.py `_flash_fwd_impl` and both the
+fused and the split calls of `_flash_bwd_impl`, reached through
+`flash_attention_dropout` (the TPU train and eval path). The kernels' design
+notes, and what bounds them on an H100, are in their sources.
 
 Semantics, from the Pallas bodies: q is prescaled by 1/sqrt(D) in f32 and
 rounded back; logits and the softmax are f32; the denominator sums the
@@ -19,8 +21,17 @@ The mask comes from a 64-bit `seed` (the kernels draw the bits of
 kernels/dropout_bits.py in place) or from explicit `dropout_bits`
 [B*H, S, Skv] uint32; a rate above 0 with neither raises.
 
-- `flash_attention`, `flash_attention_backward`: the kernels for CUDA tensors,
-  the plain versions for CPU tensors; anything else raises.
+The fused backward adds dq tiles with float atomics, so dq's last bits change
+from run to run; the split backward adds nothing across blocks and repeats bit
+for bit. `GAOT_ATTN_BWD_FUSED=0` in the environment, read at every backward as
+the JAX package reads it, selects the split one; unset or `1` the fused one.
+The JAX package also falls back to the split kernels when a head's dq exceeds
+a VMEM budget; that limit belongs to the TPU and is not copied.
+
+- `flash_attention`, `flash_attention_backward`, `flash_attention_backward_split`
+  (and its halves `flash_attention_backward_dq`, `flash_attention_backward_dkv`):
+  the kernels for CUDA tensors, the plain versions for CPU tensors; anything
+  else raises.
 - `flash_attention_reference`, `flash_attention_backward_reference`: the plain
   versions, a full-row softmax one (batch, head) at a time; they take bits
   only. `flash_attention_plain` and `flash_attention_backward_plain` first turn
@@ -30,6 +41,7 @@ kernels/dropout_bits.py in place) or from explicit `dropout_bits`
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -58,6 +70,16 @@ def _backward_library() -> ctypes.CDLL:
     lib.gaot_flash_attn_bwd.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] + _DROPOUT_ARGTYPES
         + [ctypes.c_void_p])
+    return lib
+
+
+def _split_library() -> ctypes.CDLL:
+    lib = load_cuda_library("flash_attn_bwd_split", "flash_attn_bwd_split.cu",
+                            headers=["philox.cuh"])
+    for fn, n_pointers in ((lib.gaot_flash_attn_bwd_dq, 7), (lib.gaot_flash_attn_bwd_dkv, 8)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 5 + [ctypes.c_float]
+                       + _DROPOUT_ARGTYPES + [ctypes.c_void_p])
     return lib
 
 
@@ -104,8 +126,10 @@ def flash_attention_backward_reference(
         lse: torch.Tensor, dout: torch.Tensor, dropout_rate: float = 0.0,
         dropout_bits: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the fused backward: (dq, dk, dv) in the types of q, k,
-    v, with the kernel's roundings."""
+    """Plain version of the fused backward and of the split one: (dq, dk, dv)
+    in the types of q, k, v, with the kernels' roundings. The two compute one
+    function (the JAX package pins its split kernels to its fused one), so one
+    plain version serves both."""
     B, H, S, D = q.shape
     if dropout_rate > 0.0 and dropout_bits is None:
         raise ValueError("dropout needs explicit bits here (the plain version draws none)")
@@ -230,18 +254,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
-def flash_attention_backward(
-        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-        lse: torch.Tensor, dout: torch.Tensor, dropout_rate: float = 0.0,
-        seed: Optional[int] = None, dropout_bits: Optional[torch.Tensor] = None
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of `flash_attention` given its inputs, its outputs (out,
-    lse), the cotangent dout [B,H,S,D] and the same rate and seed or bits."""
-    if q.device.type == "cpu":
-        return flash_attention_backward_plain(q, k, v, out, lse, dout, dropout_rate, seed,
-                                              dropout_bits)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_backward: no kernel for device {q.device}")
+def _check_backward(q, k, v, out, lse, dout, dropout_rate, seed, dropout_bits) -> None:
     _check(q, k, v)
     _check_dropout(q, k, dropout_rate, seed, dropout_bits)
     B, H, S, D = q.shape
@@ -254,6 +267,22 @@ def flash_attention_backward(
         raise ValueError("out, dout and lse must be contiguous")
     if any(t.device != q.device for t in (out, dout, lse)) or dout.data_ptr() % 16:
         raise ValueError("out, dout and lse must be on q's device, dout 16-byte aligned")
+
+
+def flash_attention_backward(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, dout: torch.Tensor, dropout_rate: float = 0.0,
+        seed: Optional[int] = None, dropout_bits: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention` given its inputs, its outputs (out,
+    lse), the cotangent dout [B,H,S,D] and the same rate and seed or bits."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, lse, dout, dropout_rate, seed,
+                                              dropout_bits)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward: no kernel for device {q.device}")
+    _check_backward(q, k, v, out, lse, dout, dropout_rate, seed, dropout_bits)
+    B, H, S, D = q.shape
     delta = (dout.float() * out.float()).sum(dim=-1)
     dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -273,9 +302,76 @@ def flash_attention_backward(
 flash_attention_backward.launches = 0
 
 
+def _launch_split(name: str, pointers, q, k, dropout_rate, seed, dropout_bits) -> None:
+    B, H, S, D = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_split_library(), name)(
+            *pointers, B * H, S, k.shape[2], D, _DTYPES[q.dtype], 1.0 / D ** 0.5,
+            *_dropout_args(dropout_rate, seed, dropout_bits), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def flash_attention_backward_dq(q, k, v, lse, dout, delta, dropout_rate=0.0, seed=None,
+                                dropout_bits=None) -> torch.Tensor:
+    """The dq kernel of the split backward on checked CUDA tensors; delta
+    [B,H,S] f32 is rowsum(dout * out)."""
+    dq = torch.empty_like(q)
+    _launch_split("gaot_flash_attn_bwd_dq",
+                  [t.data_ptr() for t in (q, k, v, dout, lse, delta, dq)], q, k,
+                  dropout_rate, seed, dropout_bits)
+    flash_attention_backward_dq.launches += 1
+    return dq
+
+
+flash_attention_backward_dq.launches = 0
+
+
+def flash_attention_backward_dkv(q, k, v, lse, dout, delta, dropout_rate=0.0, seed=None,
+                                 dropout_bits=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel of the split backward on checked CUDA tensors."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_split("gaot_flash_attn_bwd_dkv",
+                  [t.data_ptr() for t in (q, k, v, dout, lse, delta, dk, dv)], q, k,
+                  dropout_rate, seed, dropout_bits)
+    flash_attention_backward_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_backward_dkv.launches = 0
+
+
+def flash_attention_backward_split(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, dout: torch.Tensor, dropout_rate: float = 0.0,
+        seed: Optional[int] = None, dropout_bits: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`flash_attention_backward` in two kernels without a shared accumulator:
+    the same (dq, dk, dv), bit for bit equal between launches. Each kernel
+    counts its own launches."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, lse, dout, dropout_rate, seed,
+                                              dropout_bits)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward_split: no kernel for device {q.device}")
+    _check_backward(q, k, v, out, lse, dout, dropout_rate, seed, dropout_bits)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    rest = (lse, dout, delta, dropout_rate, seed, dropout_bits)
+    dq = flash_attention_backward_dq(q, k, v, *rest)
+    dk, dv = flash_attention_backward_dkv(q, k, v, *rest)
+    return dq, dk, dv
+
+
+def backward_is_split() -> bool:
+    """Whether the environment selects the split backward, now."""
+    return os.environ.get("GAOT_ATTN_BWD_FUSED", "1") == "0"
+
+
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward, K2 backward. Saves (q, k, v, out, lse) and the mask's seed
-    or bits; the wrappers pick kernel or plain version by device."""
+    """K1 forward; K2 backward, or K3 when `backward_is_split()`. Saves (q, k,
+    v, out, lse) and the mask's seed or bits; the wrappers pick kernel or
+    plain version by device."""
 
     @staticmethod
     def forward(ctx, q, k, v, dropout_rate, seed, dropout_bits):
@@ -288,8 +384,9 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         rate, seed, bits = ctx.dropout
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout.contiguous(), rate,
-                                              seed, bits)
+        backward = flash_attention_backward_split if backward_is_split() \
+            else flash_attention_backward
+        dq, dk, dv = backward(q, k, v, out, lse, dout.contiguous(), rate, seed, bits)
         return dq, dk, dv, None, None, None
 
 

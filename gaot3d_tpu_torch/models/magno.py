@@ -86,6 +86,16 @@ class MAGNOConfig:
     sectioned_profile: Optional[List[int]] = None
 
 
+def parse_neighbor_strategy(neighbor_strategy: Union[str, List[str]]) -> Tuple[str, str]:
+    """scalar-or-pair -> (encoder, decoder)."""
+    if isinstance(neighbor_strategy, str):
+        return neighbor_strategy, neighbor_strategy
+    if isinstance(neighbor_strategy, (list, tuple)) and len(neighbor_strategy) == 2:
+        return neighbor_strategy[0], neighbor_strategy[1]
+    raise ValueError(
+        f"neighbor_strategy must be str or list of length 2, got {neighbor_strategy}")
+
+
 def parse_geoembed_strategy(use_geoembed: Union[bool, List[bool]]) -> Tuple[bool, bool]:
     """scalar-or-pair -> (encoder, decoder)."""
     if isinstance(use_geoembed, bool):

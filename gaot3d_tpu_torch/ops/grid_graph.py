@@ -36,6 +36,21 @@ class LatentGrid:
             (self.hi[a] - self.lo[a]) / max(self.dims[a] - 1, 1) for a in range(3)
         )
 
+    @staticmethod
+    def from_domain(dims: Sequence[int], domain_lo, domain_hi, rescale_to=None) -> "LatentGrid":
+        """Grid over a physical domain, optionally rescaled the way the
+        trainer rescales coordinates: one affine map from the domain's SCALAR
+        min and max to `rescale_to` (see data/transforms.py `rescale`)."""
+        lo = tuple(float(v) for v in domain_lo)
+        hi = tuple(float(v) for v in domain_hi)
+        if rescale_to is not None:
+            gmin, gmax = min(lo), max(hi)
+            a, b = rescale_to
+            scale = (b - a) / (gmax - gmin)
+            lo = tuple((v - gmin) * scale + a for v in lo)
+            hi = tuple((v - gmin) * scale + a for v in hi)
+        return LatentGrid(dims=tuple(int(d) for d in dims), lo=lo, hi=hi)
+
     def axis_coords(self, a: int) -> np.ndarray:
         return np.linspace(self.lo[a], self.hi[a], self.dims[a], dtype=np.float64)
 

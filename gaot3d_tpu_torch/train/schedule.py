@@ -31,14 +31,18 @@ _f32 = np.float32
 
 @dataclass
 class OptimizerargsConfig:
-    """The fields of the JAX `OptimizerargsConfig` that the schedule, the
-    optimizer and the train step read, with the same defaults."""
+    """The fields and defaults of the JAX `OptimizerargsConfig`: what the
+    schedule, the optimizer and the train step read, and the trainer's
+    cadences (`eval_every_eps`, `early_save_metric`, `save_every_epochs`,
+    `validate_on_test`)."""
 
     lr: float = 1e-3
     weight_decay: float = 1e-3
     epoch: int = 100
     loss_scale: float = 1.0  # multiplies the differentiated loss only
+    eval_every_eps: int = 2
     scheduler: str = "mix"  # ['step','cos','exp','mix','none']
+    early_save_metric: str = "val"  # ['train','val']
     max_lr: float = 1e-2
     min_lr: float = 1e-5
     final_lr: float = 1e-5
@@ -46,6 +50,8 @@ class OptimizerargsConfig:
     scheduler_gamma: float = 0.8
     scheduler_T_max: int = 100
     scheduler_eta_min: float = 1e-4
+    save_every_epochs: int = 0  # > 0: a versioned checkpoint artifact at this cadence
+    validate_on_test: bool = False  # validate on the test loader, as the reference does
 
 
 def mix_phase_lengths(total_epochs: int, cosine_frac: float) -> Tuple[int, int, int]:

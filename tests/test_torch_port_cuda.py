@@ -209,6 +209,66 @@ def test_flash_backward_kernel_matches_plain(dtype, rel, S, Skv, D, rate):
         assert torch.equal(got[1], from_bits[1]) and torch.equal(got[2], from_bits[2])
 
 
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("S,Skv,D", _SHAPES + [(1000, 130, 32)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_backward_split_kernels_match_plain(dtype, rel, S, Skv, D, rate):
+    """K3 (the dq kernel and the dk/dv kernel) against the plain backward with
+    the same bits, at K2's bounds; each kernel counts its own launch; dk and
+    dv also within one bf16 step of K2's; a second launch and the
+    explicit-bits input give the same bits in all three gradients."""
+    rng, (q, k, v) = _qkv(dtype, S, Skv, D)
+    dout = torch.from_numpy(rng.normal(size=tuple(q.shape)).astype(np.float32)).to("cuda", dtype)
+    seed = 11 + Skv
+    out, lse = k1.flash_attention(q, k, v, rate, seed=seed)
+    before = (k1.flash_attention_backward_dq.launches, k1.flash_attention_backward_dkv.launches,
+              k1.flash_attention_backward.launches)
+    got = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate, seed=seed)
+    torch.cuda.synchronize()
+    assert (k1.flash_attention_backward_dq.launches, k1.flash_attention_backward_dkv.launches,
+            k1.flash_attention_backward.launches) == (before[0] + 1, before[1] + 1, before[2])
+    bits = k4.export_dropout_bits(seed, 4, S, Skv) if rate > 0 else None
+    want = k1.flash_attention_backward_reference(q, k, v, out, lse, dout, rate, bits)
+    fused = k1.flash_attention_backward(q, k, v, out, lse, dout, rate, seed=seed)
+    for a, b, f, name in zip(got, want, fused, ("dq", "dk", "dv")):
+        assert a.dtype == dtype and a.shape == b.shape
+        top = b.float().abs().max()
+        err = ((a.float() - b.float()).abs().max() / top).item()
+        assert err <= rel, f"{name}: {err}"
+        assert ((a.float() - f.float()).abs().max() / top).item() <= 2.0 ** -7, name
+    again = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate, seed=seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if rate > 0:
+        from_bits = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate,
+                                                      dropout_bits=bits)
+        assert all(torch.equal(a, b) for a, b in zip(got, from_bits))
+
+
+def test_attention_backward_on_card_follows_the_switch(monkeypatch):
+    """GAOT_ATTN_BWD_FUSED=0 sends `attention`'s backward to K3's two kernels,
+    and the gradients agree with K2's."""
+    _, (q, k, v) = _qkv(torch.bfloat16, 300, 200, 32)
+    dout = torch.ones_like(q)
+
+    def grads(switch):
+        monkeypatch.setenv("GAOT_ATTN_BWD_FUSED", switch)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(k1.attention(*leaves, 0.1, 9), leaves, dout)
+
+    counts = lambda: (k1.flash_attention_backward.launches,  # noqa: E731
+                      k1.flash_attention_backward_dq.launches,
+                      k1.flash_attention_backward_dkv.launches)
+    c0 = counts()
+    fused = grads("1")
+    c1 = counts()
+    split = grads("0")
+    c2 = counts()
+    assert (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) == (1, 0, 0)
+    assert (c2[0] - c1[0], c2[1] - c1[1], c2[2] - c1[2]) == (0, 1, 1)
+    for a, b in zip(split, fused):
+        assert (a.float() - b.float()).abs().max() <= 2.0 ** -7 * b.float().abs().max()
+
+
 def test_attention_autograd_on_card_matches_cpu():
     """`attention` under autograd: kernels on the card against the plain
     versions on the CPU, f32, one seed."""

@@ -293,6 +293,81 @@ def test_flash_backward_plain_matches_pallas_grad(dtype, rel, rate, fused, monke
     assert all(torch.equal(a, g) for a, g in zip(auto, got))
 
 
+@pytest.mark.parametrize("dtype,rel", [("float32", 2e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("S,Skv", [(192, 130), (150, 64)])
+def test_flash_backward_split_matches_pallas_split(dtype, rel, rate, S, Skv, monkeypatch):
+    """K3 on the CPU: the same q, k, v, dO and bits through the JAX split
+    kernels (interpret mode under GAOT_ATTN_BWD_FUSED=0) and through
+    `flash_attention_backward_split` on CPU tensors, at K2's CPU tolerance:
+    relative to each gradient's max-abs, 2e-5 in f32 (summation order) and
+    2e-2 in bf16 (roundings of pm, ds and the results). S=150 and Skv=130 are
+    no multiples of the 64-row tiles."""
+    monkeypatch.setenv("GAOT_ATTN_BWD_FUSED", "0")
+    jqkv, tqkv, jbits, bits = _dropout_problem(dtype, S=S, Skv=Skv, seed=17)
+    if rate == 0.0:
+        jbits = bits = None
+    do = np.random.default_rng(6).normal(size=(1, 2, S, 32)).astype(np.float32)
+
+    def f(q, k, v):
+        out = flash_attention_dropout(q, k, v, dropout_rate=rate, dropout_bits=jbits,
+                                      block_q=64, block_k=64, interpret=True)
+        return jnp.vdot(out.astype(jnp.float32), jnp.asarray(do).astype(dtype))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*jqkv)
+    tdo = torch.from_numpy(do).to(tqkv[0].dtype)
+    out, lse = k1.flash_attention(*tqkv, rate, dropout_bits=bits)
+    before = (k1.flash_attention_backward_dq.launches, k1.flash_attention_backward_dkv.launches)
+    got = k1.flash_attention_backward_split(*tqkv, out, lse, tdo, rate, dropout_bits=bits)
+    # CPU tensors go to the plain version: no kernel is counted
+    assert before == (k1.flash_attention_backward_dq.launches,
+                      k1.flash_attention_backward_dkv.launches)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        w = np.asarray(w.astype(jnp.float32))
+        assert g.dtype == tqkv[0].dtype and g.shape == w.shape
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0, atol=rel * np.abs(w).max(),
+                                   err_msg=name)
+    again = k1.flash_attention_backward_split(*tqkv, out, lse, tdo, rate, dropout_bits=bits)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("switch,want", [(None, "fused"), ("1", "fused"), ("0", "split")])
+def test_attention_backward_follows_the_switch(switch, want, monkeypatch):
+    """`attention(...)`'s backward reads GAOT_ATTN_BWD_FUSED when it runs:
+    "0" takes the split wrapper, unset or "1" the fused one."""
+    calls = {"fused": 0, "split": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(k1, "flash_attention_backward",
+                        counted("fused", k1.flash_attention_backward))
+    monkeypatch.setattr(k1, "flash_attention_backward_split",
+                        counted("split", k1.flash_attention_backward_split))
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(40, 30, seed=3))
+    out = k1.attention(q, k, v, 0.2, seed=5)
+    # the switch is read at the backward, not when the forward ran
+    if switch is None:
+        monkeypatch.delenv("GAOT_ATTN_BWD_FUSED", raising=False)
+    else:
+        monkeypatch.setenv("GAOT_ATTN_BWD_FUSED", switch)
+    assert k1.backward_is_split() == (want == "split")
+    out.sum().backward()
+    assert calls == {"fused": int(want == "fused"), "split": int(want == "split")}
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+def test_flash_backward_split_refuses_other_devices():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(16, 16))
+    meta = [t.to("meta") for t in (q, k, v)]
+    with pytest.raises(ValueError, match="no kernel for device"):
+        k1.flash_attention_backward_split(*meta, meta[0], torch.empty(1, 2, 16, device="meta"),
+                                          meta[0])
+
+
 def test_flash_dropout_rate_one_drops_all_and_a_mask_is_required():
     _, tqkv, _, bits = _dropout_problem("float32", S=70, Skv=50)
     out, _ = k1.flash_attention(*tqkv, 1.0, dropout_bits=bits)
