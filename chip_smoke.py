@@ -1,16 +1,18 @@
 """Smoke run of the PyTorch port (gaot3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--flat-seed N] [--only k3,trainer,trainer-split]
+    python3 chip_smoke.py [--flat-seed N] [--only k1,attention-train,k3,t1,...]
 
 `--flat-seed` (31) seeds the cloud of phases 13 and 14, for a second reading
-of their limits. `--only` runs just the named phases, builds each kernel at
-its first use and prints no record: for work on one phase.
+of their limits. `--only` runs just the named phases (k1, attention-train,
+k3, trainer, trainer-split, t1), builds each kernel at its first use and
+prints no record: for work on one phase.
 
 Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
      power limit, turns TF32 off;
-  2. build: compiles the nine CUDA sources of gaot3d_tpu_torch/csrc with
-     nvcc, all at the same time;
+  2. build: compiles the ten CUDA sources of gaot3d_tpu_torch/csrc with
+     nvcc, all at the same time, and prints each library's registers and
+     spills from `-Xptxas -v`;
   3. [k1] flash-attention forward vs its plain version at B1 H8 S16384 D32
      bf16 and at a ragged S=1000;
   4. [k5] encoder payload + scatter vs its plain version on the degree
@@ -62,7 +64,13 @@ Phases, each of which raises (exit code 1) on failure:
      encoder's accumulator to a stated limit and the output in relative L2;
      then config A's
      gradient through the kernels vs through the plain versions on a 32x32x16
-     grid.
+     grid;
+ 15. [t1] the elementwise-chain probe: its kernel vs its plain version for
+     both chains in f32 (reps 1 and 2) and bf16 (reps 1), each element held
+     to a limit relative to its value and the non-finite positions compared
+     as sets; then the probe's entry point
+     (`gaot3d_tpu_torch.tools.microbench_vpu_bf16.run`) at reps 64, grid 64,
+     and each case's plain time.
 Yardsticks off the main path (`library_ms`): torch's
 scaled_dot_product_attention forward and backward at the recipe shape,
 `torch.cumsum` and `index_add_`.
@@ -97,6 +105,17 @@ K7_BOUND = 2e-6   # of the column's largest prefix |Z|, against the plain versio
 K6_BOUND = 1e-6   # of each column's max abs in the plain result: the same few f32 additions in
 #                   another order
 K8_BOUND = 1e-6   # as K6
+# T1, kernel against plain, of each finite element's magnitude (x the input, a1
+# the plain value after one step): select takes the same correctly rounded
+# operations on both sides, one step of the type; f32 exp: ex2.approx (2 ulp)
+# and three roundings, the exponent's error times 0.9 |a1| at the second step;
+# bf16 exp: the exponential's output (one bf16 step, 2^-7, for ex2.approx)
+# and the plain one's rounding, times up to 1.7 where exp(0.9 x) - x cancels
+# (x near 1), plus the two results' roundings: 2^-5, and the rounding of the
+# exponential's bf16 argument, 2^-9 of |0.9 x log2(e)| in the exponent
+T1_SELECT_STEP = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -8}
+T1_EXP_F32 = 2e-6
+T1_EXP_BF16 = 2.0 ** -5
 ACC_BOUND = 2e-6  # encoder accumulator of configs A and C (tile) against K5's, of each column's
 #                   max abs: the same rows summed cell by cell, the kernel MLP through cuBLAS
 #                   here and in K5's own order there
@@ -197,31 +216,35 @@ def qkv(rng, shape, skv=None):
 
 
 def phase_build():
-    from gaot3d_tpu_torch.kernels import (build, dropout_bits, encoder_payload,
-                                          flash_attention, prefix_sum, segment_sum_sorted,
-                                          tile_segment_sum)
+    from gaot3d_tpu_torch.kernels import (build, dropout_bits, elementwise_chain,
+                                          encoder_payload, flash_attention, prefix_sum,
+                                          segment_sum_sorted, tile_segment_sum)
 
     t0 = time.perf_counter()
     build.build_together([dropout_bits._library, flash_attention._library,
                           flash_attention._backward_library, flash_attention._split_library,
                           encoder_payload._library,
                           encoder_payload._backward_library, prefix_sum._library,
-                          segment_sum_sorted._library, tile_segment_sum._library])
-    print(f"[build] nine kernel libraries built together in {time.perf_counter() - t0:.1f} s")
+                          segment_sum_sorted._library, tile_segment_sum._library,
+                          elementwise_chain._library])
+    print(f"[build] ten kernel libraries built together in {time.perf_counter() - t0:.1f} s")
     for name in ("dropout_bits", "flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_split",
                  "encoder_payload",
                  "encoder_payload_bwd", "prefix_sum", "segment_sum_sorted",
-                 "tile_segment_sum"):
-        regs, spills, entry = [], [], "?"
+                 "tile_segment_sum", "elementwise_chain"):
+        regs, spills, serialized, entry = [], [], 0, "?"
         for line in build.build_log(name).splitlines():
             if "Compiling entry function" in line:  # the mangled name keeps the template arguments
                 entry = line.split("'")[1]
-            elif " registers" in line:
+            elif "Used " in line and " registers" in line:
                 regs.append(int(line.split("Used ")[1].split(" registers")[0]))
             elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                 spills.append(f"{entry}: {line.strip()}")
+            elif "wgmma.mma_async instructions are serialized" in line:
+                serialized += 1
         print(f"[build] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
-              f"spills: {spills or 'none'}")
+              f"spills: {spills or 'none'}"
+              + (f"; ptxas serialized the wgmmas of {serialized} kernels" if serialized else ""))
 
 
 def phase_k1():
@@ -1240,6 +1263,78 @@ def phase_flat(cloud_):
     return total
 
 
+def phase_t1():
+    """[t1]: the elementwise-chain probe against its plain version, then
+    through its entry point at the defaults, counted."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import elementwise_chain as t1
+    from gaot3d_tpu_torch.tools import microbench_vpu_bf16 as probe
+
+    x32 = torch.from_numpy(np.random.default_rng(5).standard_normal(probe.BLOCK,
+                                                                    dtype=np.float32))
+    worst = 0.0
+    for chain in t1.CHAINS:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            x = x32.to("cuda", dtype)
+            for reps in ((1, 2) if dtype == torch.float32 else (1,)):
+                got = t1.elementwise_chain(x, chain, reps, copies=3).float()
+                want = t1.chain_plain(x, chain, reps).float()
+                torch.cuda.synchronize()
+                if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+                    raise RuntimeError(f"T1 {chain} {name} reps {reps}: non-finite positions "
+                                       "differ")
+                fin = torch.isfinite(want)
+                err = (got - want).abs()[fin]
+                if chain == "select":
+                    limit = T1_SELECT_STEP[name] * want.abs()[fin]
+                elif dtype == torch.float32:
+                    after_one = t1.chain_plain(x, chain, 1).float().abs()[fin]
+                    grow = 1.0 + 0.9 * after_one if reps == 2 else torch.ones_like(after_one)
+                    limit = T1_EXP_F32 * grow * want.abs()[fin]
+                else:
+                    limit = (T1_EXP_BF16 + 2.0 ** -8 * x.float().abs()[fin]) * want.abs()[fin]
+                used = (err / limit.clamp_min(torch.finfo(torch.float32).tiny)).max().item()
+                rel = (err / want.abs()[fin].clamp_min(1e-30)).max().item()
+                print(f"[t1] {chain} {name} reps {reps}: max relative error {rel:.3e}, at most "
+                      f"{used:.2f} of its limit; {int((~fin).sum())} non-finite at the same "
+                      f"places")
+                if used > 1.0:
+                    raise RuntimeError(f"T1 {chain} {name} reps {reps} disagrees with its plain "
+                                       "version")
+                worst = max(worst, err.max().item())
+
+    reps, grid = 64, 64
+    t1.elementwise_chain.launches = 0
+    cases = probe.run(reps, grid)
+    launches = t1.elementwise_chain.launches
+    if launches != 2 * 2 * (1 + probe.STEPS):
+        raise RuntimeError(f"[t1] the probe launched the kernel {launches} times")
+    steps = probe.BLOCK[0] * probe.BLOCK[1] * reps * grid
+    # one special-function op an exp step; a select step's multiply and add on
+    # the FP32 pipe (its compare and select issue beside them); bf16 counts a
+    # packed op for two elements, as if it issued at f32's rate
+    pipe = {"exp": SFU_OPS, "select": F32_FLOPS / 2 / 2}
+    for key, case in cases.items():
+        chain, name = key.split()
+        dtype = getattr(torch, name)
+        x = x32.to("cuda", dtype)
+        per_op = 2 if dtype == torch.bfloat16 else 1
+        case.update(bound(2 * x.numel() * x.element_size(),
+                          **{chain: steps / per_op / pipe[chain]}))
+        case["plain_ms"] = cuda_ms(lambda: [t1.chain_plain(x, chain, reps) for _ in range(grid)],
+                                   reps=3)
+        print(f"[t1] {key} reps {reps} grid {grid}: kernel {case['ms']:.3f} ms "
+              f"({case['gelem_s']:.1f} Gelem/s), bound {case['bound_ms']:.3f} ms "
+              f"({case['bound_by']}), plain {case['plain_ms']:.3f} ms")
+    head = cases["exp float32"]
+    return {"max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": None,
+            "bf16_speedup": {c: cases[f"{c} bfloat16"]["speedup"] for c in t1.CHAINS},
+            "cases": cases, "launches": launches}
+
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 TRAINER_CONFIG = os.path.join(HERE, "configs", "examples", "synthetic", "h100_500k.toml")
 TRAINER_DIR = os.path.join(HERE, ".data", "chip_smoke_trainer")  # .gitignore lists .data/
@@ -1470,8 +1565,9 @@ def main():
     parser.add_argument("--flat-seed", type=int, default=31,
                         help="seed of the cloud of the [k6], [k7], [k8] and [flat] phases")
     parser.add_argument("--only", default="",
-                        help="comma-separated subset of k3, trainer, trainer-split: run just "
-                             "these phases (kernels build at first use) and print no record")
+                        help="comma-separated subset of k1, attention-train, k3, trainer, "
+                             "trainer-split, t1: run just these phases (kernels build at first "
+                             "use) and print no record")
     args = parser.parse_args()
     import torch
 
@@ -1489,7 +1585,13 @@ def main():
     if args.only:
         fused_ms = float("nan")
         for name in args.only.split(","):
-            if name == "k3":
+            if name == "k1":
+                phase_k1()
+            elif name == "attention-train":
+                phase_attention_train()
+            elif name == "t1":
+                phase_t1()
+            elif name == "k3":
                 phase_k3()
             elif name == "trainer":
                 _, fused_ms = phase_trainer(card)
@@ -1514,6 +1616,8 @@ def main():
     flat_input = flat_cloud(args.flat_seed, N_POINTS, LatentGrid(dims=LATENT))
     k7, k6, k8 = phase_sorted_kernels(flat_input)
     flat = phase_flat(flat_input)
+    del flat_input
+    t1 = phase_t1()
     pallas = "gaot3d_tpu/ops/pallas_attention.py"
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda",
@@ -1550,6 +1654,10 @@ def main():
         {"name": "tile_segment_sum", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/tile_segment_sum.cu",
          "replaces": "gaot3d_tpu/ops/pallas_kernels.py:138", "launches": flat["k8"], **k8},
+        # the probe's own entry point is its main path
+        {"name": "elementwise_chain", "route": "cuda",
+         "source": "gaot3d_tpu_torch/csrc/elementwise_chain.cu",
+         "replaces": "tools/microbench_vpu_bf16.py:28", **t1},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

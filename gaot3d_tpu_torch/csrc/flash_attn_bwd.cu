@@ -15,33 +15,47 @@
 //
 // On the TPU the kv-block axis was the outer sequential grid dimension, dk and
 // dv sat in VMEM scratch and a whole head's dq [Sq, D] stayed in VMEM across
-// the grid. Hopper's blocks run in parallel in no order, so one CTA owns a
-// 64-key tile of one (batch, head), loops over all q tiles, keeps dk and dv in
-// registers, and adds its dq tiles into an f32 [bh, sq, D] buffer with
-// atomicAdd. The order of those additions changes from run to run, so dq
-// differs in its last f32 bits between runs (each element is a sum of
-// skv / 64 partial sums; the relative spread is about 1e-6, far below the
-// bf16 rounding of the result). dk and dv are deterministic.
+// the grid. Hopper's blocks run in parallel in no order, so a CTA owns a tile
+// of keys of one (batch, head), loops over all q tiles, keeps dk and dv in
+// registers, and adds its dq tiles into an f32 [bh, sq, D] buffer. The order
+// of those additions changes from run to run, so dq differs in its last f32
+// bits between runs (each element is a sum of skv / 64 partial sums; the
+// relative spread is about 1e-6, far below the bf16 rounding of the result).
+// dk and dv are deterministic.
 //
 // Two bodies share that structure:
-//   - bf16 with head dim 16/32/64 (the main path), on mma.sync.m16n8k16. The
-//     products are taken transposed, S^T = k q_scaled^T with keys as the M
-//     dimension: each warp owns 16 keys, the S^T accumulator fragment is then
-//     directly the A operand of dv = pm^T dO and dk = ds^T q (registers
-//     only), and only ds crosses shared memory, for dq = ds k. Fragment rows
-//     (g, g + 8) hold the keys (2g, 2g + 1) of the warp's 16, so that a
-//     thread's four scores per 8-row q block are one 2x2 block of the
-//     dropout stream, one Philox call (philox.cuh), as in the forward.
+//   - bf16 with head dim 16/32/64 (the main path), warp-specialized for
+//     Hopper. A CTA is three warpgroups and owns 128 keys. The producer
+//     warpgroup (registers given to the consumers by setmaxnreg) streams 64-row q and dO tiles by TMA into a ring of 3 stages
+//     (full, ready and empty mbarriers per stage), prescales each q tile in
+//     place (every element the same way, so the swizzle does not matter) and
+//     stages the tile's lse * log2(e) and delta. Each consumer warpgroup owns
+//     64 keys, held in registers as the wgmma A operands k and v (rows
+//     permuted so that fragment rows (g, g + 8) are the keys (2g, 2g + 1),
+//     see below), with dk and dv in wgmma accumulators for the whole loop.
+//     Per q tile: S^T = k q_s^T and dP^T = v dO^T (wgmma m64n64k16, B the
+//     tile K-major), P, the mask and dS^T in registers, then dv += pm^T dO
+//     and dk += ds^T q_s with A from registers and B the same tiles read
+//     MN-major through the descriptor: no transposed copy of anything. dS
+//     goes to shared memory once as bf16 (128-byte swizzle), and the tile's
+//     dq partial over the warpgroup's 64 keys is one more wgmma, dS times the
+//     CTA's K tile (loaded once by TMA, read MN-major). The f32 partial is
+//     staged in shared memory and added into dq by one bulk reduce-add
+//     (cp.reduce.async.bulk .add.f32) per tile, in place of element atomics.
+//     The dropout stream's 2x2 blocks are (q row, key): a thread's four
+//     scores per 8-row q block are one block, one Philox call (philox.cuh),
+//     as in the forward; the next tile's calls run while this tile's last
+//     products are in flight.
 //   - f32, and bf16 at head dim 8: scalar f32 FMAs, one thread per key for
 //     s, dpv, dk, dv and one thread per q row for dq.
 //
 // What bounds it on an H100: five tile products where the forward has two
-// (6.9e11 flops a layer at B1 H8 S16384 D32) and the same 2.1e9 exponentials,
-// plus with dropout one Philox call per four scores (20 wide multiplies and
-// 20 xors a call once the key schedule is hoisted, so 10 integer operations a
-// score, the largest single term), plus skv/64 * sq * D float atomics per
-// head (1.1e9 a layer, issued as float2). Double-buffered loads and wgmma are
-// later work.
+// (6.9e11 flops a layer at B1 H8 S16384 D32, 0.70 ms of tensor cores) and the
+// same 2.1e9 exponentials (0.51 ms), plus with dropout one Philox call per
+// four scores (20 wide multiplies and 20 xors a call once the key schedule is
+// hoisted, so 10 integer operations a score: 1.28 ms, the largest term). As
+// in the forward, ptxas allocates every path at the launch bound of 168
+// registers; the head-dim-64 bodies spill.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,6 +63,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -222,23 +237,17 @@ constexpr size_t scalar_smem_bytes() {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core body, 4 warps. See the header for the layout.
+// bf16 warp-specialized body, see the header.
 // ---------------------------------------------------------------------------
-constexpr int MMA_WARPS = 4;
-constexpr int NT = MMA_WARPS * 32;
+constexpr int WG = 128;        // threads of a warpgroup
+constexpr int B_KEYS = 128;    // keys per CTA, 64 per consumer warpgroup
+constexpr int B_Q = 64;        // q rows per tile
+constexpr int B_STAGES = 3;    // q/dO tile pairs in flight
+constexpr int B_THREADS = 3 * WG;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, int row, int col,
@@ -247,233 +256,283 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, int row
   return *reinterpret_cast<const uint32_t*>(base + (size_t)row * d + col);
 }
 
+// Shared memory, in bytes from a 1024-byte aligned base.
 template <int D>
-struct MmaSmem {
-  static constexpr int RS = D + 8;     // row stride of the row-major q, dO tiles
-  static constexpr int TS = TILE + 8;  // row stride of the transposed tiles and of ds
-  static constexpr int qs = 0;                   // [TILE][RS]  q_scaled
-  static constexpr int dos = qs + TILE * RS;     // [TILE][RS]  dO
-  static constexpr int qt = dos + TILE * RS;     // [D][TS]     q_scaled^T
-  static constexpr int dot = qt + D * TS;        // [D][TS]     dO^T
-  static constexpr int kt = dot + D * TS;        // [D][TS]     k^T
-  static constexpr int dss = kt + D * TS;        // [TILE q][TS] ds
-  static constexpr int halves = dss + TILE * TS;
-  static constexpr size_t bytes = halves * sizeof(__nv_bfloat16) + 2 * TILE * sizeof(float);
+struct WgSmem {
+  static constexpr int RB = 2 * D;                  // bytes of a bf16 row
+  static constexpr int QT = B_Q * RB;               // one q or dO tile
+  static constexpr int k_tile = 0;                  // [128 keys][D] bf16, the CTA's K
+  static constexpr int stages = B_KEYS * RB;        // per stage: q tile, then dO tile
+  static constexpr int ds = stages + B_STAGES * 2 * QT;  // [2 consumers][2][64 q][64 keys] bf16
+  static constexpr int DS_BUF = B_Q * 64 * 2;
+  static constexpr int dq = ds + 4 * DS_BUF;        // [2 consumers][64 q][D] f32
+  static constexpr int stats = dq + 2 * B_Q * D * 4;  // [stage][lse * log2e, delta][64] f32
+  static constexpr size_t bytes = stats + B_STAGES * 2 * B_Q * 4 + 1024;
 };
 
 template <int D, bool DROP>
-__global__ void __launch_bounds__(NT) flash_bwd_mma_kernel(BwdArgs a, DropoutParams dp) {
-  using L = MmaSmem<D>;
-  constexpr int RS = L::RS, TS = L::TS;
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* qs = sm + L::qs;
-  __nv_bfloat16* dos = sm + L::dos;
-  __nv_bfloat16* qt = sm + L::qt;
-  __nv_bfloat16* dot = sm + L::dot;
-  __nv_bfloat16* kt = sm + L::kt;
-  __nv_bfloat16* dss = sm + L::dss;
-  float* lse_s = reinterpret_cast<float*>(sm + L::halves);  // lse * log2(e), +inf past sq
-  float* dl_s = lse_s + TILE;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bh = blockIdx.y;
-  const int kb0 = blockIdx.x * TILE;
-  const int kl = warp * 16 + 2 * g;  // this thread's keys within the tile: kl, kl + 1
-  const int k0 = kb0 + kl, k1 = k0 + 1;
+__global__ void __launch_bounds__(B_THREADS, 1)
+    flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
+                           const __grid_constant__ CUtensorMap tmap_do,
+                           const __grid_constant__ CUtensorMap tmap_k, BwdArgs a,
+                           DropoutParams dp) {
+  using namespace gaot;
+  using L = WgSmem<D>;
   using bf = __nv_bfloat16;
-  const bf* qb = static_cast<const bf*>(a.q) + (size_t)bh * a.sq * D;
-  const bf* kb = static_cast<const bf*>(a.k) + (size_t)bh * a.skv * D;
-  const bf* vb = static_cast<const bf*>(a.v) + (size_t)bh * a.skv * D;
-  const bf* dob = static_cast<const bf*>(a.dout) + (size_t)bh * a.sq * D;
+  constexpr int RB = L::RB;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[B_STAGES], ready[B_STAGES], empty[B_STAGES], kbar;
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - smem_u32(smem_raw));  // the same bytes, generic
+  const int bh = blockIdx.y;
+  const int n_q = (a.sq + B_Q - 1) / B_Q;
+  // the warpgroup's index, read from lane 0 so the compiler knows it is the
+  // same across the warp: the branches below are not divergent
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / WG, 0);
 
-  // k and v rows of this warp as A operands (keys x d), held for the whole loop
-  uint32_t ka[D / 16][4], va[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    ka[kk][0] = load_pair(kb, k0, c, a.skv, D);
-    ka[kk][1] = load_pair(kb, k1, c, a.skv, D);
-    ka[kk][2] = load_pair(kb, k0, c + 8, a.skv, D);
-    ka[kk][3] = load_pair(kb, k1, c + 8, a.skv, D);
-    va[kk][0] = load_pair(vb, k0, c, a.skv, D);
-    va[kk][1] = load_pair(vb, k1, c, a.skv, D);
-    va[kk][2] = load_pair(vb, k0, c + 8, a.skv, D);
-    va[kk][3] = load_pair(vb, k1, c + 8, a.skv, D);
-  }
-  // k^T of the whole tile, keys in their natural order, for dq = ds k
-  for (int c = threadIdx.x; c < TILE * CH; c += NT) {
-    const int row = c / CH, ch = c - row * CH;
-    const int key = kb0 + row;
-    uint4 kx = make_uint4(0, 0, 0, 0);
-    if (key < a.skv) kx = *reinterpret_cast<const uint4*>(kb + (size_t)key * D + ch * 8);
-    const bf* ke = reinterpret_cast<const bf*>(&kx);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) kt[(ch * 8 + e) * TS + row] = ke[e];
-  }
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    dk[nd][0] = dk[nd][1] = dk[nd][2] = dk[nd][3] = 0.f;
-    dv[nd][0] = dv[nd][1] = dv[nd][2] = dv[nd][3] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < a.sq; q0 += TILE) {
-    // the previous tile's dq phase reads dss and kt only, so the loads below
-    // may start before every warp has left it; the barrier after them orders
-    // them against this tile's products, and the one before the dq phase
-    // orders the dss writes
-    for (int c = threadIdx.x; c < TILE * CH; c += NT) {
-      const int row = c / CH, ch = c - row * CH;
-      const int qrow = q0 + row;
-      uint4 qx = make_uint4(0, 0, 0, 0), dx = make_uint4(0, 0, 0, 0);
-      if (qrow < a.sq) {
-        qx = *reinterpret_cast<const uint4*>(qb + (size_t)qrow * D + ch * 8);
-        dx = *reinterpret_cast<const uint4*>(dob + (size_t)qrow * D + ch * 8);
-      }
-      bf* qe = reinterpret_cast<bf*>(&qx);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)  // prescale in f32, round back
-        qe[e] = __float2bfloat16(__fmul_rn(__bfloat162float(qe[e]), a.scale));
-      const bf* de = reinterpret_cast<const bf*>(&dx);
-      *reinterpret_cast<uint4*>(qs + row * RS + ch * 8) = qx;
-      *reinterpret_cast<uint4*>(dos + row * RS + ch * 8) = dx;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        qt[(ch * 8 + e) * TS + row] = qe[e];
-        dot[(ch * 8 + e) * TS + row] = de[e];
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < B_STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&ready[s]), 4);  // the producer's 4 warps
+      mbar_init(smem_u32(&empty[s]), 8);  // the 4 warps of each consumer
     }
-    if (threadIdx.x < TILE) {
-      const int qrow = q0 + threadIdx.x;
-      const bool in = qrow < a.sq;
-      lse_s[threadIdx.x] = in ? a.lse[(size_t)bh * a.sq + qrow] * LOG2E : INFINITY;
-      dl_s[threadIdx.x] = in ? a.delta[(size_t)bh * a.sq + qrow] : 0.f;
-    }
-    __syncthreads();
+    mbar_init(smem_u32(&kbar), 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    // S^T and dPV^T: rows = this warp's keys, columns = the tile's q rows
-    float st[TILE / 8][4], dp_[TILE / 8][4];
+  if (wg == 0) {  // producer
+    regs_dec<40>();
+    const int pt = threadIdx.x;
+    if (pt == 0) {
+      mbar_expect_tx(smem_u32(&kbar), B_KEYS * RB);
+      tma_load_3d(base + L::k_tile, &tmap_k, smem_u32(&kbar), 0, blockIdx.x * B_KEYS, bh);
+    }
+    // step i issues the loads of tile i, then finishes tile i - 1 (its lse,
+    // delta and prescaled q), so the next loads are in flight meanwhile
+    for (int i = 0; i <= n_q; ++i) {
+      if (i < n_q) {
+        const int s = i % B_STAGES;
+        mbar_wait(smem_u32(&empty[s]), ((i / B_STAGES) & 1) ^ 1);
+        if (pt == 0) {
+          const uint32_t bar = smem_u32(&full[s]);
+          const uint32_t dst = base + L::stages + s * 2 * L::QT;
+          mbar_expect_tx(bar, 2 * L::QT);
+          tma_load_3d(dst, &tmap_q, bar, 0, i * B_Q, bh);
+          tma_load_3d(dst + L::QT, &tmap_do, bar, 0, i * B_Q, bh);
+        }
+      }
+      if (i > 0) {
+        const int j = i - 1, s = j % B_STAGES;
+        float* st = reinterpret_cast<float*>(sm + L::stats) + s * 2 * B_Q;
+        const int row = j * B_Q + (pt & (B_Q - 1));
+        const bool in = row < a.sq;
+        if (pt < B_Q)
+          st[pt] = in ? a.lse[(size_t)bh * a.sq + row] * LOG2E : INFINITY;
+        else
+          st[pt] = in ? a.delta[(size_t)bh * a.sq + row] : 0.f;
+        mbar_wait(smem_u32(&full[s]), (j / B_STAGES) & 1);
+        uint4* qt = reinterpret_cast<uint4*>(sm + L::stages + s * 2 * L::QT);
+        for (int ch = pt; ch < L::QT / 16; ch += WG) {  // prescale in f32, round back
+          uint4 x = qt[ch];
+          uint32_t* w = reinterpret_cast<uint32_t*>(&x);
 #pragma unroll
-    for (int nb = 0; nb < TILE / 8; ++nb) {
-      st[nb][0] = st[nb][1] = st[nb][2] = st[nb][3] = 0.f;
-      dp_[nb][0] = dp_[nb][1] = dp_[nb][2] = dp_[nb][3] = 0.f;
-      const bf* qrow = qs + (nb * 8 + g) * RS + 2 * t;
-      const bf* drow = dos + (nb * 8 + g) * RS + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        mma_bf16(st[nb], ka[kk], *reinterpret_cast<const uint32_t*>(qrow + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(qrow + kk * 16 + 8));
-        mma_bf16(dp_[nb], va[kk], *reinterpret_cast<const uint32_t*>(drow + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(drow + kk * 16 + 8));
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+            w[e] = pack_bf16(__fmul_rn(f.x, a.scale), __fmul_rn(f.y, a.scale));
+          }
+          qt[ch] = x;
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if ((pt & 31) == 0) mbar_arrive(smem_u32(&ready[s]));
       }
     }
+  } else {  // consumers
+    regs_inc<232>();
+    const int c = wg - 1;  // consumer 0 or 1
+    const int ct = threadIdx.x - wg * WG;
+    const int warp = ct >> 5;
+    const int lane = ct & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int kl = warp * 16 + 2 * g;  // this thread's keys within the consumer's 64: kl, kl + 1
+    const int k0 = blockIdx.x * B_KEYS + c * 64 + kl, k1 = k0 + 1;
+    const bf* kb = static_cast<const bf*>(a.k) + (size_t)bh * a.skv * D;
+    const bf* vb = static_cast<const bf*>(a.v) + (size_t)bh * a.skv * D;
 
-    // pm^T and ds^T as A operands (keys x q) of the dv and dk products, and ds
-    // into shared memory for dq
-    uint32_t pma[TILE / 16][4], dsa[TILE / 16][4];
+    // k and v rows of this warp as A operands (keys x d), held for the whole loop
+    uint32_t ka[D / 16][4], va[D / 16][4];
 #pragma unroll
-    for (int nb = 0; nb < TILE / 8; ++nb) {
-      const int ql = nb * 8 + 2 * t;  // q columns ql, ql + 1 of the tile
-      const float l0 = lse_s[ql], l1 = lse_s[ql + 1];
-      const float d0 = dl_s[ql], d1 = dl_s[ql + 1];
-      // elements: [0] (k0, ql), [1] (k0, ql + 1), [2] (k1, ql), [3] (k1, ql + 1)
-      float p0 = exp2f(fmaf(st[nb][0], LOG2E, -l0));
-      float p1 = exp2f(fmaf(st[nb][1], LOG2E, -l1));
-      float p2 = exp2f(fmaf(st[nb][2], LOG2E, -l0));
-      float p3 = exp2f(fmaf(st[nb][3], LOG2E, -l1));
-      if (k0 >= a.skv) p0 = p1 = 0.f;  // padded keys
-      if (k1 >= a.skv) p2 = p3 = 0.f;
-      float m0 = 1.f, m1 = 1.f, m2 = 1.f, m3 = 1.f;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int col = kk * 16 + 2 * t;
+      ka[kk][0] = load_pair(kb, k0, col, a.skv, D);
+      ka[kk][1] = load_pair(kb, k1, col, a.skv, D);
+      ka[kk][2] = load_pair(kb, k0, col + 8, a.skv, D);
+      ka[kk][3] = load_pair(kb, k1, col + 8, a.skv, D);
+      va[kk][0] = load_pair(vb, k0, col, a.skv, D);
+      va[kk][1] = load_pair(vb, k1, col, a.skv, D);
+      va[kk][2] = load_pair(vb, k0, col + 8, a.skv, D);
+      va[kk][3] = load_pair(vb, k1, col + 8, a.skv, D);
+    }
+    float dk[D / 2], dv[D / 2];  // [nd * 4 + e]: keys (k0, k1) x columns nd * 8 + 2t + (0, 1)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    float st[B_Q / 2], dpt[B_Q / 2];  // S^T, dP^T: keys (k0, k1) x q columns nb * 8 + 2t + (0, 1)
+    float dq[D / 2];  // q rows warp * 16 + (g, g + 8) x columns nd * 8 + 2t + (0, 1)
+    uint32_t pma[B_Q / 16][4], dsa[B_Q / 16][4];
+    const uint32_t kc = base + L::k_tile + c * 64 * RB;  // this consumer's 64 keys of the K tile
+    const uint32_t dq_s = base + L::dq + c * B_Q * D * 4;
+    float* dq_g = reinterpret_cast<float*>(sm + L::dq) + c * B_Q * D;
+    // The dropout mask depends on positions only: the keep bits of tile i + 1
+    // (integer pipe) are drawn while tile i's last products are in flight.
+    uint32_t keep[1] = {0u};  // 4 bits per 8-row q block
+    auto keep_bits = [&](int i) {
       if constexpr (DROP) {
-        // the stream's block is (q row, key): words (even q, even key),
-        // (even q, odd key), (odd q, even key), (odd q, odd key)
-        float km[4];
-        gaot::dropout_block_scale(dp, bh, q0 + ql, k0, a.sq, a.skv, km);
-        m0 = km[0];
-        m2 = km[1];
-        m1 = km[2];
-        m3 = km[3];
-      }
-      const float s0 = p0 * (dp_[nb][0] * m0 - d0);
-      const float s1 = p1 * (dp_[nb][1] * m1 - d1);
-      const float s2 = p2 * (dp_[nb][2] * m2 - d0);
-      const float s3 = p3 * (dp_[nb][3] * m3 - d1);
-      pma[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(p0 * m0, p1 * m1);
-      pma[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2 * m2, p3 * m3);
-      dsa[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(s0, s1);
-      dsa[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(s2, s3);
-      *reinterpret_cast<uint32_t*>(dss + ql * TS + kl) = pack_bf16(s0, s2);
-      *reinterpret_cast<uint32_t*>(dss + (ql + 1) * TS + kl) = pack_bf16(s1, s3);
-    }
-
-    // dv += pm^T dO, dk += ds^T q_scaled (contraction over the tile's q rows)
+        uint32_t b = 0u;
 #pragma unroll
-    for (int j = 0; j < TILE / 16; ++j) {
+        for (int nb = 0; nb < B_Q / 8; ++nb)
+          b |= gaot::dropout_block_keep(dp, bh, i * B_Q + nb * 8 + 2 * t, k0, a.sq, a.skv)
+               << (4 * nb);
+        keep[0] = b;
+        fence_regs(keep);  // here, before the wait for the products
+      }
+    };
+    keep_bits(0);
+    mbar_wait(smem_u32(&kbar), 0);
+
+    for (int i = 0; i < n_q; ++i) {
+      const int s = i % B_STAGES;
+      const int q0 = i * B_Q;
+      const uint32_t qs = base + L::stages + s * 2 * L::QT, dos = qs + L::QT;
+      const float* lse_s = reinterpret_cast<const float*>(sm + L::stats) + s * 2 * B_Q;
+      const float* dl_s = lse_s + B_Q;
+      mbar_wait(smem_u32(&ready[s]), (i / B_STAGES) & 1);
+
+      // S^T and dP^T: rows = this warpgroup's keys, columns = the tile's q rows
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs<0>(st, ka[kk], wgmma_desc(qs + kk * 32, RB, false), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs<0>(dpt, va[kk], wgmma_desc(dos + kk * 32, RB, false), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // pm^T and ds^T as A operands (keys x q) of the dv and dk products, and
+      // ds (q x keys, 128-byte swizzle) into shared memory for dq
+      unsigned char* dsb = sm + L::ds + (c * 2 + (i & 1)) * L::DS_BUF;
+#pragma unroll
+      for (int nb = 0; nb < B_Q / 8; ++nb) {
+        const int ql = nb * 8 + 2 * t;  // q columns ql, ql + 1 of the tile
+        const float l0 = lse_s[ql], l1 = lse_s[ql + 1];
+        const float d0 = dl_s[ql], d1 = dl_s[ql + 1];
+        const float* sv = st + nb * 4;
+        const float* dv_ = dpt + nb * 4;
+        // elements: [0] (k0, ql), [1] (k0, ql + 1), [2] (k1, ql), [3] (k1, ql + 1)
+        float p0 = ex2_ftz(fmaf(sv[0], LOG2E, -l0));
+        float p1 = ex2_ftz(fmaf(sv[1], LOG2E, -l1));
+        float p2 = ex2_ftz(fmaf(sv[2], LOG2E, -l0));
+        float p3 = ex2_ftz(fmaf(sv[3], LOG2E, -l1));
+        if (k0 >= a.skv) p0 = p1 = 0.f;  // padded keys
+        if (k1 >= a.skv) p2 = p3 = 0.f;
+        float m0 = 1.f, m1 = 1.f, m2 = 1.f, m3 = 1.f;
+        if constexpr (DROP) {
+          // the stream's block is (q row, key): words (even q, even key),
+          // (even q, odd key), (odd q, even key), (odd q, odd key)
+          const uint32_t b = keep[0] >> (4 * nb);
+          m0 = (b & 1u) ? dp.inv_keep : 0.f;
+          m2 = (b & 2u) ? dp.inv_keep : 0.f;
+          m1 = (b & 4u) ? dp.inv_keep : 0.f;
+          m3 = (b & 8u) ? dp.inv_keep : 0.f;
+        }
+        const float s0 = p0 * (dv_[0] * m0 - d0);
+        const float s1 = p1 * (dv_[1] * m1 - d1);
+        const float s2 = p2 * (dv_[2] * m2 - d0);
+        const float s3 = p3 * (dv_[3] * m3 - d1);
+        pma[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(p0 * m0, p1 * m1);
+        pma[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2 * m2, p3 * m3);
+        dsa[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(s0, s1);
+        dsa[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(s2, s3);
+        // (ql, kl..kl+1) and (ql + 1, kl..kl+1): 16-byte chunk kl / 8 of the
+        // row, swizzled by the row's index mod 8
+        const int col = (kl & 7) << 1;
+        *reinterpret_cast<uint32_t*>(dsb + ql * 128 + (((kl >> 3) ^ (ql & 7)) << 4) + col) =
+            pack_bf16(s0, s2);
+        *reinterpret_cast<uint32_t*>(dsb + (ql + 1) * 128 +
+                                     (((kl >> 3) ^ ((ql + 1) & 7)) << 4) + col) =
+            pack_bf16(s1, s3);
+      }
+
+      // dv += pm^T dO, dk += ds^T q_s (contraction over the tile's q rows)
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < B_Q / 16; ++j) {
+        wgmma_rs<1>(dv, pma[j], wgmma_desc(dos + j * 16 * RB, RB, true), 1);
+        wgmma_rs<1>(dk, dsa[j], wgmma_desc(qs + j * 16 * RB, RB, true), 1);
+      }
+      wgmma_commit();
+      // ds of every warp written, and the last tile's reduce-add done reading
+      // the dq staging buffer
+      if (ct == 0) bulk_wait_read();
+      fence_proxy_async();
+      named_sync(1 + c, WG);
+
+      // dq tile = ds k over this warpgroup's 64 keys
+      const uint32_t dsu = base + L::ds + (c * 2 + (i & 1)) * L::DS_BUF;
+#pragma unroll
+      for (int kk = 0; kk < 64 / 16; ++kk)
+        wgmma_ss<1>(dq, wgmma_desc(dsu + kk * 32, 128, false),
+                    wgmma_desc(kc + kk * 16 * RB, RB, true), kk > 0);
+      wgmma_commit();
+      if (i + 1 < n_q) keep_bits(i + 1);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pma);
+      fence_regs(dsa);
+      if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+
+      const int qr0 = warp * 16 + g;
 #pragma unroll
       for (int nd = 0; nd < D / 8; ++nd) {
-        const bf* drow = dot + (nd * 8 + g) * TS + j * 16 + 2 * t;
-        const bf* qrow = qt + (nd * 8 + g) * TS + j * 16 + 2 * t;
-        mma_bf16(dv[nd], pma[j], *reinterpret_cast<const uint32_t*>(drow),
-                 *reinterpret_cast<const uint32_t*>(drow + 8));
-        mma_bf16(dk[nd], dsa[j], *reinterpret_cast<const uint32_t*>(qrow),
-                 *reinterpret_cast<const uint32_t*>(qrow + 8));
+        const int col = nd * 8 + 2 * t;
+        *reinterpret_cast<float2*>(dq_g + qr0 * D + col) =
+            make_float2(dq[nd * 4 + 0] * a.scale, dq[nd * 4 + 1] * a.scale);
+        *reinterpret_cast<float2*>(dq_g + (qr0 + 8) * D + col) =
+            make_float2(dq[nd * 4 + 2] * a.scale, dq[nd * 4 + 3] * a.scale);
+      }
+      fence_proxy_async();
+      named_sync(1 + c, WG);
+      if (ct == 0) {
+        const int rows = min(B_Q, a.sq - q0);  // rows past sq are not added
+        bulk_reduce_add_f32(a.dq + ((size_t)bh * a.sq + q0) * D, dq_s, rows * D * 4);
+        bulk_commit();
       }
     }
-    __syncthreads();
+    if (ct == 0) bulk_wait();
 
-    // dq tile = ds k over the CTA's 64 keys: this warp takes q rows
-    // warp * 16 + (g, g + 8)
-    float dq[D / 8][4];
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
-#pragma unroll
-    for (int j = 0; j < TILE / 16; ++j) {
-      uint32_t da[4];
-      const bf* r0p = dss + (warp * 16 + g) * TS + j * 16 + 2 * t;
-      const bf* r1p = r0p + 8 * TS;
-      da[0] = *reinterpret_cast<const uint32_t*>(r0p);
-      da[1] = *reinterpret_cast<const uint32_t*>(r1p);
-      da[2] = *reinterpret_cast<const uint32_t*>(r0p + 8);
-      da[3] = *reinterpret_cast<const uint32_t*>(r1p + 8);
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const bf* krow = kt + (nd * 8 + g) * TS + j * 16 + 2 * t;
-        mma_bf16(dq[nd], da, *reinterpret_cast<const uint32_t*>(krow),
-                 *reinterpret_cast<const uint32_t*>(krow + 8));
-      }
-    }
-    const int qr0 = q0 + warp * 16 + g, qr1 = qr0 + 8;
-    float* dq0 = a.dq + ((size_t)bh * a.sq + qr0) * D + 2 * t;
-    float* dq1 = a.dq + ((size_t)bh * a.sq + qr1) * D + 2 * t;
+    bf* dkb = static_cast<bf*>(a.dk) + (size_t)bh * a.skv * D;
+    bf* dvb = static_cast<bf*>(a.dv) + (size_t)bh * a.skv * D;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd) {
-      if (qr0 < a.sq)
-        atomicAdd(reinterpret_cast<float2*>(dq0 + nd * 8),
-                  make_float2(dq[nd][0] * a.scale, dq[nd][1] * a.scale));
-      if (qr1 < a.sq)
-        atomicAdd(reinterpret_cast<float2*>(dq1 + nd * 8),
-                  make_float2(dq[nd][2] * a.scale, dq[nd][3] * a.scale));
-    }
-  }
-
-  bf* dkb = static_cast<bf*>(a.dk) + (size_t)bh * a.skv * D;
-  bf* dvb = static_cast<bf*>(a.dv) + (size_t)bh * a.skv * D;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (k0 < a.skv) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)k0 * D + col) = pack_bf16(dk[nd][0], dk[nd][1]);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)k0 * D + col) = pack_bf16(dv[nd][0], dv[nd][1]);
-    }
-    if (k1 < a.skv) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)k1 * D + col) = pack_bf16(dk[nd][2], dk[nd][3]);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)k1 * D + col) = pack_bf16(dv[nd][2], dv[nd][3]);
+      const int col = nd * 8 + 2 * t;
+      if (k0 < a.skv) {
+        *reinterpret_cast<uint32_t*>(dkb + (size_t)k0 * D + col) =
+            pack_bf16(dk[nd * 4], dk[nd * 4 + 1]);
+        *reinterpret_cast<uint32_t*>(dvb + (size_t)k0 * D + col) =
+            pack_bf16(dv[nd * 4], dv[nd * 4 + 1]);
+      }
+      if (k1 < a.skv) {
+        *reinterpret_cast<uint32_t*>(dkb + (size_t)k1 * D + col) =
+            pack_bf16(dk[nd * 4 + 2], dk[nd * 4 + 3]);
+        *reinterpret_cast<uint32_t*>(dvb + (size_t)k1 * D + col) =
+            pack_bf16(dv[nd * 4 + 2], dv[nd * 4 + 3]);
+      }
     }
   }
 }
@@ -484,26 +543,36 @@ cudaError_t allow_smem(K kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <int D, bool DROP>
+int launch_wgmma(const BwdArgs& a, int bh, const DropoutParams& dp, cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk;
+  if (!gaot::bf16_rows_map(&tq, a.q, bh, a.sq, D, B_Q) ||
+      !gaot::bf16_rows_map(&tdo, a.dout, bh, a.sq, D, B_Q) ||
+      !gaot::bf16_rows_map(&tk, a.k, bh, a.skv, D, B_KEYS))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t bytes = WgSmem<D>::bytes;
+  auto kern = flash_bwd_wgmma_kernel<D, DROP>;
+  const cudaError_t e = allow_smem(kern, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3((a.skv + B_KEYS - 1) / B_KEYS, bh), B_THREADS, bytes, stream>>>(tq, tdo, tk, a,
+                                                                             dp);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch(const BwdArgs& a, int bh, bool drop, const DropoutParams& dp,
            cudaStream_t stream) {
-  const dim3 grid((a.skv + TILE - 1) / TILE, bh);
-  cudaError_t e;
   if constexpr (std::is_same_v<T, __nv_bfloat16> && D % 16 == 0) {
-    constexpr size_t bytes = MmaSmem<D>::bytes;
-    if (drop) {
-      if ((e = allow_smem(flash_bwd_mma_kernel<D, true>, bytes)) != cudaSuccess) return (int)e;
-      flash_bwd_mma_kernel<D, true><<<grid, NT, bytes, stream>>>(a, dp);
-    } else {
-      if ((e = allow_smem(flash_bwd_mma_kernel<D, false>, bytes)) != cudaSuccess) return (int)e;
-      flash_bwd_mma_kernel<D, false><<<grid, NT, bytes, stream>>>(a, dp);
-    }
+    if (drop) return launch_wgmma<D, true>(a, bh, dp, stream);
+    return launch_wgmma<D, false>(a, bh, dp, stream);
   } else {
+    const dim3 grid((a.skv + TILE - 1) / TILE, bh);
     constexpr size_t bytes = scalar_smem_bytes<D>();
-    if ((e = allow_smem(flash_bwd_kernel<T, D>, bytes)) != cudaSuccess) return (int)e;
+    const cudaError_t e = allow_smem(flash_bwd_kernel<T, D>, bytes);
+    if (e != cudaSuccess) return (int)e;
     flash_bwd_kernel<T, D><<<grid, TILE, bytes, stream>>>(a, drop, dp);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T>

@@ -81,4 +81,14 @@ __device__ __forceinline__ void dropout_block_scale(const DropoutParams& p, int 
   for (int i = 0; i < 4; ++i) km[i] = w[i] >= p.thresh ? p.inv_keep : 0.f;
 }
 
+// The keep bits of a block: bit i is word i's (w[i] >= thresh), in the order
+// of dropout_block_bits.
+__device__ __forceinline__ uint32_t dropout_block_keep(const DropoutParams& p, int bh, int row,
+                                                       int col, int sq, int skv) {
+  uint32_t w[4];
+  dropout_block_bits(p, bh, row, col, sq, skv, w);
+  return (uint32_t)(w[0] >= p.thresh) | (uint32_t)(w[1] >= p.thresh) << 1 |
+         (uint32_t)(w[2] >= p.thresh) << 2 | (uint32_t)(w[3] >= p.thresh) << 3;
+}
+
 }  // namespace gaot

@@ -21,10 +21,12 @@ The mask comes from a 64-bit `seed` (the kernels draw the bits of
 kernels/dropout_bits.py in place) or from explicit `dropout_bits`
 [B*H, S, Skv] uint32; a rate above 0 with neither raises.
 
-The fused backward adds dq tiles with float atomics, so dq's last bits change
-from run to run; the split backward adds nothing across blocks and repeats bit
-for bit. `GAOT_ATTN_BWD_FUSED=0` in the environment, read at every backward as
-the JAX package reads it, selects the split one; unset or `1` the fused one.
+The fused backward adds each tile's f32 dq partial into one buffer with a bulk
+reduce-add (atomic in the memory system, in no fixed order), so dq's last bits
+change from run to run; the split backward adds nothing across blocks and
+repeats bit for bit. `GAOT_ATTN_BWD_FUSED=0` in the environment, read at
+every backward as the JAX package reads it, selects the split one; unset or
+`1` the fused one.
 The JAX package also falls back to the split kernels when a head's dq exceeds
 a VMEM budget; that limit belongs to the TPU and is not copied.
 
@@ -56,7 +58,8 @@ _DROPOUT_ARGTYPES = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_uint] * 3 + [cty
 
 
 def _library() -> ctypes.CDLL:
-    lib = load_cuda_library("flash_attn_fwd", "flash_attn_fwd.cu", headers=["philox.cuh"])
+    lib = load_cuda_library("flash_attn_fwd", "flash_attn_fwd.cu",
+                            headers=["philox.cuh", "hopper.cuh"])
     lib.gaot_flash_attn_fwd.restype = ctypes.c_int
     lib.gaot_flash_attn_fwd.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] + _DROPOUT_ARGTYPES
@@ -65,7 +68,8 @@ def _library() -> ctypes.CDLL:
 
 
 def _backward_library() -> ctypes.CDLL:
-    lib = load_cuda_library("flash_attn_bwd", "flash_attn_bwd.cu", headers=["philox.cuh"])
+    lib = load_cuda_library("flash_attn_bwd", "flash_attn_bwd.cu",
+                            headers=["philox.cuh", "hopper.cuh"])
     lib.gaot_flash_attn_bwd.restype = ctypes.c_int
     lib.gaot_flash_attn_bwd.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] + _DROPOUT_ARGTYPES

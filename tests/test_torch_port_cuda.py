@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from gaot3d_tpu_torch.kernels import dropout_bits as k4
+from gaot3d_tpu_torch.kernels import elementwise_chain as t1
 from gaot3d_tpu_torch.kernels import encoder_payload as k5
 from gaot3d_tpu_torch.kernels import flash_attention as k1
 from gaot3d_tpu_torch.kernels import prefix_sum as k7
@@ -242,6 +243,77 @@ def test_flash_backward_split_kernels_match_plain(dtype, rel, S, Skv, D, rate):
         from_bits = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate,
                                                       dropout_bits=bits)
         assert all(torch.equal(a, b) for a, b in zip(got, from_bits))
+
+
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("S,Skv", [(77, 130), (130, 1000), (1000, 77)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_wgmma_bodies_match_plain_and_the_exported_bits(D, S, Skv, rate):
+    """The bf16 TMA/wgmma bodies of K1 and K2 at every head dim they take,
+    with sq != skv and neither a multiple of 128: against the plain versions
+    with the bits K4 exports for the seed (K1 out 2e-2 of its max-abs, lse
+    1e-4; K2 2e-2 of each gradient's max-abs); K1 twice, and K1 and K2 fed
+    those bits, repeat the seeded run bit for bit (K2's dq to one bf16 step:
+    its tile partials are added in a run-dependent order)."""
+    rng, (q, k, v) = _qkv(torch.bfloat16, S, Skv, D, H=3)
+    dout = torch.from_numpy(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    seed = 0x5EED + S * D if rate > 0 else None
+    bits = k4.export_dropout_bits(seed, 3, S, Skv) if rate > 0 else None
+    out, lse = k1.flash_attention(q, k, v, rate, seed=seed)
+    again, lse_again = k1.flash_attention(q, k, v, rate, seed=seed)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    ref, ref_lse = k1.flash_attention_reference(q, k, v, rate, bits)
+    _assert_out_close(out, ref)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    got = k1.flash_attention_backward(q, k, v, out, lse, dout, rate, seed=seed)
+    want = k1.flash_attention_backward_reference(q, k, v, out, lse, dout, rate, bits)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(a.float()).all(), name
+        err = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+        assert err <= 2e-2, f"{name}: {err}"
+    if rate > 0:
+        out_b, lse_b = k1.flash_attention(q, k, v, rate, dropout_bits=bits)
+        assert torch.equal(out, out_b) and torch.equal(lse, lse_b)
+        got_b = k1.flash_attention_backward(q, k, v, out_b, lse_b, dout, rate, dropout_bits=bits)
+        assert torch.equal(got[1], got_b[1]) and torch.equal(got[2], got_b[2])
+        top = got[0].float().abs().max()
+        assert (got[0].float() - got_b[0].float()).abs().max() <= 2.0 ** -7 * top
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chain", ["exp", "select"])
+def test_elementwise_chain_kernel_matches_plain(chain, dtype):
+    """T1's kernel against its plain version on a [512, 1024] block from a
+    seed, copies 3, per element relative to the value: select one rounding
+    step of the type (both sides take the same correctly rounded operations);
+    exp in f32 2e-6 at reps 1 and 2e-6 (1 + 0.9 |a1|) at reps 2, a1 the value
+    after one step (the exponent carries the first step's error); exp in bf16
+    (reps 1) 2^-5 + 2^-8 |x|: the exponential's bf16 output and the plain
+    one's rounding, times up to 1.7 where exp(0.9 x) - x cancels, the two
+    results' roundings, and the rounding of the exponential's bf16 argument.
+    Non-finite positions agree as sets."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (512, 1024)).astype(np.float32)).to("cuda", dtype)
+    for reps in ((1, 2) if dtype == torch.float32 else (1,)):
+        before = t1.elementwise_chain.launches
+        got = t1.elementwise_chain(x, chain, reps, copies=3).float()
+        torch.cuda.synchronize()
+        assert t1.elementwise_chain.launches == before + 1
+        want = t1.chain_plain(x, chain, reps).float()
+        assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+        fin = torch.isfinite(want)
+        err = (got - want).abs()[fin]
+        mag = want.abs()[fin]
+        if chain == "select":
+            limit = (2.0 ** -23 if dtype == torch.float32 else 2.0 ** -8) * mag
+        elif dtype == torch.float32:
+            grow = 1.0 + 0.9 * t1.chain_plain(x, chain, 1).float().abs()[fin] if reps == 2 else 1.0
+            limit = 2e-6 * grow * mag
+        else:
+            limit = (2.0 ** -5 + 2.0 ** -8 * x.float().abs()[fin]) * mag
+        assert (err <= limit).all(), f"reps {reps}: worst {(err / mag).max().item()}"
 
 
 def test_attention_backward_on_card_follows_the_switch(monkeypatch):
