@@ -1,10 +1,10 @@
 """Smoke run of the PyTorch port (gaot3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--flat-seed N] [--only k1,attention-train,k3,t1,...]
+    python3 chip_smoke.py [--flat-seed N] [--only k1,attention-train,k3,k5,t1,...]
 
 `--flat-seed` (31) seeds the cloud of phases 13 and 14, for a second reading
 of their limits. `--only` runs just the named phases (k1, attention-train,
-k3, trainer, trainer-split, t1), builds each kernel at its first use and
+k3, k5, trainer, trainer-split, t1), builds each kernel at its first use and
 prints no record: for work on one phase.
 
 Phases, each of which raises (exit code 1) on failure:
@@ -12,13 +12,19 @@ Phases, each of which raises (exit code 1) on failure:
      power limit, turns TF32 off;
   2. build: compiles the ten CUDA sources of gaot3d_tpu_torch/csrc with
      nvcc, all at the same time, and prints each library's registers and
-     spills from `-Xptxas -v`;
+     spills from `-Xptxas -v`; for K5 and K5b at the recipe's widths also
+     the CTAs an SM holds and the TF32 tensor-core (HMMA...TF32) and FFMA
+     instructions `cuobjdump -sass` finds (none of the first fails);
   3. [k1] flash-attention forward vs its plain version at B1 H8 S16384 D32
      bf16 and at a ragged S=1000;
   4. [k5] encoder payload + scatter vs its plain version on the degree
      sections of a 524,288-point cloud (radius 0.033, slot budget 5, 64x64x32
-     grid), and [k5b] its backward (dfeats, dW, db) vs autograd through the
-     plain version on the same sections;
+     grid), the accumulator and its value columns each to 1e-5 relative, and
+     [k5b] its backward (dfeats, dW, db) vs autograd through the plain
+     version on the same sections, dfeats the same bits in two launches; both
+     timed as the five launches alone and through their wrappers, with the
+     bound from the 3xTF32 products, the GELU's instructions (counted in the
+     SASS of its formula built alone) and the bytes;
   5. [serve] the DrivAerNet++ recipe model (random weights from a seed) is
      exported, loaded on the card and answers 2 requests of 524,288 points;
      the second is answered once more for the warm forward time, the first
@@ -38,7 +44,8 @@ Phases, each of which raises (exit code 1) on failure:
      on one 524,288-point cloud; launches per step must be exactly K1 10,
      K2 10, K5 5, K5b 5; then one forward-and-backward on a 32x32x16 grid
      with 65,536 points is repeated with every kernel replaced by its plain
-     version at the same seed; then a breakdown of one step.
+     version at the same seed; then a breakdown of one step, with K5's and
+     K5b's device time in its profile.
  12. [trainer] `gaot3d_tpu_torch.cli.run_config_file` on
      configs/examples/synthetic/h100_500k.toml with its data and outputs
      under .data/chip_smoke_trainer: the synthetic set (10 clouds of 500,000
@@ -137,6 +144,8 @@ SHAPE = (1, 8, 16384, 32)  # B, H, S, D of the recipe's attention
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+FP32_OPS = F32_FLOPS / 2  # instructions a second on the FP32 pipe
 INT32_OPS = F32_FLOPS / 2 / 2
 SFU_OPS = F32_FLOPS / 2 / 8
 # integer operations of one Philox4x32-10 call that depend on the element: 10
@@ -245,6 +254,7 @@ def phase_build():
         print(f"[build] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"spills: {spills or 'none'}"
               + (f"; ptxas serialized the wgmmas of {serialized} kernels" if serialized else ""))
+    encoder_build_facts()
 
 
 def phase_k1():
@@ -281,12 +291,111 @@ def phase_k1():
     return rec
 
 
+GELU_PROBE = r"""
+__device__ __forceinline__ float phi(float z) { return 0.5f * (1.f + erff(z * 0.70710678118654752f)); }
+extern "C" __global__ void copy(const float* x, float* y) { y[threadIdx.x] = x[threadIdx.x]; }
+extern "C" __global__ void gelu(const float* x, float* y) {
+  const float z = x[threadIdx.x];
+  y[threadIdx.x] = z * phi(z);
+}
+extern "C" __global__ void gelu_and_grad(const float* x, float* y) {
+  const float z = x[threadIdx.x], p = phi(z);
+  y[threadIdx.x] = z * p;
+  y[threadIdx.x + 32] = p + z * expf(-0.5f * z * z) * 0.3989422804014327f;
+}
+"""
+
+
+def sass(path, *args):
+    """The SASS of a shared library or cubin, by cuobjdump."""
+    from gaot3d_tpu_torch.kernels.build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", *args, path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+
+
+def sass_ops(text):
+    """Counts of FP32-pipe instructions (F* opcodes) and special-function
+    instructions (MUFU) in SASS text."""
+    fp32 = mufu = 0
+    for line in text.splitlines():
+        if "/*" not in line or ";" not in line:
+            continue
+        op = line.split("*/", 1)[1].strip().split(" ")[0].lstrip("@!P0123456789T ")
+        if op.startswith("MUFU"):
+            mufu += 1
+        elif op[:1] == "F" and op.split(".")[0] in ("FFMA", "FADD", "FMUL", "FMNMX", "FSETP",
+                                                     "FSEL", "FSET", "FRND", "FCHK",
+                                                     "FFMA32I", "FADD32I", "FMUL32I"):
+            fp32 += 1
+    return fp32, mufu
+
+
+def gelu_instructions():
+    """FP32-pipe and MUFU instructions of one exact-erf GELU (the forward's)
+    and of one GELU with its derivative (the backward's), counted in the
+    SASS of the kernels' own formulas built alone, less a plain copy."""
+    from gaot3d_tpu_torch.kernels.build import NVCC_FLAGS, find_nvcc
+
+    arch = NVCC_FLAGS[NVCC_FLAGS.index("-gencode") + 1]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "gelu_probe.cu"), os.path.join(tmp, "gelu_probe.cubin")
+        with open(src, "w") as f:
+            f.write(GELU_PROBE)
+        subprocess.run([find_nvcc(), "-cubin", "-O3", "-gencode", arch, "-o", out, src],
+                       check=True, capture_output=True, timeout=300)
+        counts = {name: sass_ops(sass(out, "-fun", name))
+                  for name in ("copy", "gelu", "gelu_and_grad")}
+    base = counts["copy"]
+    return {name: (c[0] - base[0], c[1] - base[1]) for name, c in counts.items() if name != "copy"}
+
+
+def ptxas_entries(name):
+    """{mangled kernel name: (registers, its stack/spill line)} from the
+    `-Xptxas -v` log of a library's build."""
+    from gaot3d_tpu_torch.kernels import build
+
+    out, entry, spill = {}, "?", "?"
+    for line in build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "bytes stack frame" in line:
+            spill = line.strip()
+        elif "Used " in line and " registers" in line:
+            out[entry] = (int(line.split("Used ")[1].split(" registers")[0]), spill)
+    return out
+
+
+def encoder_build_facts():
+    """Registers, spills and CTAs an SM of K5 and K5b at the recipe's widths
+    (64, 32, two hidden-to-hidden layers), and the TF32 tensor-core and FFMA
+    instructions in each library's SASS. Raises when a library has no TF32
+    tensor-core instruction."""
+    from gaot3d_tpu_torch.kernels import build, encoder_payload
+
+    for name, lib, occupancy in (
+            ("encoder_payload", encoder_payload._library(), "gaot_encoder_accumulate_occupancy"),
+            ("encoder_payload_bwd", encoder_payload._backward_library(),
+             "gaot_encoder_backward_occupancy")):
+        text = sass(os.path.join(build.BUILD_DIR, f"lib{name}.so"))
+        hmma = sum(1 for line in text.splitlines() if "HMMA" in line and "TF32" in line)
+        ffma = sum(1 for line in text.splitlines() if "FFMA" in line)
+        ctas = getattr(lib, occupancy)(2, 64, 32)
+        kernel = ("encoder_accumulate_kernelILi64ELi32E" if name == "encoder_payload"
+                  else "encoder_backward_kernelILi64ELi32ELi2E")
+        regs, spill = next(((r, sp) for entry, (r, sp) in ptxas_entries(name).items()
+                            if kernel in entry), ("?", "?"))
+        print(f"[build] {name} at the recipe's widths: {regs} registers, {spill}; {ctas} CTA(s) "
+              f"of 8 warps an SM; SASS of the library: {hmma} HMMA...TF32, {ffma} FFMA")
+        if hmma == 0:
+            raise RuntimeError(f"{name}: no TF32 tensor-core instruction in its SASS")
+
+
 def phase_k5():
     import torch
 
-    from gaot3d_tpu_torch.kernels.encoder_payload import (
-        encoder_accumulate, encoder_accumulate_backward,
-        encoder_accumulate_backward_reference, encoder_accumulate_reference)
+    from gaot3d_tpu_torch.kernels import encoder_payload as k5
     from gaot3d_tpu_torch.models.mlp import ChannelMLP, reset_linear_
     from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
 
@@ -314,60 +423,87 @@ def phase_k5():
     sec_t = [(torch.from_numpy(lat[None]).cuda(), torch.from_numpy(msk[None]).cuda())
              for lat, msk in secs]
     acc = torch.zeros((1, grid.num_tokens, C + 11), device="cuda")
+    offsets = np.cumsum([0] + [lat.shape[1] for lat, _ in sec_t])
+    sections = [(pos_t[:, o:o + lat.shape[1]], feats[:, o:o + lat.shape[1]].contiguous(), lat,
+                 msk) for o, (lat, msk) in zip(offsets, sec_t)]
+    params, n_mid, hid = k5._pack_mlp(ws, bs), len(ws) - 2, ws[0].shape[0]
 
     def run(fn):
         acc.zero_()
-        off = 0
-        for lat, msk in sec_t:
-            ns = lat.shape[1]
-            fn(pos_t[:, off:off + ns], feats[:, off:off + ns].contiguous(), lat, msk, ws, bs,
-               grid, acc, chunk=CHUNK)
-            off += ns
+        for p, f, lat, msk in sections:
+            fn(p, f, lat, msk, ws, bs, grid, acc, chunk=CHUNK)
         return acc
 
-    got = run(encoder_accumulate).clone()
-    ref = run(encoder_accumulate_reference).clone()
+    def launches_alone():
+        for p, f, lat, msk in sections:
+            k5.launch_accumulate(p, f, lat, msk, params, n_mid, hid, grid, acc)
+
+    got = run(k5.encoder_accumulate).clone()
+    ref = run(k5.encoder_accumulate_reference).clone()
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise RuntimeError("K5: non-finite accumulator")
     err = (got - ref).abs().max().item()
     rel = err / ref.abs().max().item()
-    print(f"[k5] accumulator max_abs_err {err:.3e} relative {rel:.3e}")
-    if rel > K5_BOUND:
-        raise RuntimeError(f"K5 disagrees with its twin: relative {rel}")
+    # the C value columns alone, the only ones the MLP's products touch
+    rel_vals = ((got[..., :C] - ref[..., :C]).abs().max() / ref[..., :C].abs().max()).item()
+    print(f"[k5] accumulator max_abs_err {err:.3e} relative {rel:.3e}; its value columns "
+          f"relative {rel_vals:.3e}")
+    if rel > K5_BOUND or rel_vals > K5_BOUND:
+        raise RuntimeError(f"K5 disagrees with its twin: relative {rel}, values {rel_vals}")
     # bytes: points, features, slots, masks and weights read once, the
-    # accumulator read and written; operations: the MLP's FMAs for the valid
-    # rows of this cloud (forward once; backward recompute, chain and dW: 3x)
+    # accumulator read and written. Operations, for the valid rows of this
+    # cloud: the MLP's products as 3xTF32 on the tensor cores (forward once;
+    # backward recompute, chain and dW: 3x), and the GELU's instructions as
+    # the SASS of its formula counts them (one a hidden unit forward; the
+    # backward recomputes it, then takes it with its derivative again)
     n_weights = sum(w.numel() for w in ws)
+    hidden = valid_edges * sum(w.shape[0] for w in ws[:-1])
+    gelu = gelu_instructions()
+    print(f"[k5] SASS of one GELU: {gelu['gelu'][0]} FP32-pipe + {gelu['gelu'][1]} MUFU "
+          f"instructions; with its derivative: {gelu['gelu_and_grad'][0]} + "
+          f"{gelu['gelu_and_grad'][1]}")
     slot_bytes = sum(lat.numel() * 5 for lat, _ in sec_t)
     moved = pos_t.numel() * 4 + feats.numel() * 4 + slot_bytes + n_weights * 4
-    rec = {"max_abs_err": err, "ms": cuda_ms(lambda: run(encoder_accumulate)),
-           "plain_ms": cuda_ms(lambda: run(encoder_accumulate_reference)),
-           **bound(moved + 2 * acc.numel() * 4, fma=valid_edges * 2 * n_weights / F32_FLOPS),
-           "library_ms": None}
-    print(f"[k5] all sections of 524,288 points: kernel {rec['ms']:.3f} ms, "
-          f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-          f"({rec['bound_by']}) (median of 5)")
+    flops = valid_edges * 2 * n_weights
+    fwd_ops = {"tensor": 3 * flops / TF32_FLOPS, "fp32": hidden * gelu["gelu"][0] / FP32_OPS,
+               "sfu": hidden * gelu["gelu"][1] / SFU_OPS}
+    bwd_ops = {"tensor": 3 * 3 * flops / TF32_FLOPS,
+               "fp32": hidden * (gelu["gelu"][0] + gelu["gelu_and_grad"][0]) / FP32_OPS,
+               "sfu": hidden * (gelu["gelu"][1] + gelu["gelu_and_grad"][1]) / SFU_OPS}
+    rec = {"max_abs_err": err, "ms": cuda_ms(launches_alone),
+           "plain_ms": cuda_ms(lambda: run(k5.encoder_accumulate_reference)),
+           **bound(moved + 2 * acc.numel() * 4, **fwd_ops), "library_ms": None}
+    # the wrapper's five calls (checks, packing, launch), the accumulator's zeroing outside
+    wrapper_ms = cuda_ms(lambda: [k5.encoder_accumulate(p, f, lat, msk, ws, bs, grid, acc)
+                                  for p, f, lat, msk in sections])
+    print(f"[k5] all sections of 524,288 points: the five launches {rec['ms']:.3f} ms "
+          f"(through the wrapper {wrapper_ms:.3f} ms: its share {wrapper_ms - rec['ms']:.3f} "
+          f"ms), plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+          f"({rec['bound_by']}: tensor {1e3 * fwd_ops['tensor']:.3f}, GELU FP32 "
+          f"{1e3 * fwd_ops['fp32']:.3f}, MUFU {1e3 * fwd_ops['sfu']:.3f}, bytes "
+          f"{1e3 * (moved + 2 * acc.numel() * 4) / HBM_BYTES_S:.3f}; as f32 FMAs "
+          f"{1e3 * flops / F32_FLOPS:.3f}) (median of 5)")
 
     # K5b: gradients of the five sections from one accumulator cotangent
     g = torch.from_numpy(rng.standard_normal((1, grid.num_tokens, C + 11),
                                              dtype=np.float32)).cuda()
 
     def run_backward(fn):
-        off, dfeats, dws, dbs = 0, [], None, None
-        for lat, msk in sec_t:
-            ns = lat.shape[1]
-            df, dw, db = fn(g, pos_t[:, off:off + ns], feats[:, off:off + ns].contiguous(),
-                            lat, msk, ws, bs, grid, chunk=CHUNK)
+        dfeats, dws, dbs = [], None, None
+        for p, f, lat, msk in sections:
+            df, dw, db = fn(g, p, f, lat, msk, ws, bs, grid, chunk=CHUNK)
             dfeats.append(df)
             dws = dw if dws is None else [a + b for a, b in zip(dws, dw)]
             dbs = db if dbs is None else [a + b for a, b in zip(dbs, db)]
-            off += ns
         return [torch.cat(dfeats, dim=1)] + dws + dbs
 
-    got_b = run_backward(encoder_accumulate_backward)
-    ref_b = run_backward(encoder_accumulate_backward_reference)
+    got_b = run_backward(k5.encoder_accumulate_backward)
+    again = run_backward(k5.encoder_accumulate_backward)
+    ref_b = run_backward(k5.encoder_accumulate_backward_reference)
     torch.cuda.synchronize()
+    if not torch.equal(got_b[0], again[0]):
+        raise RuntimeError("K5b: dfeats differs between two launches")
     names = ["dfeats"] + [f"dW{i}" for i in range(len(ws))] + [f"db{i}" for i in range(len(ws))]
     worst, worst_abs = 0.0, 0.0
     for name, a, b in zip(names, got_b, ref_b):
@@ -379,15 +515,27 @@ def phase_k5():
         if rel_b > K5B_BOUND:
             raise RuntimeError(f"K5b {name} disagrees with autograd through the plain "
                                f"version: relative {rel_b}")
-    rec_b = {"max_abs_err": worst_abs,
-             "ms": cuda_ms(lambda: run_backward(encoder_accumulate_backward)),
-             "plain_ms": cuda_ms(lambda: run_backward(encoder_accumulate_backward_reference)),
-             **bound(moved + g.numel() * 4 + feats.numel() * 4,
-                     fma=3 * valid_edges * 2 * n_weights / F32_FLOPS),
+    # the five launches alone: outputs allocated and zeroed outside the events
+    outs = [(torch.empty_like(f), torch.zeros_like(params)) for _, f, _, _ in sections]
+
+    def backward_launches():
+        for (p, f, lat, msk), (df, dp) in zip(sections, outs):
+            k5.launch_backward(g, p, f, lat, msk, params, n_mid, hid, grid, df, dp)
+
+    rec_b = {"max_abs_err": worst_abs, "ms": cuda_ms(backward_launches),
+             "plain_ms": cuda_ms(lambda: run_backward(k5.encoder_accumulate_backward_reference)),
+             **bound(moved + g.numel() * 4 + feats.numel() * 4, **bwd_ops),
              "library_ms": None}
-    print(f"[k5b] dfeats, dW, db of all sections: worst relative {worst:.3e}; kernel "
-          f"{rec_b['ms']:.3f} ms, plain {rec_b['plain_ms']:.3f} ms, bound "
-          f"{rec_b['bound_ms']:.3f} ms ({rec_b['bound_by']}) (median of 5)")
+    # the wrapper's five calls (checks, packing, allocation, launch, unpacking)
+    wrapper_b = cuda_ms(lambda: [k5.encoder_accumulate_backward(g, p, f, lat, msk, ws, bs, grid)
+                                 for p, f, lat, msk in sections])
+    print(f"[k5b] dfeats, dW, db of all sections: worst relative {worst:.3e}, dfeats the same "
+          f"bits in two launches; the five launches {rec_b['ms']:.3f} ms (through the wrapper "
+          f"{wrapper_b:.3f} ms: its share {wrapper_b - rec_b['ms']:.3f} ms), plain "
+          f"{rec_b['plain_ms']:.3f} ms, bound {rec_b['bound_ms']:.3f} ms ({rec_b['bound_by']}: "
+          f"tensor {1e3 * bwd_ops['tensor']:.3f}, GELU FP32 {1e3 * bwd_ops['fp32']:.3f}, MUFU "
+          f"{1e3 * bwd_ops['sfu']:.3f}; as f32 FMAs {3e3 * flops / F32_FLOPS:.3f}) (median of 5)")
+    rec["wrapper_ms"], rec_b["wrapper_ms"] = wrapper_ms, wrapper_b
     return rec, rec_b
 
 
@@ -514,8 +662,10 @@ def plain_versions():
     for mod, name, plain in (
             (k1, "flash_attention", k1.flash_attention_plain),
             (k1, "flash_attention_backward", k1.flash_attention_backward_plain),
-            (k5, "encoder_accumulate", k5.encoder_accumulate_reference),
-            (k5, "encoder_accumulate_backward", k5.encoder_accumulate_backward_reference),
+            (k5, "encoder_accumulate",
+             lambda *a, params=None, **kw: k5.encoder_accumulate_reference(*a, **kw)),
+            (k5, "encoder_accumulate_backward",
+             lambda *a, params=None, **kw: k5.encoder_accumulate_backward_reference(*a, **kw)),
             (k7, "prefix_sum", k7.prefix_sum_reference),
             (segment, "segment_sum_sorted",
              lambda data, ids, num_segments, passes=1:
@@ -789,7 +939,7 @@ def grad_vector(model):
     return torch.cat([p.grad.detach().float().flatten() for p in model.parameters()])
 
 
-def phase_train():
+def phase_train(k5b_ms=None):
     import torch
 
     from gaot3d_tpu_torch.kernels import encoder_payload as k5
@@ -866,6 +1016,13 @@ def phase_train():
               f"share {100 * (1 - busy / wall):.1f}%")
         for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
             print(f"[train]   {ms:8.2f} ms {count:4d}x {key[:90]}")
+        for label, kernel in (("K5", "encoder_accumulate_kernel"),
+                              ("K5b", "encoder_backward_kernel")):
+            mine = [r for r in rows if kernel in r[0]]
+            print(f"[train] {label} in the profiled step: {sum(r[1] for r in mine):.3f} ms for "
+                  f"{sum(r[2] for r in mine)} launches"
+                  + (f" ([k5b]'s five launches alone: {k5b_ms:.3f} ms)"
+                     if label == "K5b" and k5b_ms is not None else ""))
     else:
         print("[train] torch.profiler recorded no device time here: idle share not measured")
     del model, optimizer, batch, before
@@ -1565,7 +1722,7 @@ def main():
     parser.add_argument("--flat-seed", type=int, default=31,
                         help="seed of the cloud of the [k6], [k7], [k8] and [flat] phases")
     parser.add_argument("--only", default="",
-                        help="comma-separated subset of k1, attention-train, k3, trainer, "
+                        help="comma-separated subset of k1, attention-train, k3, k5, trainer, "
                              "trainer-split, t1: run just these phases (kernels build at first "
                              "use) and print no record")
     args = parser.parse_args()
@@ -1591,6 +1748,12 @@ def main():
                 phase_attention_train()
             elif name == "t1":
                 phase_t1()
+            elif name == "k5":
+                from gaot3d_tpu_torch.kernels import build, encoder_payload
+                build.build_together([encoder_payload._library,
+                                      encoder_payload._backward_library])
+                encoder_build_facts()
+                phase_k5()
             elif name == "k3":
                 phase_k3()
             elif name == "trainer":
@@ -1607,7 +1770,7 @@ def main():
     k4 = phase_k4()
     k1d, k2, replay_launches = phase_attention_train()
     k3 = phase_k3()
-    train = phase_train()
+    train = phase_train(k5b["ms"])
     torch.cuda.empty_cache()
     fit, fused_ms = phase_trainer(card)
     split = phase_trainer_split(card, fused_ms)

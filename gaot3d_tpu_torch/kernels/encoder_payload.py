@@ -25,7 +25,10 @@ slot whose cell lies outside the grid is dropped, as XLA's scatter drops it.
   `encoder_accumulate_backward_reference`, which is autograd through the
   payload reference. Positions get no gradient, as in the JAX code.
 - `accumulate` is the differentiable entry point. It adds into `acc` in
-  place; the gradient with respect to `acc` is the identity.
+  place; the gradient with respect to `acc` is the identity. It packs the
+  MLP once, in the forward, and hands the packed tensor to the backward.
+- `launch_accumulate` and `launch_backward` are one launch each, on CUDA
+  tensors the wrappers have checked and the MLP packed by `_pack_mlp`.
 
 MLP weights are passed in torch layout (weight [out, in], bias [out]).
 """
@@ -46,22 +49,29 @@ MAX_SHARED_BYTES = 232448  # per-block shared memory limit of sm_90
 
 
 def _library() -> ctypes.CDLL:
-    lib = load_cuda_library("encoder_payload", "encoder_payload.cu")
+    lib = load_cuda_library("encoder_payload", "encoder_payload.cu", ["encoder_tiles.cuh"])
     lib.gaot_encoder_accumulate.restype = ctypes.c_int
     lib.gaot_encoder_accumulate.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6
         + [ctypes.c_void_p] * 2)
+    lib.gaot_encoder_accumulate_smem.restype = ctypes.c_longlong
+    lib.gaot_encoder_accumulate_smem.argtypes = [ctypes.c_int] * 3
+    lib.gaot_encoder_accumulate_occupancy.restype = ctypes.c_int
+    lib.gaot_encoder_accumulate_occupancy.argtypes = [ctypes.c_int] * 3
     return lib
 
 
 def _backward_library() -> ctypes.CDLL:
-    lib = load_cuda_library("encoder_payload_bwd", "encoder_payload_bwd.cu")
+    lib = load_cuda_library("encoder_payload_bwd", "encoder_payload_bwd.cu",
+                            ["encoder_tiles.cuh"])
     lib.gaot_encoder_backward.restype = ctypes.c_int
     lib.gaot_encoder_backward.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6
         + [ctypes.c_void_p] * 4)
     lib.gaot_encoder_backward_smem.restype = ctypes.c_longlong
-    lib.gaot_encoder_backward_smem.argtypes = [ctypes.c_int] * 4
+    lib.gaot_encoder_backward_smem.argtypes = [ctypes.c_int] * 3
+    lib.gaot_encoder_backward_occupancy.restype = ctypes.c_int
+    lib.gaot_encoder_backward_occupancy.argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -153,20 +163,21 @@ def encoder_accumulate_backward_reference(
 
 
 def _pack_mlp(weights, biases) -> torch.Tensor:
+    """The kernels' parameter layout: per layer W [in][out] row-major, then b."""
     parts = []
     for w, b in zip(weights, biases):
         parts += [w.t().reshape(-1), b.reshape(-1)]
     return torch.cat(parts).to(torch.float32).contiguous()
 
 
-def _unpack_mlp(packed: torch.Tensor, weights, biases):
-    """Inverse of `_pack_mlp`: tensors shaped like `weights` and `biases`."""
+def _unpack_mlp(packed: torch.Tensor, shapes):
+    """Inverse of `_pack_mlp` for weights of torch shapes [(out, in), ...]:
+    views of `packed` (the weights transposed views, not copies)."""
     ws, bs, off = [], [], 0
-    for w, b in zip(weights, biases):
-        out, inp = w.shape
-        ws.append(packed[off:off + inp * out].reshape(inp, out).t().contiguous())
+    for out, inp in shapes:
+        ws.append(packed[off:off + inp * out].view(inp, out).t())
         off += inp * out
-        bs.append(packed[off:off + out].clone())
+        bs.append(packed[off:off + out])
         off += out
     return ws, bs
 
@@ -200,35 +211,76 @@ def _check(pos, feats, lat_idx, mask, weights, biases, grid, acc):
                          f"supported: {SUPPORTED_WIDTHS}")
 
 
+def launch_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Tensor,
+                      mask: torch.Tensor, params: torch.Tensor, n_mid: int, hid: int,
+                      grid: LatentGrid, acc: torch.Tensor) -> None:
+    """K5 alone: one launch on CUDA tensors that `_check` accepted, with the
+    MLP packed by `_pack_mlp` (n_mid hidden-to-hidden layers of width hid)."""
+    B, n, K = lat_idx.shape
+    C = feats.shape[-1]
+    _, d1, d2 = grid.dims
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().gaot_encoder_accumulate(
+            pos.data_ptr(), feats.data_ptr(), lat_idx.data_ptr(), mask.data_ptr(),
+            params.data_ptr(), params.numel(), n_mid, hid, C, B, n, K, grid.num_tokens, d1,
+            d2, *grid.lo, *grid.spacing, acc.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"encoder_payload launch failed: cudaError {err}")
+    encoder_accumulate.launches += 1
+
+
+def launch_backward(g: torch.Tensor, pos: torch.Tensor, feats: torch.Tensor,
+                    lat_idx: torch.Tensor, mask: torch.Tensor, params: torch.Tensor, n_mid: int,
+                    hid: int, grid: LatentGrid, dfeats: torch.Tensor,
+                    dparams: torch.Tensor) -> None:
+    """K5b alone: one launch that writes every row of dfeats and adds into
+    dparams (packed like params, zeroed by the caller)."""
+    B, n, K = lat_idx.shape
+    C = feats.shape[-1]
+    _, d1, d2 = grid.dims
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _backward_library().gaot_encoder_backward(
+            pos.data_ptr(), feats.data_ptr(), lat_idx.data_ptr(), mask.data_ptr(),
+            params.data_ptr(), params.numel(), n_mid, hid, C, B, n, K, grid.num_tokens, d1,
+            d2, *grid.lo, *grid.spacing, g.data_ptr(), dfeats.data_ptr(), dparams.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"encoder_payload_bwd launch failed: cudaError {err}")
+    encoder_accumulate_backward.launches += 1
+
+
+def _check_shared_memory(need: int, what: str, hid: int, C: int, n_mid: int) -> None:
+    if need == 0:
+        raise ValueError(f"{what} for kernel MLP widths (hidden {hid}, C {C}) with {n_mid} "
+                         "hidden-to-hidden layers is not built")
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"{what} needs {need} bytes of shared memory for this kernel MLP, "
+                         f"more than the {MAX_SHARED_BYTES} a block has")
+
+
 def encoder_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Tensor,
                        mask: torch.Tensor, weights: Sequence[torch.Tensor],
                        biases: Sequence[torch.Tensor], grid: LatentGrid,
-                       acc: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
+                       acc: torch.Tensor, chunk: Optional[int] = None, *,
+                       params: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Add the payload of every valid (node, slot) row into acc[b, cell]:
     pos [B,n,3], feats [B,n,C], lat_idx/mask [B,n,K], acc [B,M,C+11]
-    (updated in place and returned). `chunk` only bounds the twin's memory."""
+    (updated in place and returned). `chunk` only bounds the twin's memory;
+    `params`, the MLP already packed by `_pack_mlp`, saves packing it again."""
     if pos.device.type == "cpu":
         return encoder_accumulate_reference(pos, feats, lat_idx, mask, weights,
                                             biases, grid, acc, chunk)
     if pos.device.type != "cuda":
         raise ValueError(f"encoder_accumulate: no kernel for device {pos.device}")
     _check(pos, feats, lat_idx, mask, weights, biases, grid, acc)
-    params = _pack_mlp(weights, biases)
-    if params.numel() * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"kernel MLP weights take {params.numel() * 4} bytes, "
-                         f"more than the {MAX_SHARED_BYTES} of shared memory a block has")
-    B, n, K = lat_idx.shape
-    hid, C = weights[0].shape[0], feats.shape[-1]
-    _, d1, d2 = grid.dims
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().gaot_encoder_accumulate(
-            pos.data_ptr(), feats.data_ptr(), lat_idx.data_ptr(), mask.data_ptr(),
-            params.data_ptr(), params.numel(), len(weights) - 2, hid, C, B, n, K,
-            grid.num_tokens, d1, d2, *grid.lo, *grid.spacing, acc.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"encoder_payload launch failed: cudaError {err}")
-    encoder_accumulate.launches += 1
+    hid, C, n_mid = weights[0].shape[0], feats.shape[-1], len(weights) - 2
+    _check_shared_memory(_library().gaot_encoder_accumulate_smem(n_mid, hid, C),
+                         "the forward", hid, C, n_mid)
+    if params is None:
+        params = _pack_mlp(weights, biases)
+    launch_accumulate(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc)
     return acc
 
 
@@ -238,39 +290,28 @@ encoder_accumulate.launches = 0
 def encoder_accumulate_backward(
         g: torch.Tensor, pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Tensor,
         mask: torch.Tensor, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
-        grid: LatentGrid, chunk: Optional[int] = None
+        grid: LatentGrid, chunk: Optional[int] = None, *,
+        params: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
     """Gradients of `encoder_accumulate` given the accumulator's cotangent g
     [B, M, C+11]: (dfeats [B,n,C], dW per layer in torch layout, db per
-    layer). `chunk` only bounds the plain version's memory."""
+    layer; on CUDA, views of one packed gradient). `chunk` only bounds the
+    plain version's memory; `params` as for `encoder_accumulate`."""
     if pos.device.type == "cpu":
         return encoder_accumulate_backward_reference(g, pos, feats, lat_idx, mask, weights,
                                                      biases, grid, chunk)
     if pos.device.type != "cuda":
         raise ValueError(f"encoder_accumulate_backward: no kernel for device {pos.device}")
     _check(pos, feats, lat_idx, mask, weights, biases, grid, g)
-    params = _pack_mlp(weights, biases)
-    B, n, K = lat_idx.shape
-    hid, C = weights[0].shape[0], feats.shape[-1]
-    lib = _backward_library()
-    need = lib.gaot_encoder_backward_smem(params.numel(), len(weights) - 2, hid, C)
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(f"the backward needs {need} bytes of shared memory for this kernel "
-                         f"MLP, more than the {MAX_SHARED_BYTES} a block has")
-    dfeats = torch.zeros_like(feats)
+    hid, C, n_mid = weights[0].shape[0], feats.shape[-1], len(weights) - 2
+    _check_shared_memory(_backward_library().gaot_encoder_backward_smem(n_mid, hid, C),
+                         "the backward", hid, C, n_mid)
+    if params is None:
+        params = _pack_mlp(weights, biases)
+    dfeats = torch.empty_like(feats)  # the kernel writes every node
     dparams = torch.zeros_like(params)
-    _, d1, d2 = grid.dims
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gaot_encoder_backward(
-            pos.data_ptr(), feats.data_ptr(), lat_idx.data_ptr(), mask.data_ptr(),
-            params.data_ptr(), params.numel(), len(weights) - 2, hid, C, B, n, K,
-            grid.num_tokens, d1, d2, *grid.lo, *grid.spacing, g.data_ptr(),
-            dfeats.data_ptr(), dparams.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"encoder_payload_bwd launch failed: cudaError {err}")
-    encoder_accumulate_backward.launches += 1
-    dws, dbs = _unpack_mlp(dparams, weights, biases)
+    launch_backward(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, dparams)
+    dws, dbs = _unpack_mlp(dparams, [tuple(w.shape) for w in weights])
     return dfeats, dws, dbs
 
 
@@ -280,26 +321,29 @@ encoder_accumulate_backward.launches = 0
 class _EncoderAccumulate(torch.autograd.Function):
     """K5 forward, K5b backward. `acc` is updated in place and returned; its
     gradient is the identity, so one accumulator can be threaded through the
-    degree sections."""
+    degree sections. On CUDA the MLP is packed once, in the forward, and the
+    packed tensor is saved for the backward."""
 
     @staticmethod
     def forward(ctx, acc, pos, feats, lat_idx, mask, grid, chunk, *mlp):
         n_layers = len(mlp) // 2
-        weights, biases = mlp[:n_layers], mlp[n_layers:]
-        encoder_accumulate(pos, feats, lat_idx, mask, [w.detach() for w in weights],
-                           [b.detach() for b in biases], grid, acc, chunk)
+        weights = [w.detach() for w in mlp[:n_layers]]
+        biases = [b.detach() for b in mlp[n_layers:]]
+        params = _pack_mlp(weights, biases) if pos.device.type == "cuda" else None
+        encoder_accumulate(pos, feats, lat_idx, mask, weights, biases, grid, acc, chunk,
+                           params=params)
         ctx.mark_dirty(acc)
-        ctx.save_for_backward(pos, feats, lat_idx, mask, *mlp)
+        ctx.save_for_backward(pos, feats, lat_idx, mask, params, *mlp)
         ctx.static = (grid, chunk, n_layers)
         return acc
 
     @staticmethod
     def backward(ctx, g):
-        pos, feats, lat_idx, mask, *mlp = ctx.saved_tensors
+        pos, feats, lat_idx, mask, params, *mlp = ctx.saved_tensors
         grid, chunk, n_layers = ctx.static
         dfeats, dws, dbs = encoder_accumulate_backward(
             g.contiguous(), pos, feats, lat_idx, mask, [w.detach() for w in mlp[:n_layers]],
-            [b.detach() for b in mlp[n_layers:]], grid, chunk)
+            [b.detach() for b in mlp[n_layers:]], grid, chunk, params=params)
         return (g, None, dfeats, None, None, None, None, *dws, *dbs)
 
 

@@ -131,6 +131,70 @@ def test_encoder_autograd_threads_one_accumulator():
         assert ((a - 2 * b).abs().max() / b.abs().max()).item() <= 1e-4
 
 
+def _edge_problem(hid, C, K, B, n, n_mid, seed):
+    """Slots that reach every edge of K5's and K5b's node-major tiles: n not
+    a multiple of the nodes a tile holds, masked slots holding any index, and
+    valid slots off the grid (dropped), in every batch."""
+    rng = np.random.default_rng(seed)
+    grid = LatentGrid(dims=(8, 8, 4))
+    M = grid.num_tokens
+    pos = rng.uniform(-1, 1, (B, n, 3)).astype(np.float32)
+    feats = rng.normal(size=(B, n, C)).astype(np.float32)
+    lat = rng.integers(0, M, (B, n, K)).astype(np.int32)
+    msk = rng.random((B, n, K)) < 0.7
+    lat[~msk] = rng.integers(-2 ** 31, 2 ** 31 - 1, int((~msk).sum()))
+    off = rng.random((B, n, K)) < 0.02
+    lat[off & msk] = rng.choice([-1, M, M + 5, 2 ** 30], int((off & msk).sum()))
+    sizes = [6] + [hid] * (n_mid + 1) + [C]
+    ws = [torch.from_numpy((rng.normal(size=(sizes[i + 1], sizes[i])) / sizes[i] ** 0.5)
+                           .astype(np.float32)).cuda() for i in range(len(sizes) - 1)]
+    bs = [torch.from_numpy(rng.normal(size=sizes[i + 1]).astype(np.float32) * 0.1).cuda()
+          for i in range(len(sizes) - 1)]
+    args = [torch.from_numpy(x).cuda() for x in (pos, feats, lat, msk)]
+    g = torch.from_numpy(rng.normal(size=(B, M, C + 11)).astype(np.float32)).cuda()
+    return args, ws, bs, grid, g
+
+
+def _relative(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.parametrize("hid,C,K,B,n,n_mid", [
+    *[(64, 32, K, 1, 1001, 2) for K in (1, 2, 3, 4, 5, 7)],  # every section's K, and 7
+    (64, 16, 3, 1, 1001, 2), (32, 32, 5, 1, 777, 0), (32, 16, 4, 1, 777, 3),
+    (16, 16, 2, 1, 555, 1), (16, 8, 5, 1, 555, 3), (16, 16, 1, 1, 300, 0),
+    (64, 32, 3, 2, 1001, 2), (64, 32, 5, 2, 131, 2), (16, 8, 4, 2, 97, 1),  # B = 2
+    (64, 32, 130, 1, 37, 2), (16, 8, 300, 2, 11, 1),  # a node's slots span tiles
+])
+def test_encoder_kernels_at_tile_edges(hid, C, K, B, n, n_mid):
+    """K5 (relative 1e-5 of the accumulator) and K5b (relative 1e-4 of each
+    of dfeats, dW, db) against their plain versions at the edges of the
+    node-major tiles, every supported width and depths 0 to 3."""
+    args, ws, bs, grid, g = _edge_problem(hid, C, K, B, n, n_mid, seed=hid + C + K + n)
+    acc = torch.zeros((B, grid.num_tokens, C + 11), device="cuda")
+    k5.encoder_accumulate(*args, ws, bs, grid, acc)
+    ref = k5.encoder_accumulate_reference(*args, ws, bs, grid, torch.zeros_like(acc))
+    torch.cuda.synchronize()
+    assert torch.isfinite(acc).all() and _relative(acc, ref) <= 1e-5
+    got = k5.encoder_accumulate_backward(g, *args, ws, bs, grid)
+    want = k5.encoder_accumulate_backward_reference(g, *args, ws, bs, grid)
+    pairs = [(got[0], want[0])] + list(zip(got[1], want[1])) + list(zip(got[2], want[2]))
+    for a, b in pairs:
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert _relative(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("K", [3, 130])
+def test_encoder_backward_dfeats_repeat_bit_for_bit(K):
+    """dfeats is summed over a node's slots inside its tile and stored once,
+    without atomics: two launches give the same bits."""
+    args, ws, bs, grid, g = _edge_problem(64, 32, K, 2, 2001 if K < 128 else 40, 2, seed=K)
+    first = k5.encoder_accumulate_backward(g, *args, ws, bs, grid)[0]
+    second = k5.encoder_accumulate_backward(g, *args, ws, bs, grid)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("S,Skv", [(4096, 4096), (77, 130), (1000, 1001)])
 def test_dropout_bits_kernel_matches_plain_bit_for_bit(S, Skv):
     seed = 0x1234_5678_9ABC_DEF0 + S
