@@ -14,7 +14,10 @@ Phases, each of which raises (exit code 1) on failure:
      nvcc, all at the same time, and prints each library's registers and
      spills from `-Xptxas -v`; for K5 and K5b at the recipe's widths also
      the CTAs an SM holds and the TF32 tensor-core (HMMA...TF32) and FFMA
-     instructions `cuobjdump -sass` finds (none of the first fails);
+     instructions `cuobjdump -sass` finds (none of the first fails); for
+     every body of K2 and K3 its registers and spills, and for K3's its
+     wgmma (HGMMA) and mma.sync (HMMA) instructions (a bf16 body at head dim
+     16-64 without wgmma, or any mma.sync, fails);
   3. [k1] flash-attention forward vs its plain version at B1 H8 S16384 D32
      bf16 and at a ragged S=1000;
   4. [k5] encoder payload + scatter vs its plain version on the degree
@@ -36,10 +39,14 @@ Phases, each of which raises (exit code 1) on failure:
      the same bits, at the recipe shape and at ragged S=1000, Skv=130;
   9. [replay] the seeded forward and backward reproduce, from the bits the
      exporter writes for their seed, the same results (the path K4 serves);
- 10. [k3] the split backward (a dq kernel and a dk/dv kernel) at rates 0 and
-     0.1 at the recipe shape, and at six small shapes (f32, bf16, every head
-     dim, S and Skv no tile multiples): against the plain backward with the
-     same bits, against the fused kernel, and two launches bit for bit;
+ 10. [k3] the split backward (its dk/dv kernel, then its dq kernel on the
+     keep mask the first writes) at rates 0 and 0.1 at the recipe shape, and
+     at six small shapes (f32, bf16, every head dim, S and Skv no tile
+     multiples): against the plain backward with the same bits, against the
+     fused kernel (dk and dv bit for bit), two launches and the seed against
+     its exported bits bit for bit, the keep mask against the plain packing
+     of those bits; each kernel timed alone beside its own bound, the mask's
+     bytes and the pair's peak memory;
  11. [train] the recipe model takes 2 AdamW steps (mix schedule, dropout 0.1)
      on one 524,288-point cloud; launches per step must be exactly K1 10,
      K2 10, K5 5, K5b 5; then one forward-and-backward on a 32x32x16 grid
@@ -87,6 +94,7 @@ The last two lines are a JSON record of the kernels and
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -163,17 +171,17 @@ def bound(n_bytes, **ops_over_rate):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def attention_bound(B, H, S, Skv, D, products, n_tensors, dropout, itemsize=2, passes=1):
+def attention_bound(B, H, S, Skv, D, products, n_tensors, dropout, itemsize=2, extra_bytes=0):
     """Bound of an attention kernel: `products` tile products of 2*S*Skv*D
     flops a head, one exponential a score, one Philox call per four scores
-    under dropout, the last two `passes` times over (a pair of kernels that
-    each recompute the probabilities and the mask); `n_tensors` [B,H,S,D]
-    tensors moved."""
+    under dropout; `n_tensors` [B,H,S,D] tensors, lse, delta and
+    `extra_bytes` moved."""
     scores = B * H * S * Skv
-    ops = {"tensor": products * 2 * scores * D / BF16_FLOPS, "exp": passes * scores / SFU_OPS}
+    ops = {"tensor": products * 2 * scores * D / BF16_FLOPS, "exp": scores / SFU_OPS}
     if dropout:
-        ops["philox"] = passes * scores / 4 * PHILOX_OPS / INT32_OPS
-    return bound(n_tensors * B * H * max(S, Skv) * D * itemsize + 2 * B * H * S * 4, **ops)
+        ops["philox"] = scores / 4 * PHILOX_OPS / INT32_OPS
+    return bound(n_tensors * B * H * max(S, Skv) * D * itemsize + 2 * B * H * S * 4
+                 + extra_bytes, **ops)
 
 
 def cuda_ms(fn, reps=5):
@@ -255,6 +263,7 @@ def phase_build():
               f"spills: {spills or 'none'}"
               + (f"; ptxas serialized the wgmmas of {serialized} kernels" if serialized else ""))
     encoder_build_facts()
+    k3_build_facts()
 
 
 def phase_k1():
@@ -390,6 +399,52 @@ def encoder_build_facts():
               f"of 8 warps an SM; SASS of the library: {hmma} HMMA...TF32, {ffma} FFMA")
         if hmma == 0:
             raise RuntimeError(f"{name}: no TF32 tensor-core instruction in its SASS")
+
+
+def kernel_label(entry):
+    """A mangled kernel name of the attention libraries, shortened to its
+    name and template arguments."""
+    m = re.search(r"\d+((?:flash|bwd)\w*?_kernel)I(.+?)EEv", entry)
+    if m is None:
+        return entry
+    args = m.group(2).replace("13__nv_bfloat16", "bf16E")
+    if args.startswith("f"):
+        args = "f32E" + args[1:]
+    out = []
+    for arg in args.split("E"):
+        if arg.startswith("Li"):
+            out.append(arg[2:])
+        elif arg.startswith("Lb"):
+            out.append("true" if arg[2:] == "1" else "false")
+        elif arg:
+            out.append(arg)
+    return f"{m.group(1)}<{', '.join(out)}>"
+
+
+def k3_build_facts():
+    """Registers and spills of every body of K3 and of K2 (the dk/dv body is
+    K2's with DQ false), and each K3 body's wgmma (HGMMA) and mma.sync (HMMA)
+    instructions in the SASS. Raises when a bf16 body at head dim 16-64 has
+    no wgmma or the library keeps an mma.sync."""
+    from gaot3d_tpu_torch.kernels import build, flash_attention
+
+    flash_attention._backward_library()
+    flash_attention._split_library()
+    for name in ("flash_attn_bwd", "flash_attn_bwd_split"):
+        for entry, (regs, spill) in ptxas_entries(name).items():
+            print(f"[build] {name} {kernel_label(entry)}: {regs} registers, {spill}")
+    text = sass(os.path.join(build.BUILD_DIR, "libflash_attn_bwd_split.so"))
+    counts = {}
+    for part in text.split("Function : ")[1:]:
+        counts[kernel_label(part.split(None, 1)[0])] = (part.count("HGMMA"), part.count("HMMA"))
+    for label, (hgmma, hmma) in sorted(counts.items()):
+        print(f"[build] flash_attn_bwd_split SASS {label}: {hgmma} HGMMA (wgmma), {hmma} HMMA "
+              f"(mma.sync)")
+    missing = [label for label, (hgmma, _) in counts.items()
+               if "wgmma" in label and hgmma == 0]
+    if missing or any(hmma for _, hmma in counts.values()) or len(counts) != 22:
+        raise RuntimeError(f"K3's SASS: {len(counts)} kernels, wgmma missing in {missing}, "
+                           f"mma.sync in {[n for n, c in counts.items() if c[1]]}")
 
 
 def phase_k5():
@@ -841,8 +896,10 @@ def phase_attention_train():
 
 
 def phase_k3():
-    """[k3]: the split backward (a dq kernel and a dk/dv kernel) against the
-    plain backward, against the fused kernel and against itself."""
+    """[k3]: the split backward (its dk/dv kernel, then its dq kernel on the
+    keep mask the first hands over) against the plain backward, against the
+    fused kernel (dk and dv bit for bit) and against itself; the mask against
+    the plain packing of K4's bits."""
     import torch
     import torch.nn.functional as F
 
@@ -857,34 +914,62 @@ def phase_k3():
         return [torch.from_numpy(rng.standard_normal((B, H, s, D), dtype=np.float32))
                 .to("cuda", dtype) for s in (S, skv, skv, S)]
 
+    def check_mask(q, k, v, out, lse, dout, rate, bits, label):
+        """The dk/dv kernel's keep mask from the seed and from K4's bits for it
+        against the plain packing of those bits, one (batch, head) at a time."""
+        delta = (dout.float() * out.float()).sum(dim=-1)
+        _, _, mask = k1.flash_attention_backward_dkv(q, k, v, lse, dout, delta, rate, seed)
+        _, _, mask_b = k1.flash_attention_backward_dkv(q, k, v, lse, dout, delta, rate,
+                                                       dropout_bits=bits)
+        torch.cuda.synchronize()
+        wrong = 0
+        for bh in range(bits.shape[0]):
+            want = k1.pack_keep_mask_reference(bits[bh:bh + 1], rate).view(torch.int32)[0]
+            wrong += int((mask[bh].view(torch.int32) != want).sum())
+            wrong += int((mask_b[bh].view(torch.int32) != want).sum())
+        print(f"[k3] {label} keep mask {tuple(mask.shape)} ({mask.numel() * 4} bytes): "
+              f"{wrong} words differ from the plain packing of K4's bits (seed and bits)")
+        if wrong:
+            raise RuntimeError(f"K3 {label}: the keep mask differs from the plain packing")
+
     def check(q, k, v, dout, rate, label):
         B, H, S, _ = q.shape
         bits = k4.export_dropout_bits(seed, B * H, S, k.shape[2]) if rate > 0 else None
         out, lse = k1.flash_attention(q, k, v, rate, seed=seed)
         got = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate, seed=seed)
         again = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate, seed=seed)
+        from_bits = (k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate,
+                                                       dropout_bits=bits)
+                     if rate > 0 else got)
         fused = k1.flash_attention_backward(q, k, v, out, lse, dout, rate, seed=seed)
         want = k1.flash_attention_backward_reference(q, k, v, out, lse, dout, rate, bits)
         torch.cuda.synchronize()
         worst = 0.0
-        for name, a, a2, f, b in zip(("dq", "dk", "dv"), got, again, fused, want):
+        for name, a, a2, ab, f, b in zip(("dq", "dk", "dv"), got, again, from_bits, fused, want):
             if not torch.isfinite(a.float()).all():
                 raise RuntimeError(f"K3 {label}: non-finite {name}")
             top = b.float().abs().max().item()
             abs_err = (a.float() - b.float()).abs().max().item()
             vs_fused = (a.float() - f.float()).abs().max().item()
-            same = torch.equal(a, a2)
+            same, same_bits = torch.equal(a, a2), torch.equal(a, ab)
+            fused_bits = torch.equal(a, f)
             print(f"[k3] {label} {name}: max_abs_err {abs_err:.3e}, over the plain max-abs "
                   f"{abs_err / top:.3e} (limit {K2_BOUND:.0e}); against the fused kernel "
-                  f"{vs_fused / top:.3e} (limit {K3_FUSED_BOUND:.1e}); two launches identical: "
-                  f"{same}")
+                  f"{vs_fused / top:.3e} (limit {K3_FUSED_BOUND:.1e}), bit for bit: "
+                  f"{fused_bits}; two launches identical: {same}; seed and its bits "
+                  f"identical: {same_bits}")
             if abs_err > K2_BOUND * top:
                 raise RuntimeError(f"K3 {label}: {name} disagrees with the plain backward")
             if vs_fused > K3_FUSED_BOUND * top:
                 raise RuntimeError(f"K3 {label}: {name} disagrees with the fused kernel")
-            if not same:
-                raise RuntimeError(f"K3 {label}: {name} differs between two launches")
+            if name != "dq" and not fused_bits:
+                raise RuntimeError(f"K3 {label}: {name} differs from the fused kernel's bits")
+            if not (same and same_bits):
+                raise RuntimeError(f"K3 {label}: {name} differs between two launches, or "
+                                   "between the seed and its bits")
             worst = max(worst, abs_err)
+        if rate > 0:
+            check_mask(q, k, v, out, lse, dout, rate, bits, label)
         return out, lse, bits, worst
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -904,33 +989,57 @@ def phase_k3():
     for rate in (0.0, RATE):
         out, lse, bits, worst = check(q, k, v, dout, rate, f"bf16 rate {rate} S={S}")
         delta = (dout.float() * out.float()).sum(dim=-1)
-        args = (q, k, v, lse, dout, delta, rate, seed)
-        ms_dq = cuda_ms(lambda: k1.flash_attention_backward_dq(*args))
-        ms_dkv = cuda_ms(lambda: k1.flash_attention_backward_dkv(*args))
+        args = (q, k, v, lse, dout, delta, rate)
+        ms_dkv = cuda_ms(lambda: k1.flash_attention_backward_dkv(*args, seed))
+        _, _, mask = k1.flash_attention_backward_dkv(*args, seed)
+        ms_dq = cuda_ms(lambda: k1.flash_attention_backward_dq(*args, mask))
+        mask_bytes = 0 if mask is None else mask.numel() * 4
+        del mask
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate, seed=seed)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        # each kernel's own work: dk/dv four products, the exponentials, the
+        # Philox calls, q, k, v, dO read and dk, dv written, the mask written;
+        # dq three products, the exponentials, q, k, v, dO read, dq written,
+        # the mask read. They run one after the other: the pair's bound is
+        # the sum.
+        b_dkv = attention_bound(B, H, S, S, D, products=4, n_tensors=6, dropout=rate > 0,
+                                extra_bytes=mask_bytes)
+        b_dq = attention_bound(B, H, S, S, D, products=3, n_tensors=5, dropout=False,
+                               extra_bytes=mask_bytes)
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(ql, kl, vl, dropout_p=rate)
         rec = {"max_abs_err": worst,
                "ms": cuda_ms(lambda: k1.flash_attention_backward_split(
                    q, k, v, out, lse, dout, rate, seed=seed)),
-               "ms_dq": ms_dq, "ms_dkv": ms_dkv,
+               "ms_dkv": ms_dkv, "ms_dq": ms_dq,
                "fused_ms": cuda_ms(lambda: k1.flash_attention_backward(
                    q, k, v, out, lse, dout, rate, seed=seed)),
                "plain_ms": cuda_ms(lambda: k1.flash_attention_backward_reference(
                    q, k, v, out, lse, dout, rate, bits), reps=3),
-               **attention_bound(B, H, S, S, D, products=7, n_tensors=11, dropout=rate > 0,
-                                 passes=2),
+               "bound_ms": b_dkv["bound_ms"] + b_dq["bound_ms"],
+               "bound_by": "bytes" if b_dkv["bound_by"] == b_dq["bound_by"] == "bytes"
+               else "operations",
+               "bound_ms_dkv": b_dkv["bound_ms"], "bound_ms_dq": b_dq["bound_ms"],
                "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dout,
-                                                                 retain_graph=True))}
-        print(f"[k3] B1 H8 S16384 D32 bf16 rate {rate}: dq kernel {ms_dq:.3f} ms, dk/dv kernel "
-              f"{ms_dkv:.3f} ms, both with delta {rec['ms']:.3f} ms; fused kernel "
-              f"{rec['fused_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound "
-              f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), library backward "
-              f"{rec['library_ms']:.3f} ms (median of 5)")
+                                                                 retain_graph=True)),
+               "mask_bytes": mask_bytes, "peak_bytes": peak}
+        print(f"[k3] B1 H8 S16384 D32 bf16 rate {rate}: dk/dv kernel {ms_dkv:.3f} ms (bound "
+              f"{b_dkv['bound_ms']:.3f}, {b_dkv['bound_by']}), then dq kernel {ms_dq:.3f} ms "
+              f"(bound {b_dq['bound_ms']:.3f}, {b_dq['bound_by']}), both with delta "
+              f"{rec['ms']:.3f} ms (bound {rec['bound_ms']:.3f}); fused kernel "
+              f"{rec['fused_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, library backward "
+              f"{rec['library_ms']:.3f} ms (median of 5); keep mask {mask_bytes} bytes, the "
+              f"pair's peak {peak / 2 ** 20:.1f} MiB above its inputs")
         recs[rate] = rec
         del lib_out, ql, kl, vl, bits
     # the recorded entry is the train path's: rate 0.1; rate 0 rides along
     return {**recs[RATE], "rate0": {n: recs[0.0][n] for n in
-                                    ("ms", "ms_dq", "ms_dkv", "fused_ms", "bound_ms")}}
+                                    ("ms", "ms_dkv", "ms_dq", "fused_ms", "bound_ms",
+                                     "bound_ms_dkv", "bound_ms_dq", "peak_bytes")}}
 
 
 def grad_vector(model):
@@ -1755,6 +1864,7 @@ def main():
                 encoder_build_facts()
                 phase_k5()
             elif name == "k3":
+                k3_build_facts()
                 phase_k3()
             elif name == "trainer":
                 _, fused_ms = phase_trainer(card)
@@ -1793,9 +1903,11 @@ def main():
          "source": "gaot3d_tpu_torch/csrc/flash_attn_bwd.cu", "replaces": f"{pallas}:502",
          "launches": train["k2"] + fit["k2"], **k2},
         # the two kernels of the pair launch together: `launches` is the dq kernel's count,
-        # held equal to the dk/dv kernel's by [trainer-split]
+        # held equal to the dk/dv kernel's by [trainer-split]; the dk/dv kernel's body is
+        # K2's, in flash_bwd_wgmma.cuh
         {"name": "flash_attn_bwd_split", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_bwd_split.cu", "replaces": f"{pallas}:544",
+         "replaces_dkv": f"{pallas}:564",
          "launches": split["k3_dq"], "launches_dkv": split["k3_dkv"], **k3},
         {"name": "dropout_bits", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/dropout_bits.cu", "replaces": f"{pallas}:709",

@@ -24,28 +24,13 @@
 // dk and dv are deterministic.
 //
 // Two bodies share that structure:
-//   - bf16 with head dim 16/32/64 (the main path), warp-specialized for
-//     Hopper. A CTA is three warpgroups and owns 128 keys. The producer
-//     warpgroup (registers given to the consumers by setmaxnreg) streams 64-row q and dO tiles by TMA into a ring of 3 stages
-//     (full, ready and empty mbarriers per stage), prescales each q tile in
-//     place (every element the same way, so the swizzle does not matter) and
-//     stages the tile's lse * log2(e) and delta. Each consumer warpgroup owns
-//     64 keys, held in registers as the wgmma A operands k and v (rows
-//     permuted so that fragment rows (g, g + 8) are the keys (2g, 2g + 1),
-//     see below), with dk and dv in wgmma accumulators for the whole loop.
-//     Per q tile: S^T = k q_s^T and dP^T = v dO^T (wgmma m64n64k16, B the
-//     tile K-major), P, the mask and dS^T in registers, then dv += pm^T dO
-//     and dk += ds^T q_s with A from registers and B the same tiles read
-//     MN-major through the descriptor: no transposed copy of anything. dS
-//     goes to shared memory once as bf16 (128-byte swizzle), and the tile's
-//     dq partial over the warpgroup's 64 keys is one more wgmma, dS times the
-//     CTA's K tile (loaded once by TMA, read MN-major). The f32 partial is
-//     staged in shared memory and added into dq by one bulk reduce-add
+//   - bf16 with head dim 16/32/64 (the main path): the warp-specialized TMA /
+//     wgmma body of flash_bwd_wgmma.cuh with DQ = true (its header has the
+//     design). The dq partial of each tile is one more wgmma, staged in
+//     shared memory and added into dq by one bulk reduce-add
 //     (cp.reduce.async.bulk .add.f32) per tile, in place of element atomics.
-//     The dropout stream's 2x2 blocks are (q row, key): a thread's four
-//     scores per 8-row q block are one block, one Philox call (philox.cuh),
-//     as in the forward; the next tile's calls run while this tile's last
-//     products are in flight.
+//     The same body with DQ = false is the dk/dv kernel of the split backward
+//     (K3, flash_attn_bwd_split.cu), so the two give the same dk and dv.
 //   - f32, and bf16 at head dim 8: scalar f32 FMAs, one thread per key for
 //     s, dpv, dk, dv and one thread per q row for dq.
 //
@@ -63,29 +48,16 @@
 
 #include <type_traits>
 
+#include "flash_bwd_wgmma.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
 
 using gaot::DropoutParams;
+using namespace gaot::fbwd;
 
 constexpr int TILE = 64;  // keys per CTA, and q rows per step of its loop
-constexpr float LOG2E = 1.4426950408889634f;
-
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;
-  const float* delta;
-  float* dq;  // [bh, sq, d] f32, zeroed by the caller, accumulated into
-  void* dk;
-  void* dv;
-  int sq, skv;
-  float scale;
-};
 
 template <typename T>
 struct Cvt;
@@ -236,335 +208,12 @@ constexpr size_t scalar_smem_bytes() {
          (2 * TILE * (D + 1) + 2 * TILE * D + TILE * (TILE + 1) + 2 * TILE);
 }
 
-// ---------------------------------------------------------------------------
-// bf16 warp-specialized body, see the header.
-// ---------------------------------------------------------------------------
-constexpr int WG = 128;        // threads of a warpgroup
-constexpr int B_KEYS = 128;    // keys per CTA, 64 per consumer warpgroup
-constexpr int B_Q = 64;        // q rows per tile
-constexpr int B_STAGES = 3;    // q/dO tile pairs in flight
-constexpr int B_THREADS = 3 * WG;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, int row, int col,
-                                              int rows, int d) {
-  if (row >= rows) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + (size_t)row * d + col);
-}
-
-// Shared memory, in bytes from a 1024-byte aligned base.
-template <int D>
-struct WgSmem {
-  static constexpr int RB = 2 * D;                  // bytes of a bf16 row
-  static constexpr int QT = B_Q * RB;               // one q or dO tile
-  static constexpr int k_tile = 0;                  // [128 keys][D] bf16, the CTA's K
-  static constexpr int stages = B_KEYS * RB;        // per stage: q tile, then dO tile
-  static constexpr int ds = stages + B_STAGES * 2 * QT;  // [2 consumers][2][64 q][64 keys] bf16
-  static constexpr int DS_BUF = B_Q * 64 * 2;
-  static constexpr int dq = ds + 4 * DS_BUF;        // [2 consumers][64 q][D] f32
-  static constexpr int stats = dq + 2 * B_Q * D * 4;  // [stage][lse * log2e, delta][64] f32
-  static constexpr size_t bytes = stats + B_STAGES * 2 * B_Q * 4 + 1024;
-};
-
-template <int D, bool DROP>
-__global__ void __launch_bounds__(B_THREADS, 1)
-    flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
-                           const __grid_constant__ CUtensorMap tmap_do,
-                           const __grid_constant__ CUtensorMap tmap_k, BwdArgs a,
-                           DropoutParams dp) {
-  using namespace gaot;
-  using L = WgSmem<D>;
-  using bf = __nv_bfloat16;
-  constexpr int RB = L::RB;
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[B_STAGES], ready[B_STAGES], empty[B_STAGES], kbar;
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  unsigned char* sm = smem_raw + (base - smem_u32(smem_raw));  // the same bytes, generic
-  const int bh = blockIdx.y;
-  const int n_q = (a.sq + B_Q - 1) / B_Q;
-  // the warpgroup's index, read from lane 0 so the compiler knows it is the
-  // same across the warp: the branches below are not divergent
-  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / WG, 0);
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < B_STAGES; ++s) {
-      mbar_init(smem_u32(&full[s]), 1);
-      mbar_init(smem_u32(&ready[s]), 4);  // the producer's 4 warps
-      mbar_init(smem_u32(&empty[s]), 8);  // the 4 warps of each consumer
-    }
-    mbar_init(smem_u32(&kbar), 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (wg == 0) {  // producer
-    regs_dec<40>();
-    const int pt = threadIdx.x;
-    if (pt == 0) {
-      mbar_expect_tx(smem_u32(&kbar), B_KEYS * RB);
-      tma_load_3d(base + L::k_tile, &tmap_k, smem_u32(&kbar), 0, blockIdx.x * B_KEYS, bh);
-    }
-    // step i issues the loads of tile i, then finishes tile i - 1 (its lse,
-    // delta and prescaled q), so the next loads are in flight meanwhile
-    for (int i = 0; i <= n_q; ++i) {
-      if (i < n_q) {
-        const int s = i % B_STAGES;
-        mbar_wait(smem_u32(&empty[s]), ((i / B_STAGES) & 1) ^ 1);
-        if (pt == 0) {
-          const uint32_t bar = smem_u32(&full[s]);
-          const uint32_t dst = base + L::stages + s * 2 * L::QT;
-          mbar_expect_tx(bar, 2 * L::QT);
-          tma_load_3d(dst, &tmap_q, bar, 0, i * B_Q, bh);
-          tma_load_3d(dst + L::QT, &tmap_do, bar, 0, i * B_Q, bh);
-        }
-      }
-      if (i > 0) {
-        const int j = i - 1, s = j % B_STAGES;
-        float* st = reinterpret_cast<float*>(sm + L::stats) + s * 2 * B_Q;
-        const int row = j * B_Q + (pt & (B_Q - 1));
-        const bool in = row < a.sq;
-        if (pt < B_Q)
-          st[pt] = in ? a.lse[(size_t)bh * a.sq + row] * LOG2E : INFINITY;
-        else
-          st[pt] = in ? a.delta[(size_t)bh * a.sq + row] : 0.f;
-        mbar_wait(smem_u32(&full[s]), (j / B_STAGES) & 1);
-        uint4* qt = reinterpret_cast<uint4*>(sm + L::stages + s * 2 * L::QT);
-        for (int ch = pt; ch < L::QT / 16; ch += WG) {  // prescale in f32, round back
-          uint4 x = qt[ch];
-          uint32_t* w = reinterpret_cast<uint32_t*>(&x);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
-            w[e] = pack_bf16(__fmul_rn(f.x, a.scale), __fmul_rn(f.y, a.scale));
-          }
-          qt[ch] = x;
-        }
-        fence_proxy_async();
-        __syncwarp();
-        if ((pt & 31) == 0) mbar_arrive(smem_u32(&ready[s]));
-      }
-    }
-  } else {  // consumers
-    regs_inc<232>();
-    const int c = wg - 1;  // consumer 0 or 1
-    const int ct = threadIdx.x - wg * WG;
-    const int warp = ct >> 5;
-    const int lane = ct & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    const int kl = warp * 16 + 2 * g;  // this thread's keys within the consumer's 64: kl, kl + 1
-    const int k0 = blockIdx.x * B_KEYS + c * 64 + kl, k1 = k0 + 1;
-    const bf* kb = static_cast<const bf*>(a.k) + (size_t)bh * a.skv * D;
-    const bf* vb = static_cast<const bf*>(a.v) + (size_t)bh * a.skv * D;
-
-    // k and v rows of this warp as A operands (keys x d), held for the whole loop
-    uint32_t ka[D / 16][4], va[D / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int col = kk * 16 + 2 * t;
-      ka[kk][0] = load_pair(kb, k0, col, a.skv, D);
-      ka[kk][1] = load_pair(kb, k1, col, a.skv, D);
-      ka[kk][2] = load_pair(kb, k0, col + 8, a.skv, D);
-      ka[kk][3] = load_pair(kb, k1, col + 8, a.skv, D);
-      va[kk][0] = load_pair(vb, k0, col, a.skv, D);
-      va[kk][1] = load_pair(vb, k1, col, a.skv, D);
-      va[kk][2] = load_pair(vb, k0, col + 8, a.skv, D);
-      va[kk][3] = load_pair(vb, k1, col + 8, a.skv, D);
-    }
-    float dk[D / 2], dv[D / 2];  // [nd * 4 + e]: keys (k0, k1) x columns nd * 8 + 2t + (0, 1)
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
-    float st[B_Q / 2], dpt[B_Q / 2];  // S^T, dP^T: keys (k0, k1) x q columns nb * 8 + 2t + (0, 1)
-    float dq[D / 2];  // q rows warp * 16 + (g, g + 8) x columns nd * 8 + 2t + (0, 1)
-    uint32_t pma[B_Q / 16][4], dsa[B_Q / 16][4];
-    const uint32_t kc = base + L::k_tile + c * 64 * RB;  // this consumer's 64 keys of the K tile
-    const uint32_t dq_s = base + L::dq + c * B_Q * D * 4;
-    float* dq_g = reinterpret_cast<float*>(sm + L::dq) + c * B_Q * D;
-    // The dropout mask depends on positions only: the keep bits of tile i + 1
-    // (integer pipe) are drawn while tile i's last products are in flight.
-    uint32_t keep[1] = {0u};  // 4 bits per 8-row q block
-    auto keep_bits = [&](int i) {
-      if constexpr (DROP) {
-        uint32_t b = 0u;
-#pragma unroll
-        for (int nb = 0; nb < B_Q / 8; ++nb)
-          b |= gaot::dropout_block_keep(dp, bh, i * B_Q + nb * 8 + 2 * t, k0, a.sq, a.skv)
-               << (4 * nb);
-        keep[0] = b;
-        fence_regs(keep);  // here, before the wait for the products
-      }
-    };
-    keep_bits(0);
-    mbar_wait(smem_u32(&kbar), 0);
-
-    for (int i = 0; i < n_q; ++i) {
-      const int s = i % B_STAGES;
-      const int q0 = i * B_Q;
-      const uint32_t qs = base + L::stages + s * 2 * L::QT, dos = qs + L::QT;
-      const float* lse_s = reinterpret_cast<const float*>(sm + L::stats) + s * 2 * B_Q;
-      const float* dl_s = lse_s + B_Q;
-      mbar_wait(smem_u32(&ready[s]), (i / B_STAGES) & 1);
-
-      // S^T and dP^T: rows = this warpgroup's keys, columns = the tile's q rows
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_rs<0>(st, ka[kk], wgmma_desc(qs + kk * 32, RB, false), kk > 0);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_rs<0>(dpt, va[kk], wgmma_desc(dos + kk * 32, RB, false), kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
-
-      // pm^T and ds^T as A operands (keys x q) of the dv and dk products, and
-      // ds (q x keys, 128-byte swizzle) into shared memory for dq
-      unsigned char* dsb = sm + L::ds + (c * 2 + (i & 1)) * L::DS_BUF;
-#pragma unroll
-      for (int nb = 0; nb < B_Q / 8; ++nb) {
-        const int ql = nb * 8 + 2 * t;  // q columns ql, ql + 1 of the tile
-        const float l0 = lse_s[ql], l1 = lse_s[ql + 1];
-        const float d0 = dl_s[ql], d1 = dl_s[ql + 1];
-        const float* sv = st + nb * 4;
-        const float* dv_ = dpt + nb * 4;
-        // elements: [0] (k0, ql), [1] (k0, ql + 1), [2] (k1, ql), [3] (k1, ql + 1)
-        float p0 = ex2_ftz(fmaf(sv[0], LOG2E, -l0));
-        float p1 = ex2_ftz(fmaf(sv[1], LOG2E, -l1));
-        float p2 = ex2_ftz(fmaf(sv[2], LOG2E, -l0));
-        float p3 = ex2_ftz(fmaf(sv[3], LOG2E, -l1));
-        if (k0 >= a.skv) p0 = p1 = 0.f;  // padded keys
-        if (k1 >= a.skv) p2 = p3 = 0.f;
-        float m0 = 1.f, m1 = 1.f, m2 = 1.f, m3 = 1.f;
-        if constexpr (DROP) {
-          // the stream's block is (q row, key): words (even q, even key),
-          // (even q, odd key), (odd q, even key), (odd q, odd key)
-          const uint32_t b = keep[0] >> (4 * nb);
-          m0 = (b & 1u) ? dp.inv_keep : 0.f;
-          m2 = (b & 2u) ? dp.inv_keep : 0.f;
-          m1 = (b & 4u) ? dp.inv_keep : 0.f;
-          m3 = (b & 8u) ? dp.inv_keep : 0.f;
-        }
-        const float s0 = p0 * (dv_[0] * m0 - d0);
-        const float s1 = p1 * (dv_[1] * m1 - d1);
-        const float s2 = p2 * (dv_[2] * m2 - d0);
-        const float s3 = p3 * (dv_[3] * m3 - d1);
-        pma[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(p0 * m0, p1 * m1);
-        pma[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2 * m2, p3 * m3);
-        dsa[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(s0, s1);
-        dsa[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(s2, s3);
-        // (ql, kl..kl+1) and (ql + 1, kl..kl+1): 16-byte chunk kl / 8 of the
-        // row, swizzled by the row's index mod 8
-        const int col = (kl & 7) << 1;
-        *reinterpret_cast<uint32_t*>(dsb + ql * 128 + (((kl >> 3) ^ (ql & 7)) << 4) + col) =
-            pack_bf16(s0, s2);
-        *reinterpret_cast<uint32_t*>(dsb + (ql + 1) * 128 +
-                                     (((kl >> 3) ^ ((ql + 1) & 7)) << 4) + col) =
-            pack_bf16(s1, s3);
-      }
-
-      // dv += pm^T dO, dk += ds^T q_s (contraction over the tile's q rows)
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < B_Q / 16; ++j) {
-        wgmma_rs<1>(dv, pma[j], wgmma_desc(dos + j * 16 * RB, RB, true), 1);
-        wgmma_rs<1>(dk, dsa[j], wgmma_desc(qs + j * 16 * RB, RB, true), 1);
-      }
-      wgmma_commit();
-      // ds of every warp written, and the last tile's reduce-add done reading
-      // the dq staging buffer
-      if (ct == 0) bulk_wait_read();
-      fence_proxy_async();
-      named_sync(1 + c, WG);
-
-      // dq tile = ds k over this warpgroup's 64 keys
-      const uint32_t dsu = base + L::ds + (c * 2 + (i & 1)) * L::DS_BUF;
-#pragma unroll
-      for (int kk = 0; kk < 64 / 16; ++kk)
-        wgmma_ss<1>(dq, wgmma_desc(dsu + kk * 32, 128, false),
-                    wgmma_desc(kc + kk * 16 * RB, RB, true), kk > 0);
-      wgmma_commit();
-      if (i + 1 < n_q) keep_bits(i + 1);
-      wgmma_wait<0>();
-      fence_regs(dq);
-      fence_regs(dk);
-      fence_regs(dv);
-      fence_regs(pma);
-      fence_regs(dsa);
-      if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
-
-      const int qr0 = warp * 16 + g;
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const int col = nd * 8 + 2 * t;
-        *reinterpret_cast<float2*>(dq_g + qr0 * D + col) =
-            make_float2(dq[nd * 4 + 0] * a.scale, dq[nd * 4 + 1] * a.scale);
-        *reinterpret_cast<float2*>(dq_g + (qr0 + 8) * D + col) =
-            make_float2(dq[nd * 4 + 2] * a.scale, dq[nd * 4 + 3] * a.scale);
-      }
-      fence_proxy_async();
-      named_sync(1 + c, WG);
-      if (ct == 0) {
-        const int rows = min(B_Q, a.sq - q0);  // rows past sq are not added
-        bulk_reduce_add_f32(a.dq + ((size_t)bh * a.sq + q0) * D, dq_s, rows * D * 4);
-        bulk_commit();
-      }
-    }
-    if (ct == 0) bulk_wait();
-
-    bf* dkb = static_cast<bf*>(a.dk) + (size_t)bh * a.skv * D;
-    bf* dvb = static_cast<bf*>(a.dv) + (size_t)bh * a.skv * D;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const int col = nd * 8 + 2 * t;
-      if (k0 < a.skv) {
-        *reinterpret_cast<uint32_t*>(dkb + (size_t)k0 * D + col) =
-            pack_bf16(dk[nd * 4], dk[nd * 4 + 1]);
-        *reinterpret_cast<uint32_t*>(dvb + (size_t)k0 * D + col) =
-            pack_bf16(dv[nd * 4], dv[nd * 4 + 1]);
-      }
-      if (k1 < a.skv) {
-        *reinterpret_cast<uint32_t*>(dkb + (size_t)k1 * D + col) =
-            pack_bf16(dk[nd * 4 + 2], dk[nd * 4 + 3]);
-        *reinterpret_cast<uint32_t*>(dvb + (size_t)k1 * D + col) =
-            pack_bf16(dv[nd * 4 + 2], dv[nd * 4 + 3]);
-      }
-    }
-  }
-}
-
-template <typename K>
-cudaError_t allow_smem(K kern, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <int D, bool DROP>
-int launch_wgmma(const BwdArgs& a, int bh, const DropoutParams& dp, cudaStream_t stream) {
-  CUtensorMap tq, tdo, tk;
-  if (!gaot::bf16_rows_map(&tq, a.q, bh, a.sq, D, B_Q) ||
-      !gaot::bf16_rows_map(&tdo, a.dout, bh, a.sq, D, B_Q) ||
-      !gaot::bf16_rows_map(&tk, a.k, bh, a.skv, D, B_KEYS))
-    return (int)cudaErrorInvalidValue;
-  constexpr size_t bytes = WgSmem<D>::bytes;
-  auto kern = flash_bwd_wgmma_kernel<D, DROP>;
-  const cudaError_t e = allow_smem(kern, bytes);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<dim3((a.skv + B_KEYS - 1) / B_KEYS, bh), B_THREADS, bytes, stream>>>(tq, tdo, tk, a,
-                                                                             dp);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int D>
 int launch(const BwdArgs& a, int bh, bool drop, const DropoutParams& dp,
            cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16> && D % 16 == 0) {
-    if (drop) return launch_wgmma<D, true>(a, bh, dp, stream);
-    return launch_wgmma<D, false>(a, bh, dp, stream);
+    if (drop) return launch_wgmma<D, true, true>(a, bh, dp, nullptr, stream);
+    return launch_wgmma<D, false, true>(a, bh, dp, nullptr, stream);
   } else {
     const dim3 grid((a.skv + TILE - 1) / TILE, bh);
     constexpr size_t bytes = scalar_smem_bytes<D>();

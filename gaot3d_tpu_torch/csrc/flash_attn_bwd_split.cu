@@ -1,46 +1,71 @@
-// Split flash-attention backward for Hopper (sm_90a): a dq kernel and a dk/dv
-// kernel, no shared accumulator, the same bits on every launch.
+// Split flash-attention backward for Hopper (sm_90a): a dk/dv kernel, then a
+// dq kernel, no shared accumulator, the same bits on every launch.
 //
 // Replaces gaot3d_tpu/ops/pallas_attention.py `_flash_bwd_impl`, split calls
-// (kernels `_make_bwd_dq_kernel` and `_make_bwd_dkv_kernel`). Given q, k, v,
-// dO, the forward's lse and delta = rowsum(dO * O) (f32, a plain reduction
-// outside, as in the JAX code), per (q tile, key tile) both kernels recompute
+// :564 (kernel `_make_bwd_dkv_kernel`) and :544 (`_make_bwd_dq_kernel`).
+// Given q, k, v, dO, the forward's lse and delta = rowsum(dO * O) (f32, a
+// plain reduction outside, as in the JAX code), per (q tile, key tile) both
+// kernels recompute
 //     s   = q_scaled k^T          (q prescaled by 1/sqrt(D) in f32, rounded back)
 //     p   = exp(s - lse)          (0 on padded keys and padded q rows)
 //     dpv = dO v^T
-//     km  = keep ? 1/(1-rate) : 0 (the forward's mask, regenerated; 1 at rate 0)
-//     pm  = p km,   ds = p (dpv km - delta)
+//     km  = keep ? 1/(1-rate) : 0 (1 at rate 0)
+//     ds  = p (dpv km - delta)
 // and then
-//     dq kernel:    dq  = scale * sum over keys of ds k   (ds rounded to the input type)
-//     dk/dv kernel: dv  = sum over q rows of pm^T dO      (pm rounded to dO's type)
-//                   dk  = sum over q rows of ds^T q_scaled
+//     dk/dv kernel: dv = sum over q rows of (p km)^T dO    (p km rounded to dO's type)
+//                   dk = sum over q rows of ds^T q_scaled  (ds rounded to the input type)
+//     dq kernel:    dq = scale * sum over keys of ds k     (f32 accumulator, rounded once)
 //
 // On the TPU this pair is the fallback for heads whose dq does not fit VMEM.
 // Here it is the backward whose results repeat: the fused kernel
-// (flash_attn_bwd.cu) adds dq tiles with float atomics in a run-dependent
-// order, these two add nothing across CTAs. The dq kernel's CTA owns 64 q
-// rows of one (batch, head), walks every key tile and keeps dq in registers,
-// rounding it once on the way out; the dk/dv kernel's CTA owns 64 keys, walks
-// every q tile and keeps dk and dv in registers. Every sum runs in program
-// order. The price is that s, p, dpv and the mask are computed twice.
+// (flash_attn_bwd.cu) adds dq tiles with a bulk reduce-add in a run-dependent
+// order, these two add nothing across CTAs. The dk/dv kernel's CTA owns 128
+// keys, walks every q tile and keeps dk and dv in registers; the dq kernel's
+// CTA owns 128 q rows, walks every key tile and keeps dq in registers. Every
+// sum runs in program order, within one CTA.
 //
-// Each kernel has two bodies, as the fused one:
-//   - bf16 with head dim 16/32/64 (the main path), on mma.sync.m16n8k16. The
-//     dq kernel takes s and dpv with q rows as the M dimension, so the ds
-//     accumulator fragment is directly the A operand of ds k (registers only;
-//     K sits in shared memory row-major for s and transposed for dq, V
-//     row-major). The dk/dv kernel takes them transposed, keys as M, so pm^T
-//     and ds^T are directly the A operands of its two products. In both,
-//     fragment rows (g, g + 8) hold rows (2g, 2g + 1) of the warp's 16, so a
-//     thread's four scores per 8-column block are one 2x2 block of the
-//     dropout stream: one Philox call (philox.cuh), as in the forward.
-//   - f32, and bf16 at head dim 8: scalar f32 FMAs, one thread per q row (dq)
-//     or per key (dk/dv).
+// The mask, drawn once. The dk/dv kernel runs first. Under dropout it draws
+// the keep bits (Philox, philox.cuh, or the explicit bits) and writes them,
+// one bit a score, into the keep mask whose layout flash_bwd_wgmma.cuh
+// defines: [bh][key tile of 64][q tile of 64][128 words], B*H*S*Skv/8 bytes
+// (268 MB a layer at B1 H8 S16384; the wrapper allocates it and frees it with
+// the layer's backward). The dq kernel reads it and holds no Philox code.
+// Rows past sq and keys past skv read 0, so the mask drawn from a seed equals
+// the mask drawn from that seed's exported bits.
 //
-// What bounds them on an H100: at B1 H8 S16384 D32 each kernel recomputes
-// 2.1e9 exponentials and, with dropout, 5.4e8 Philox calls; the dq kernel does
-// three tile products and the dk/dv kernel four (seven against the fused
-// kernel's five). Double-buffered loads and wgmma are later work.
+// Two bodies each:
+//   - bf16 with head dim 16/32/64 (the main path), warp-specialized on
+//     hopper.cuh. dk/dv: K2's body (flash_bwd_wgmma.cuh) with DQ = false,
+//     so dk and dv equal K2's bit for bit. dq: one TMA producer warpgroup
+//     keeps a ring of 4 stages of 64-key K and V tiles (and the two 512-byte
+//     mask tiles of the CTA's q tiles, by one bulk copy) full; each of two
+//     consumer warpgroups owns 64 q rows, with q_s and dO in registers as
+//     wgmma A operands (rows permuted as in K1: fragment rows (g, g + 8) are
+//     q rows (2g, 2g + 1)). S = q_s K^T and dP = dO V^T are wgmma m64n64k16
+//     with B the tiles K-major; p and ds in registers, ds rounded into the A
+//     registers of dq += ds K, whose B is the same K tile read MN-major. S and
+//     dP of tile j + 1 are issued with dq of tile j, and the two consumers
+//     take turns at the tensor cores on two named barriers, as in K1. 64-key
+//     tiles keep S, dP and dq (32 + 32 + D/2 floats a thread) within the 168
+//     registers ptxas allots.
+//     A thread's scores of a tile are 8 blocks of the same q pair; the mask
+//     word of the dk/dv thread holds 8 blocks of the same key pair, so the dq
+//     thread takes its nibbles from 8 words of the stage's mask tile in
+//     shared memory (8 conflict-free loads a tile, each a broadcast to 2
+//     lanes). No one layout gives both threads one word: their sets of blocks
+//     share at most one.
+//   - f32, and bf16 at head dim 8: scalar f32 FMAs, one thread per key (dk/dv)
+//     or per q row (dq), writing and reading the same mask.
+//
+// What bounds them on an H100, at B1 H8 S16384 D32 (2.1e9 scores):
+//   - dk/dv: four tile products (0.56 ms of tensor cores), one exponential a
+//     score (0.51 ms) and, with dropout, one Philox call per four scores
+//     (1.28 ms, the largest term); 42 MB of q, k, v, dO, dk, dv and 268 MB of
+//     mask written (0.09 ms).
+//   - dq: three products (0.42 ms), one exponential a score (0.51 ms, the
+//     bound), no Philox; 268 MB of mask read.
+// The pair is bound by 1.80 ms with dropout and 1.07 ms without, against
+// 2.56 and 1.03 when each kernel drew the mask itself.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,15 +73,22 @@
 
 #include <type_traits>
 
+#include "flash_bwd_wgmma.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
 
 using gaot::DropoutParams;
+using gaot::fbwd::B_THREADS;
+using gaot::fbwd::LOG2E;
+using gaot::fbwd::MASK_WORDS;
+using gaot::fbwd::WG;
+using gaot::fbwd::allow_smem;
+using gaot::fbwd::pack_bf16;
 using bf = __nv_bfloat16;
 
-constexpr int TILE = 64;  // rows a CTA owns, and rows per step of its loop
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr int TILE = 64;  // rows a scalar CTA owns, rows per step of its loop, a mask tile's side
 
 struct SplitArgs {
   const void* q;
@@ -91,27 +123,32 @@ struct Cvt<bf> {
   }
 };
 
+__host__ __device__ __forceinline__ int mask_tiles(int n) { return (n + TILE - 1) / TILE; }
+
 // ---------------------------------------------------------------------------
 // Scalar dq body: 64 threads, thread = q row. K and V tiles pass through
-// shared memory (every lane reads the same key: a broadcast); the thread's
-// q_scaled and dO rows sit in shared memory at a stride of D + 1, dq in
-// registers.
+// shared memory (every lane reads the same key: a broadcast), with the
+// tile's 128 mask words; the thread's q_scaled and dO rows sit in shared
+// memory at a stride of D + 1, dq in registers.
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(TILE)
-    bwd_dq_kernel(SplitArgs a, bool drop, DropoutParams dp) {
+    bwd_dq_kernel(SplitArgs a, const uint32_t* __restrict__ keep_mask, float inv_keep) {
   constexpr int RS = D + 1;
   extern __shared__ float smem[];
   float* ks = smem;            // [TILE][D]
   float* vs = ks + TILE * D;   // [TILE][D]
   float* qs = vs + TILE * D;   // [TILE][RS]
   float* dos = qs + TILE * RS; // [TILE][RS]
+  uint32_t* mw = reinterpret_cast<uint32_t*>(dos + TILE * RS);  // [MASK_WORDS]
 
   const int bh = blockIdx.y;
   const int i = threadIdx.x;
   const int q0 = blockIdx.x * TILE;
   const int row = q0 + i;
   const bool row_in = row < a.sq;
+  const bool drop = keep_mask != nullptr;
+  const int n_q = mask_tiles(a.sq), n_k = mask_tiles(a.skv);
   const T* qb = static_cast<const T*>(a.q) + (size_t)bh * a.sq * D;
   const T* kb = static_cast<const T*>(a.k) + (size_t)bh * a.skv * D;
   const T* vb = static_cast<const T*>(a.v) + (size_t)bh * a.skv * D;
@@ -126,7 +163,10 @@ __global__ void __launch_bounds__(TILE)
   }
   const float lse = row_in ? a.lse[(size_t)bh * a.sq + row] : 0.f;
   const float delta = row_in ? a.delta[(size_t)bh * a.sq + row] : 0.f;
-  const float kept = drop ? dp.inv_keep : 1.f;
+  // the thread's words and bits in a mask tile: word 4 kp + (qp & 3), nibble
+  // qp >> 2, bit (row & 1) * 2 + (key & 1), qp = i >> 1
+  const int mword = (i >> 1) & 3;
+  const int mbit = 4 * (i >> 3) + (i & 1) * 2;
   float dq[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) dq[d] = 0.f;
@@ -139,19 +179,18 @@ __global__ void __launch_bounds__(TILE)
       ks[e] = in ? Cvt<T>::load(kb[(size_t)(kv0 + r) * D + d]) : 0.f;
       vs[e] = in ? Cvt<T>::load(vb[(size_t)(kv0 + r) * D + d]) : 0.f;
     }
+    if (drop) {
+      const uint32_t* src =
+          keep_mask + (((size_t)bh * n_k + kv0 / TILE) * n_q + blockIdx.x) * MASK_WORDS;
+      for (int w = threadIdx.x; w < MASK_WORDS; w += TILE) mw[w] = src[w];
+    }
     __syncthreads();
 
-    float km_even = kept, km_odd = kept;  // keys kv0 + j, j even / odd
 #pragma unroll 1
     for (int j = 0; j < TILE; ++j) {
       const int key = kv0 + j;
-      if (drop && (j & 1) == 0) {
-        uint32_t w[4];
-        gaot::dropout_block_bits(dp, bh, row, key, a.sq, a.skv, w);
-        km_even = w[(row & 1) * 2] >= dp.thresh ? kept : 0.f;
-        km_odd = w[(row & 1) * 2 + 1] >= dp.thresh ? kept : 0.f;
-      }
-      const float km = (j & 1) ? km_odd : km_even;
+      const float km =
+          drop ? (((mw[4 * (j >> 1) + mword] >> (mbit + (j & 1))) & 1u) ? inv_keep : 0.f) : 1.f;
       float s = 0.f, dpv = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) {
@@ -174,17 +213,19 @@ __global__ void __launch_bounds__(TILE)
 
 template <int D>
 constexpr size_t dq_scalar_smem_bytes() {
-  return sizeof(float) * (2 * TILE * D + 2 * TILE * (D + 1));
+  return sizeof(float) * (2 * TILE * D + 2 * TILE * (D + 1)) + MASK_WORDS * sizeof(uint32_t);
 }
 
 // ---------------------------------------------------------------------------
 // Scalar dk/dv body: 64 threads, thread = key. The thread's k and v rows sit
 // in shared memory at a stride of D + 1, the q_scaled and dO tiles are read
-// by every lane at once, dk and dv rows in registers.
+// by every lane at once, dk and dv rows in registers. Under dropout the
+// thread gathers its keep bits of a q tile into the 4 words of its key pair
+// and the even key's thread stores them, or-ed with its neighbour's.
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(TILE)
-    bwd_dkv_kernel(SplitArgs a, bool drop, DropoutParams dp) {
+    bwd_dkv_kernel(SplitArgs a, bool drop, DropoutParams dp, uint32_t* __restrict__ keep_mask) {
   constexpr int KS = D + 1;
   extern __shared__ float smem[];
   float* ks = smem;
@@ -198,6 +239,7 @@ __global__ void __launch_bounds__(TILE)
   const int j = threadIdx.x;
   const int key = blockIdx.x * TILE + j;
   const bool key_in = key < a.skv;
+  const int n_q = mask_tiles(a.sq), n_k = mask_tiles(a.skv);
   const T* qb = static_cast<const T*>(a.q) + (size_t)bh * a.sq * D;
   const T* kb = static_cast<const T*>(a.k) + (size_t)bh * a.skv * D;
   const T* vb = static_cast<const T*>(a.v) + (size_t)bh * a.skv * D;
@@ -232,6 +274,7 @@ __global__ void __launch_bounds__(TILE)
     }
     __syncthreads();
 
+    uint32_t words[4] = {0u, 0u, 0u, 0u};  // words 4 kp + 0..3 of this key pair
     float km_even = kept, km_odd = kept;  // rows q0 + i, i even / odd
 #pragma unroll 1
     for (int i = 0; i < TILE; ++i) {
@@ -239,8 +282,12 @@ __global__ void __launch_bounds__(TILE)
       if (drop && (i & 1) == 0) {
         uint32_t w[4];
         gaot::dropout_block_bits(dp, bh, row, key, a.sq, a.skv, w);
-        km_even = w[key & 1] >= dp.thresh ? kept : 0.f;
-        km_odd = w[2 + (key & 1)] >= dp.thresh ? kept : 0.f;
+        const bool even = w[key & 1] >= dp.thresh, odd = w[2 + (key & 1)] >= dp.thresh;
+        km_even = even ? kept : 0.f;
+        km_odd = odd ? kept : 0.f;
+        const int qp = i >> 1, bit = 4 * (qp >> 2) + (key & 1);
+        words[qp & 3] |= (uint32_t)(even && key_in && row < a.sq) << bit |
+                         (uint32_t)(odd && key_in && row + 1 < a.sq) << (bit + 2);
       }
       const float km = (i & 1) ? km_odd : km_even;
       float s = 0.f, dpv = 0.f;
@@ -256,6 +303,16 @@ __global__ void __launch_bounds__(TILE)
       for (int d = 0; d < D; ++d) {
         dv[d] = fmaf(pm, dos[i * D + d], dv[d]);
         dk[d] = fmaf(ds, qs[i * D + d], dk[d]);
+      }
+    }
+    if (drop) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) words[w] |= __shfl_xor_sync(0xffffffffu, words[w], 1);
+      if ((j & 1) == 0) {
+        uint32_t* dst = keep_mask +
+                        (((size_t)bh * n_k + blockIdx.x) * n_q + q0 / TILE) * MASK_WORDS +
+                        4 * (j >> 1);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(words[0], words[1], words[2], words[3]);
       }
     }
   }
@@ -277,30 +334,22 @@ constexpr size_t dkv_scalar_smem_bytes() {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core bodies, 4 warps each. See the header for the layouts.
+// bf16 warp-specialized dq body, see the header.
 // ---------------------------------------------------------------------------
-constexpr int MMA_WARPS = 4;
-constexpr int NT = MMA_WARPS * 32;
+constexpr int Q_ROWS = 128;   // q rows per CTA, 64 per consumer warpgroup
+constexpr int KT = 64;        // keys per tile
+constexpr int Q_STAGES = 4;   // K/V (and mask) tiles in flight
+constexpr int MASK_BYTES = MASK_WORDS * 4;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t load_pair(const bf* base, int row, int col, int rows,
-                                              int d) {
-  if (row >= rows) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + (size_t)row * d + col);
-}
+// Shared memory of a stage, in bytes from a 1024-byte aligned base: K tile,
+// V tile, then (DROP) the mask tiles of the CTA's two q tiles.
+template <int D, bool DROP>
+struct DqSmem {
+  static constexpr int RB = 2 * D;  // bytes of a bf16 row
+  static constexpr int KV = KT * RB;
+  static constexpr int STAGE = 2 * KV + (DROP ? 2 * MASK_BYTES : 0);
+  static constexpr size_t bytes = (size_t)Q_STAGES * STAGE + 1024;
+};
 
 // two q elements (row, col..col+1), prescaled in f32 and rounded back to bf16
 __device__ __forceinline__ uint32_t load_q_pair(const bf* qb, int row, int col, int sq, int d,
@@ -311,349 +360,262 @@ __device__ __forceinline__ uint32_t load_q_pair(const bf* qb, int row, int col, 
   return pack_bf16(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale));
 }
 
-// dq: rows = this warp's 16 q rows, fragment rows (g, g + 8) = q rows
-// (r0, r0 + 1); the loop runs over key tiles.
 template <int D, bool DROP>
-__global__ void __launch_bounds__(NT) bwd_dq_mma_kernel(SplitArgs a, DropoutParams dp) {
-  constexpr int RS = D + 8;     // row stride of the row-major k, v tiles
-  constexpr int TS = TILE + 8;  // row stride of k^T
-  constexpr int CH = D / 8;     // 16-byte chunks per row
-  __shared__ __align__(16) bf ks[TILE * RS];
-  __shared__ __align__(16) bf vs[TILE * RS];
-  __shared__ __align__(16) bf kt[D * TS];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+__global__ void __launch_bounds__(B_THREADS, 1)
+    bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
+                        const __grid_constant__ CUtensorMap tmap_v, SplitArgs a,
+                        const uint32_t* __restrict__ keep_mask, float inv_keep) {
+  using namespace gaot;
+  using L = DqSmem<D, DROP>;
+  constexpr int RB = L::RB;
+  constexpr int NS = KT / 8;  // 8-key blocks of a tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[Q_STAGES], empty[Q_STAGES];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const unsigned char* sm = smem_raw + (base - smem_u32(smem_raw));  // the same bytes, generic
   const int bh = blockIdx.y;
-  const int r0 = blockIdx.x * TILE + warp * 16 + 2 * g;
-  const int r1 = r0 + 1;
-  const bf* qb = static_cast<const bf*>(a.q) + (size_t)bh * a.sq * D;
-  const bf* kb = static_cast<const bf*>(a.k) + (size_t)bh * a.skv * D;
-  const bf* vb = static_cast<const bf*>(a.v) + (size_t)bh * a.skv * D;
-  const bf* dob = static_cast<const bf*>(a.dout) + (size_t)bh * a.sq * D;
+  const int n_k = (a.skv + KT - 1) / KT;  // also the mask's key tiles
+  const int n_q = mask_tiles(a.sq);
+  // the warpgroup's index, read from lane 0 so the compiler knows it is the
+  // same across the warp: the branches below, and every wgmma in them, are
+  // then not divergent
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / WG, 0);
 
-  // q_scaled and dO rows of this warp as A operands (q rows x d), held for the whole loop
-  uint32_t qa[D / 16][4], da[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = load_q_pair(qb, r0, c, a.sq, D, a.scale);
-    qa[kk][1] = load_q_pair(qb, r1, c, a.sq, D, a.scale);
-    qa[kk][2] = load_q_pair(qb, r0, c + 8, a.sq, D, a.scale);
-    qa[kk][3] = load_q_pair(qb, r1, c + 8, a.sq, D, a.scale);
-    da[kk][0] = load_pair(dob, r0, c, a.sq, D);
-    da[kk][1] = load_pair(dob, r1, c, a.sq, D);
-    da[kk][2] = load_pair(dob, r0, c + 8, a.sq, D);
-    da[kk][3] = load_pair(dob, r1, c + 8, a.sq, D);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Q_STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 8);  // the 4 warps of each consumer
+    }
+    fence_barrier_init();
   }
-  // lse * log2(e), +inf past sq so that p = 0 there
-  const float l0 = r0 < a.sq ? a.lse[(size_t)bh * a.sq + r0] * LOG2E : INFINITY;
-  const float l1 = r1 < a.sq ? a.lse[(size_t)bh * a.sq + r1] * LOG2E : INFINITY;
-  const float d0 = r0 < a.sq ? a.delta[(size_t)bh * a.sq + r0] : 0.f;
-  const float d1 = r1 < a.sq ? a.delta[(size_t)bh * a.sq + r1] : 0.f;
+  __syncthreads();
 
-  float dq[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
-
-  for (int kv0 = 0; kv0 < a.skv; kv0 += TILE) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = threadIdx.x; c < TILE * CH; c += NT) {
-      const int row = c / CH, ch = c - row * CH;
-      const int key = kv0 + row;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (key < a.skv) {
-        kx = *reinterpret_cast<const uint4*>(kb + (size_t)key * D + ch * 8);
-        vx = *reinterpret_cast<const uint4*>(vb + (size_t)key * D + ch * 8);
-      }
-      *reinterpret_cast<uint4*>(ks + row * RS + ch * 8) = kx;
-      *reinterpret_cast<uint4*>(vs + row * RS + ch * 8) = vx;
-      const bf* ke = reinterpret_cast<const bf*>(&kx);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) kt[(ch * 8 + e) * TS + row] = ke[e];
-    }
-    __syncthreads();
-
-    // ds (q rows x keys) as the A operand of dq = ds k: k-step j covers the
-    // key blocks 2j (columns 0-7) and 2j + 1 (columns 8-15)
-    uint32_t dsa[TILE / 16][4];
-#pragma unroll
-    for (int nb = 0; nb < TILE / 8; ++nb) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f}, dpv[4] = {0.f, 0.f, 0.f, 0.f};
-      const bf* krow = ks + (nb * 8 + g) * RS + 2 * t;
-      const bf* vrow = vs + (nb * 8 + g) * RS + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        mma_bf16(s, qa[kk], *reinterpret_cast<const uint32_t*>(krow + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8));
-        mma_bf16(dpv, da[kk], *reinterpret_cast<const uint32_t*>(vrow + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(vrow + kk * 16 + 8));
-      }
-      const int c0 = kv0 + nb * 8 + 2 * t;  // keys c0, c0 + 1
-      // elements: [0] (r0, c0), [1] (r0, c0 + 1), [2] (r1, c0), [3] (r1, c0 + 1)
-      float p0 = exp2f(fmaf(s[0], LOG2E, -l0));
-      float p1 = exp2f(fmaf(s[1], LOG2E, -l0));
-      float p2 = exp2f(fmaf(s[2], LOG2E, -l1));
-      float p3 = exp2f(fmaf(s[3], LOG2E, -l1));
-      if (c0 >= a.skv) p0 = p2 = 0.f;  // padded keys
-      if (c0 + 1 >= a.skv) p1 = p3 = 0.f;
-      float km[4] = {1.f, 1.f, 1.f, 1.f};
-      if constexpr (DROP) gaot::dropout_block_scale(dp, bh, r0, c0, a.sq, a.skv, km);
-      dsa[nb / 2][(nb % 2) * 2 + 0] =
-          pack_bf16(p0 * (dpv[0] * km[0] - d0), p1 * (dpv[1] * km[1] - d0));
-      dsa[nb / 2][(nb % 2) * 2 + 1] =
-          pack_bf16(p2 * (dpv[2] * km[2] - d1), p3 * (dpv[3] * km[3] - d1));
-    }
-#pragma unroll
-    for (int j = 0; j < TILE / 16; ++j) {
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const bf* krow = kt + (nd * 8 + g) * TS + j * 16 + 2 * t;
-        mma_bf16(dq[nd], dsa[j], *reinterpret_cast<const uint32_t*>(krow),
-                 *reinterpret_cast<const uint32_t*>(krow + 8));
+  if (wg == 0) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      const int mtiles = min(2, n_q - 2 * (int)blockIdx.x);  // the CTA's q tiles of the mask
+      for (int j = 0; j < n_k; ++j) {
+        const int s = j % Q_STAGES;
+        mbar_wait(smem_u32(&empty[s]), ((j / Q_STAGES) & 1) ^ 1);
+        const uint32_t bar = smem_u32(&full[s]);
+        const uint32_t dst = base + s * L::STAGE;
+        mbar_expect_tx(bar, 2 * L::KV + (DROP ? mtiles * MASK_BYTES : 0));
+        tma_load_3d(dst, &tmap_k, bar, 0, j * KT, bh);
+        tma_load_3d(dst + L::KV, &tmap_v, bar, 0, j * KT, bh);
+        if constexpr (DROP)
+          bulk_load(dst + 2 * L::KV,
+                    keep_mask + (((size_t)bh * n_k + j) * n_q + 2 * blockIdx.x) * MASK_WORDS,
+                    bar, mtiles * MASK_BYTES);
       }
     }
-  }
+  } else {  // consumers
+    regs_inc<240>();
+    const int c = wg - 1;  // consumer 0 or 1
+    const int ct = threadIdx.x - wg * WG;
+    const int warp = ct >> 5;
+    const int lane = ct & 31;
+    const int g = lane >> 2;  // row within the 8-row half of the fragment
+    const int t = lane & 3;   // column pair
+    const int r0 = blockIdx.x * Q_ROWS + c * 64 + warp * 16 + 2 * g;
+    const int r1 = r0 + 1;
+    const bf* qb = static_cast<const bf*>(a.q) + (size_t)bh * a.sq * D;
+    const bf* dob = static_cast<const bf*>(a.dout) + (size_t)bh * a.sq * D;
 
-  bf* dqb = static_cast<bf*>(a.dq) + (size_t)bh * a.sq * D;
+    // q_scaled and dO rows as A operands (q rows x d), held for the whole loop
+    uint32_t qa[D / 16][4], da[D / 16][4];
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (r0 < a.sq)
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)r0 * D + col) =
-          pack_bf16(dq[nd][0] * a.scale, dq[nd][1] * a.scale);
-    if (r1 < a.sq)
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)r1 * D + col) =
-          pack_bf16(dq[nd][2] * a.scale, dq[nd][3] * a.scale);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int col = kk * 16 + 2 * t;
+      qa[kk][0] = load_q_pair(qb, r0, col, a.sq, D, a.scale);
+      qa[kk][1] = load_q_pair(qb, r1, col, a.sq, D, a.scale);
+      qa[kk][2] = load_q_pair(qb, r0, col + 8, a.sq, D, a.scale);
+      qa[kk][3] = load_q_pair(qb, r1, col + 8, a.sq, D, a.scale);
+      da[kk][0] = gaot::fbwd::load_pair(dob, r0, col, a.sq, D);
+      da[kk][1] = gaot::fbwd::load_pair(dob, r1, col, a.sq, D);
+      da[kk][2] = gaot::fbwd::load_pair(dob, r0, col + 8, a.sq, D);
+      da[kk][3] = gaot::fbwd::load_pair(dob, r1, col + 8, a.sq, D);
+    }
+    // lse * log2(e), +inf past sq so that p = 0 there
+    const float l0 = r0 < a.sq ? a.lse[(size_t)bh * a.sq + r0] * LOG2E : INFINITY;
+    const float l1 = r1 < a.sq ? a.lse[(size_t)bh * a.sq + r1] * LOG2E : INFINITY;
+    const float d0 = r0 < a.sq ? a.delta[(size_t)bh * a.sq + r0] : 0.f;
+    const float d1 = r1 < a.sq ? a.delta[(size_t)bh * a.sq + r1] : 0.f;
+    // this thread's q pair in the consumer's mask tile is qp = warp * 8 + g:
+    // block (qp, key pair nb * 4 + t) is nibble qp >> 2 of word
+    // 4 (nb * 4 + t) + (qp & 3)
+    const int mword = 4 * t + (g & 3);
+    const int mshift = 4 * (warp * 2 + (g >> 2));
+
+    float dq[D / 2];  // [nd * 4 + e]: rows (r0, r1) x columns nd * 8 + 2t + (0, 1)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    float sc[KT / 2], dp[KT / 2];  // S then ds, and dP, of one tile: [nb * 4 + e]
+    uint32_t dsa[KT / 16][4];      // ds of the previous tile as the A operand of ds K
+
+    auto issue_sdp = [&](int j) {  // S and dP of tile j
+      const uint32_t kt = base + (j % Q_STAGES) * L::STAGE, vt = kt + L::KV;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs<0>(sc, qa[kk], wgmma_desc(kt + kk * 32, RB, false), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs<0>(dp, da[kk], wgmma_desc(vt + kk * 32, RB, false), kk > 0);
+      wgmma_commit();
+    };
+    auto issue_dq = [&](int j) {  // dq += ds K of tile j, ds in dsa
+      const uint32_t kt = base + (j % Q_STAGES) * L::STAGE;
+#pragma unroll
+      for (int jj = 0; jj < KT / 16; ++jj)
+        wgmma_rs<1>(dq, dsa[jj], wgmma_desc(kt + jj * 16 * RB, RB, true), 1);
+      wgmma_commit();
+    };
+    auto compute_ds = [&](int j) {  // sc of tile j -> ds, in place
+      const int kv0 = j * KT;
+      const uint32_t* mw = reinterpret_cast<const uint32_t*>(
+          sm + (j % Q_STAGES) * L::STAGE + 2 * L::KV + c * MASK_BYTES);
+#pragma unroll
+      for (int nb = 0; nb < NS; ++nb) {
+        float* p = sc + nb * 4;
+        const float* dv = dp + nb * 4;
+        // elements: [0] (r0, c0), [1] (r0, c0 + 1), [2] (r1, c0), [3] (r1, c0 + 1)
+        float p0 = ex2_ftz(fmaf(p[0], LOG2E, -l0));
+        float p1 = ex2_ftz(fmaf(p[1], LOG2E, -l0));
+        float p2 = ex2_ftz(fmaf(p[2], LOG2E, -l1));
+        float p3 = ex2_ftz(fmaf(p[3], LOG2E, -l1));
+        if (kv0 + KT > a.skv) {  // ragged kv tail
+          const int c0 = kv0 + nb * 8 + 2 * t;
+          if (c0 >= a.skv) p0 = p2 = 0.f;
+          if (c0 + 1 >= a.skv) p1 = p3 = 0.f;
+        }
+        float m0 = 1.f, m1 = 1.f, m2 = 1.f, m3 = 1.f;
+        if constexpr (DROP) {
+          const uint32_t b = mw[16 * nb + mword] >> mshift;
+          m0 = (b & 1u) ? inv_keep : 0.f;
+          m1 = (b & 2u) ? inv_keep : 0.f;
+          m2 = (b & 4u) ? inv_keep : 0.f;
+          m3 = (b & 8u) ? inv_keep : 0.f;
+        }
+        p[0] = p0 * (dv[0] * m0 - d0);
+        p[1] = p1 * (dv[1] * m1 - d0);
+        p[2] = p2 * (dv[2] * m2 - d1);
+        p[3] = p3 * (dv[3] * m3 - d1);
+      }
+    };
+    auto pack_ds = [&]() {  // ds rounded to bf16 into dsa
+      // k-step jj of ds K covers the key blocks 2jj (columns 0-7) and 2jj + 1 (8-15)
+#pragma unroll
+      for (int nb = 0; nb < NS; ++nb) {
+        dsa[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(sc[nb * 4 + 0], sc[nb * 4 + 1]);
+        dsa[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(sc[nb * 4 + 2], sc[nb * 4 + 3]);
+      }
+    };
+
+    // ping-pong as in K1: consumer c issues its products after named barrier
+    // 1 + c, then lets the other one issue (barrier 2 - c); consumer 1 lets
+    // consumer 0 go first. Each syncs n_k + 1 times and is arrived at as often.
+    if (c == 1) named_arrive(1, 2 * WG);
+    mbar_wait(smem_u32(&full[0]), 0);
+    named_sync(1 + c, 2 * WG);
+    wgmma_fence();
+    issue_sdp(0);
+    named_arrive(2 - c, 2 * WG);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    compute_ds(0);
+    pack_ds();
+    // step j: S, dP of tile j and ds K of tile j - 1 in flight together; the
+    // exponentials of tile j run while ds K of tile j - 1 is on the tensor cores
+    for (int j = 1; j < n_k; ++j) {
+      mbar_wait(smem_u32(&full[j % Q_STAGES]), (j / Q_STAGES) & 1);
+      named_sync(1 + c, 2 * WG);
+      wgmma_fence();
+      issue_sdp(j);
+      issue_dq(j - 1);
+      named_arrive(2 - c, 2 * WG);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      fence_regs(dp);
+      compute_ds(j);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dsa);
+      if (lane == 0) mbar_arrive(smem_u32(&empty[(j - 1) % Q_STAGES]));
+      pack_ds();
+    }
+    named_sync(1 + c, 2 * WG);
+    wgmma_fence();
+    issue_dq(n_k - 1);
+    if (c == 0) named_arrive(2 - c, 2 * WG);
+    wgmma_wait<0>();
+    fence_regs(dq);
+
+    bf* dqb = static_cast<bf*>(a.dq) + (size_t)bh * a.sq * D;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const int col = nd * 8 + 2 * t;
+      if (r0 < a.sq)
+        *reinterpret_cast<uint32_t*>(dqb + (size_t)r0 * D + col) =
+            pack_bf16(dq[nd * 4 + 0] * a.scale, dq[nd * 4 + 1] * a.scale);
+      if (r1 < a.sq)
+        *reinterpret_cast<uint32_t*>(dqb + (size_t)r1 * D + col) =
+            pack_bf16(dq[nd * 4 + 2] * a.scale, dq[nd * 4 + 3] * a.scale);
+    }
   }
 }
-
-// dk/dv: rows = this warp's 16 keys, fragment rows (g, g + 8) = keys
-// (k0, k0 + 1); the loop runs over q tiles. The fused kernel's structure
-// without its dq product, the ds round trip through shared memory and the
-// atomics.
-template <int D>
-struct DkvSmem {
-  static constexpr int RS = D + 8;     // row stride of the row-major q, dO tiles
-  static constexpr int TS = TILE + 8;  // row stride of the transposed tiles
-  static constexpr int qs = 0;                // [TILE][RS]  q_scaled
-  static constexpr int dos = qs + TILE * RS;  // [TILE][RS]  dO
-  static constexpr int qt = dos + TILE * RS;  // [D][TS]     q_scaled^T
-  static constexpr int dot = qt + D * TS;     // [D][TS]     dO^T
-  static constexpr int halves = dot + D * TS;
-  static constexpr size_t bytes = halves * sizeof(bf) + 2 * TILE * sizeof(float);
-};
 
 template <int D, bool DROP>
-__global__ void __launch_bounds__(NT) bwd_dkv_mma_kernel(SplitArgs a, DropoutParams dp) {
-  using L = DkvSmem<D>;
-  constexpr int RS = L::RS, TS = L::TS;
-  constexpr int CH = D / 8;
-  __shared__ __align__(16) unsigned char smem_raw[L::bytes];
-  bf* sm = reinterpret_cast<bf*>(smem_raw);
-  bf* qs = sm + L::qs;
-  bf* dos = sm + L::dos;
-  bf* qt = sm + L::qt;
-  bf* dot = sm + L::dot;
-  float* lse_s = reinterpret_cast<float*>(sm + L::halves);  // lse * log2(e), +inf past sq
-  float* dl_s = lse_s + TILE;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * TILE + warp * 16 + 2 * g, k1 = k0 + 1;
-  const bf* qb = static_cast<const bf*>(a.q) + (size_t)bh * a.sq * D;
-  const bf* kb = static_cast<const bf*>(a.k) + (size_t)bh * a.skv * D;
-  const bf* vb = static_cast<const bf*>(a.v) + (size_t)bh * a.skv * D;
-  const bf* dob = static_cast<const bf*>(a.dout) + (size_t)bh * a.sq * D;
-
-  // k and v rows of this warp as A operands (keys x d), held for the whole loop
-  uint32_t ka[D / 16][4], va[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    ka[kk][0] = load_pair(kb, k0, c, a.skv, D);
-    ka[kk][1] = load_pair(kb, k1, c, a.skv, D);
-    ka[kk][2] = load_pair(kb, k0, c + 8, a.skv, D);
-    ka[kk][3] = load_pair(kb, k1, c + 8, a.skv, D);
-    va[kk][0] = load_pair(vb, k0, c, a.skv, D);
-    va[kk][1] = load_pair(vb, k1, c, a.skv, D);
-    va[kk][2] = load_pair(vb, k0, c + 8, a.skv, D);
-    va[kk][3] = load_pair(vb, k1, c + 8, a.skv, D);
-  }
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    dk[nd][0] = dk[nd][1] = dk[nd][2] = dk[nd][3] = 0.f;
-    dv[nd][0] = dv[nd][1] = dv[nd][2] = dv[nd][3] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < a.sq; q0 += TILE) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = threadIdx.x; c < TILE * CH; c += NT) {
-      const int row = c / CH, ch = c - row * CH;
-      const int qrow = q0 + row;
-      uint4 qx = make_uint4(0, 0, 0, 0), dx = make_uint4(0, 0, 0, 0);
-      if (qrow < a.sq) {
-        qx = *reinterpret_cast<const uint4*>(qb + (size_t)qrow * D + ch * 8);
-        dx = *reinterpret_cast<const uint4*>(dob + (size_t)qrow * D + ch * 8);
-      }
-      bf* qe = reinterpret_cast<bf*>(&qx);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)  // prescale in f32, round back
-        qe[e] = __float2bfloat16(__fmul_rn(__bfloat162float(qe[e]), a.scale));
-      const bf* de = reinterpret_cast<const bf*>(&dx);
-      *reinterpret_cast<uint4*>(qs + row * RS + ch * 8) = qx;
-      *reinterpret_cast<uint4*>(dos + row * RS + ch * 8) = dx;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        qt[(ch * 8 + e) * TS + row] = qe[e];
-        dot[(ch * 8 + e) * TS + row] = de[e];
-      }
-    }
-    if (threadIdx.x < TILE) {
-      const int qrow = q0 + threadIdx.x;
-      const bool in = qrow < a.sq;
-      lse_s[threadIdx.x] = in ? a.lse[(size_t)bh * a.sq + qrow] * LOG2E : INFINITY;
-      dl_s[threadIdx.x] = in ? a.delta[(size_t)bh * a.sq + qrow] : 0.f;
-    }
-    __syncthreads();
-
-    // pm^T and ds^T (keys x q rows) as A operands of the dv and dk products
-    uint32_t pma[TILE / 16][4], dsa[TILE / 16][4];
-#pragma unroll
-    for (int nb = 0; nb < TILE / 8; ++nb) {
-      float st[4] = {0.f, 0.f, 0.f, 0.f}, dpv[4] = {0.f, 0.f, 0.f, 0.f};
-      const bf* qrow = qs + (nb * 8 + g) * RS + 2 * t;
-      const bf* drow = dos + (nb * 8 + g) * RS + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        mma_bf16(st, ka[kk], *reinterpret_cast<const uint32_t*>(qrow + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(qrow + kk * 16 + 8));
-        mma_bf16(dpv, va[kk], *reinterpret_cast<const uint32_t*>(drow + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(drow + kk * 16 + 8));
-      }
-      const int ql = nb * 8 + 2 * t;  // q columns ql, ql + 1 of the tile
-      const float l0 = lse_s[ql], l1 = lse_s[ql + 1];
-      const float d0 = dl_s[ql], d1 = dl_s[ql + 1];
-      // elements: [0] (k0, ql), [1] (k0, ql + 1), [2] (k1, ql), [3] (k1, ql + 1)
-      float p0 = exp2f(fmaf(st[0], LOG2E, -l0));
-      float p1 = exp2f(fmaf(st[1], LOG2E, -l1));
-      float p2 = exp2f(fmaf(st[2], LOG2E, -l0));
-      float p3 = exp2f(fmaf(st[3], LOG2E, -l1));
-      if (k0 >= a.skv) p0 = p1 = 0.f;  // padded keys
-      if (k1 >= a.skv) p2 = p3 = 0.f;
-      float m0 = 1.f, m1 = 1.f, m2 = 1.f, m3 = 1.f;
-      if constexpr (DROP) {
-        // the stream's block is (q row, key): words (even q, even key),
-        // (even q, odd key), (odd q, even key), (odd q, odd key)
-        float km[4];
-        gaot::dropout_block_scale(dp, bh, q0 + ql, k0, a.sq, a.skv, km);
-        m0 = km[0];
-        m2 = km[1];
-        m1 = km[2];
-        m3 = km[3];
-      }
-      pma[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(p0 * m0, p1 * m1);
-      pma[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2 * m2, p3 * m3);
-      dsa[nb / 2][(nb % 2) * 2 + 0] =
-          pack_bf16(p0 * (dpv[0] * m0 - d0), p1 * (dpv[1] * m1 - d1));
-      dsa[nb / 2][(nb % 2) * 2 + 1] =
-          pack_bf16(p2 * (dpv[2] * m2 - d0), p3 * (dpv[3] * m3 - d1));
-    }
-
-    // dv += pm^T dO, dk += ds^T q_scaled (contraction over the tile's q rows)
-#pragma unroll
-    for (int j = 0; j < TILE / 16; ++j) {
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const bf* drow = dot + (nd * 8 + g) * TS + j * 16 + 2 * t;
-        const bf* qrow = qt + (nd * 8 + g) * TS + j * 16 + 2 * t;
-        mma_bf16(dv[nd], pma[j], *reinterpret_cast<const uint32_t*>(drow),
-                 *reinterpret_cast<const uint32_t*>(drow + 8));
-        mma_bf16(dk[nd], dsa[j], *reinterpret_cast<const uint32_t*>(qrow),
-                 *reinterpret_cast<const uint32_t*>(qrow + 8));
-      }
-    }
-  }
-
-  bf* dkb = static_cast<bf*>(a.dk) + (size_t)bh * a.skv * D;
-  bf* dvb = static_cast<bf*>(a.dv) + (size_t)bh * a.skv * D;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (k0 < a.skv) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)k0 * D + col) = pack_bf16(dk[nd][0], dk[nd][1]);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)k0 * D + col) = pack_bf16(dv[nd][0], dv[nd][1]);
-    }
-    if (k1 < a.skv) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)k1 * D + col) = pack_bf16(dk[nd][2], dk[nd][3]);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)k1 * D + col) = pack_bf16(dv[nd][2], dv[nd][3]);
-    }
-  }
-}
-
-template <typename K>
-cudaError_t allow_smem(K kern, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <typename T, int D, bool DQ>
-int launch(const SplitArgs& a, int bh, bool drop, const DropoutParams& dp,
-           cudaStream_t stream) {
-  const dim3 grid(((DQ ? a.sq : a.skv) + TILE - 1) / TILE, bh);
-  if constexpr (std::is_same_v<T, bf> && D % 16 == 0) {
-    if constexpr (DQ) {
-      if (drop) bwd_dq_mma_kernel<D, true><<<grid, NT, 0, stream>>>(a, dp);
-      else bwd_dq_mma_kernel<D, false><<<grid, NT, 0, stream>>>(a, dp);
-    } else {
-      if (drop) bwd_dkv_mma_kernel<D, true><<<grid, NT, 0, stream>>>(a, dp);
-      else bwd_dkv_mma_kernel<D, false><<<grid, NT, 0, stream>>>(a, dp);
-    }
-  } else {
-    cudaError_t e;
-    if constexpr (DQ) {
-      constexpr size_t bytes = dq_scalar_smem_bytes<D>();
-      if ((e = allow_smem(bwd_dq_kernel<T, D>, bytes)) != cudaSuccess) return (int)e;
-      bwd_dq_kernel<T, D><<<grid, TILE, bytes, stream>>>(a, drop, dp);
-    } else {
-      constexpr size_t bytes = dkv_scalar_smem_bytes<D>();
-      if ((e = allow_smem(bwd_dkv_kernel<T, D>, bytes)) != cudaSuccess) return (int)e;
-      bwd_dkv_kernel<T, D><<<grid, TILE, bytes, stream>>>(a, drop, dp);
-    }
-  }
+int launch_dq_wgmma(const SplitArgs& a, int bh, const uint32_t* keep_mask, float inv_keep,
+                    cudaStream_t stream) {
+  CUtensorMap tk, tv;
+  if (!gaot::bf16_rows_map(&tk, a.k, bh, a.skv, D, KT) ||
+      !gaot::bf16_rows_map(&tv, a.v, bh, a.skv, D, KT))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t bytes = DqSmem<D, DROP>::bytes;
+  auto kern = bwd_dq_wgmma_kernel<D, DROP>;
+  const cudaError_t e = allow_smem(kern, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3((a.sq + Q_ROWS - 1) / Q_ROWS, bh), B_THREADS, bytes, stream>>>(tk, tv, a,
+                                                                            keep_mask, inv_keep);
   return (int)cudaGetLastError();
 }
 
-template <bool DQ>
-int dispatch(const SplitArgs& a, int bh, int d, int dtype, bool drop, const DropoutParams& dp,
-             cudaStream_t stream) {
-  if (bh <= 0 || bh > 65535 || a.sq <= 0 || a.skv <= 0) return (int)cudaErrorInvalidValue;
-#define GAOT_SPLIT_CASE(T, DIM) \
-  case DIM: return launch<T, DIM, DQ>(a, bh, drop, dp, stream)
-  if (dtype == 0) {
-    switch (d) {
-      GAOT_SPLIT_CASE(float, 8);
-      GAOT_SPLIT_CASE(float, 16);
-      GAOT_SPLIT_CASE(float, 32);
-      GAOT_SPLIT_CASE(float, 64);
-    }
-  } else if (dtype == 1) {
-    switch (d) {
-      GAOT_SPLIT_CASE(bf, 8);
-      GAOT_SPLIT_CASE(bf, 16);
-      GAOT_SPLIT_CASE(bf, 32);
-      GAOT_SPLIT_CASE(bf, 64);
-    }
+template <typename T, int D>
+int launch_dq(const SplitArgs& a, int bh, const uint32_t* keep_mask, float inv_keep,
+              cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, bf> && D % 16 == 0) {
+    if (keep_mask != nullptr) return launch_dq_wgmma<D, true>(a, bh, keep_mask, inv_keep, stream);
+    return launch_dq_wgmma<D, false>(a, bh, nullptr, inv_keep, stream);
+  } else {
+    constexpr size_t bytes = dq_scalar_smem_bytes<D>();
+    const cudaError_t e = allow_smem(bwd_dq_kernel<T, D>, bytes);
+    if (e != cudaSuccess) return (int)e;
+    bwd_dq_kernel<T, D><<<dim3(mask_tiles(a.sq), bh), TILE, bytes, stream>>>(a, keep_mask,
+                                                                             inv_keep);
+    return (int)cudaGetLastError();
   }
-#undef GAOT_SPLIT_CASE
-  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+int launch_dkv(const SplitArgs& a, int bh, bool drop, const DropoutParams& dp,
+               uint32_t* keep_mask, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, bf> && D % 16 == 0) {
+    const gaot::fbwd::BwdArgs b{a.q, a.k, a.v, a.dout, a.lse, a.delta, nullptr, a.dk, a.dv,
+                                a.sq, a.skv, a.scale};
+    if (drop) return gaot::fbwd::launch_wgmma<D, true, false>(b, bh, dp, keep_mask, stream);
+    return gaot::fbwd::launch_wgmma<D, false, false>(b, bh, dp, nullptr, stream);
+  } else {
+    constexpr size_t bytes = dkv_scalar_smem_bytes<D>();
+    const cudaError_t e = allow_smem(bwd_dkv_kernel<T, D>, bytes);
+    if (e != cudaSuccess) return (int)e;
+    bwd_dkv_kernel<T, D><<<dim3(mask_tiles(a.skv), bh), TILE, bytes, stream>>>(a, drop, dp,
+                                                                               keep_mask);
+    return (int)cudaGetLastError();
+  }
+}
+
+bool valid_sizes(int bh, int sq, int skv) {
+  return bh > 0 && bh <= 65535 && sq > 0 && skv > 0;
 }
 
 }  // namespace
@@ -661,34 +623,80 @@ int dispatch(const SplitArgs& a, int bh, int d, int dtype, bool drop, const Drop
 extern "C" {
 
 // q, dout [bh, sq, d], k, v [bh, skv, d] in one type (dtype 0: float32,
-// 1: bfloat16); lse, delta [bh, sq] float32; all contiguous. The dropout
-// arguments are those of gaot_flash_attn_fwd. Each returns its launch's
-// cudaError_t (0 on success).
+// 1: bfloat16); lse, delta [bh, sq] float32; all contiguous. keep_mask is
+// uint32 [bh, ceil(skv / 64), ceil(sq / 64), 128] (flash_bwd_wgmma.cuh), 16-byte
+// aligned, when drop != 0, else unused. Each returns its launch's cudaError_t
+// (0 on success).
 
-// dq [bh, sq, d] in the input type, every element written.
-int gaot_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                           const void* lse, const void* delta, void* dq, int bh, int sq,
-                           int skv, int d, int dtype, float scale, int drop, const void* bits,
-                           unsigned int seed_lo, unsigned int seed_hi, unsigned int thresh,
-                           float inv_keep, void* stream) {
-  const SplitArgs a{q, k, v, dout, static_cast<const float*>(lse),
-                    static_cast<const float*>(delta), dq, nullptr, nullptr, sq, skv, scale};
-  const DropoutParams dp{static_cast<const uint32_t*>(bits), seed_lo, seed_hi, thresh,
-                         inv_keep};
-  return dispatch<true>(a, bh, d, dtype, drop != 0, dp, static_cast<cudaStream_t>(stream));
-}
-
-// dk, dv [bh, skv, d] in the input type, every element written.
+// dk, dv [bh, skv, d] in the input type, every element written; under
+// dropout (the arguments of gaot_flash_attn_fwd) every word of keep_mask too.
 int gaot_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, void* dk, void* dv, int bh,
-                            int sq, int skv, int d, int dtype, float scale, int drop,
-                            const void* bits, unsigned int seed_lo, unsigned int seed_hi,
-                            unsigned int thresh, float inv_keep, void* stream) {
+                            const void* lse, const void* delta, void* dk, void* dv,
+                            void* keep_mask, int bh, int sq, int skv, int d, int dtype,
+                            float scale, int drop, const void* bits, unsigned int seed_lo,
+                            unsigned int seed_hi, unsigned int thresh, float inv_keep,
+                            void* stream) {
+  if (!valid_sizes(bh, sq, skv) || (drop != 0 && keep_mask == nullptr))
+    return (int)cudaErrorInvalidValue;
   const SplitArgs a{q, k, v, dout, static_cast<const float*>(lse),
                     static_cast<const float*>(delta), nullptr, dk, dv, sq, skv, scale};
   const DropoutParams dp{static_cast<const uint32_t*>(bits), seed_lo, seed_hi, thresh,
                          inv_keep};
-  return dispatch<false>(a, bh, d, dtype, drop != 0, dp, static_cast<cudaStream_t>(stream));
+  uint32_t* m = static_cast<uint32_t*>(keep_mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dr = drop != 0;
+#define GAOT_DKV_CASE(T, DIM) \
+  case DIM: return launch_dkv<T, DIM>(a, bh, dr, dp, m, s)
+  if (dtype == 0) {
+    switch (d) {
+      GAOT_DKV_CASE(float, 8);
+      GAOT_DKV_CASE(float, 16);
+      GAOT_DKV_CASE(float, 32);
+      GAOT_DKV_CASE(float, 64);
+    }
+  } else if (dtype == 1) {
+    switch (d) {
+      GAOT_DKV_CASE(bf, 8);
+      GAOT_DKV_CASE(bf, 16);
+      GAOT_DKV_CASE(bf, 32);
+      GAOT_DKV_CASE(bf, 64);
+    }
+  }
+#undef GAOT_DKV_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// dq [bh, sq, d] in the input type, every element written; drop != 0 reads
+// the keep mask the dk/dv kernel wrote, a kept score scaled by inv_keep.
+int gaot_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dq,
+                           const void* keep_mask, int bh, int sq, int skv, int d, int dtype,
+                           float scale, int drop, float inv_keep, void* stream) {
+  if (!valid_sizes(bh, sq, skv) || (drop != 0 && keep_mask == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const SplitArgs a{q, k, v, dout, static_cast<const float*>(lse),
+                    static_cast<const float*>(delta), dq, nullptr, nullptr, sq, skv, scale};
+  const uint32_t* m = drop != 0 ? static_cast<const uint32_t*>(keep_mask) : nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GAOT_DQ_CASE(T, DIM) \
+  case DIM: return launch_dq<T, DIM>(a, bh, m, inv_keep, s)
+  if (dtype == 0) {
+    switch (d) {
+      GAOT_DQ_CASE(float, 8);
+      GAOT_DQ_CASE(float, 16);
+      GAOT_DQ_CASE(float, 32);
+      GAOT_DQ_CASE(float, 64);
+    }
+  } else if (dtype == 1) {
+    switch (d) {
+      GAOT_DQ_CASE(bf, 8);
+      GAOT_DQ_CASE(bf, 16);
+      GAOT_DQ_CASE(bf, 32);
+      GAOT_DQ_CASE(bf, 64);
+    }
+  }
+#undef GAOT_DQ_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels (K1,
-// K2): shared-memory addresses, mbarriers, TMA tensor maps and loads, bulk
-// reduce-add, wgmma descriptors and the wgmma instructions themselves, named
+// K2, K3): shared-memory addresses, mbarriers, TMA tensor maps and loads, bulk
+// copies and reduce-add, wgmma descriptors and the wgmma instructions themselves, named
 // barriers and register reallocation. Written out in PTX, as in NVIDIA's PTX
 // ISA manual; no library beyond the CUDA headers.
 //
@@ -68,6 +68,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) copied from
+// global to shared memory by the bulk-copy engine, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bar,
+                                          uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -71,16 +71,6 @@ __device__ __forceinline__ void dropout_block_bits(const DropoutParams& p, int b
   }
 }
 
-// keep ? 1/(1-rate) : 0 for the four words of a block
-__device__ __forceinline__ void dropout_block_scale(const DropoutParams& p, int bh,
-                                                    int row, int col, int sq, int skv,
-                                                    float km[4]) {
-  uint32_t w[4];
-  dropout_block_bits(p, bh, row, col, sq, skv, w);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) km[i] = w[i] >= p.thresh ? p.inv_keep : 0.f;
-}
-
 // The keep bits of a block: bit i is word i's (w[i] >= thresh), in the order
 // of dropout_block_bits.
 __device__ __forceinline__ uint32_t dropout_block_keep(const DropoutParams& p, int bh, int row,

@@ -278,10 +278,13 @@ def test_flash_backward_kernel_matches_plain(dtype, rel, S, Skv, D, rate):
 @pytest.mark.parametrize("S,Skv,D", _SHAPES + [(1000, 130, 32)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_backward_split_kernels_match_plain(dtype, rel, S, Skv, D, rate):
-    """K3 (the dq kernel and the dk/dv kernel) against the plain backward with
-    the same bits, at K2's bounds; each kernel counts its own launch; dk and
-    dv also within one bf16 step of K2's; a second launch and the
-    explicit-bits input give the same bits in all three gradients."""
+    """K3 (the dk/dv kernel, then the dq kernel) against the plain backward
+    with the same bits, at K2's bounds; each kernel counts its own launch; dq
+    within one bf16 step of K2's, dk and dv equal to K2's bit for bit; a second
+    launch and the explicit-bits input give the same bits in all three
+    gradients; the keep mask the dk/dv kernel hands over equals the plain
+    packing of K4's bits, from the seed and from the bits, and is None at
+    rate 0."""
     rng, (q, k, v) = _qkv(dtype, S, Skv, D)
     dout = torch.from_numpy(rng.normal(size=tuple(q.shape)).astype(np.float32)).to("cuda", dtype)
     seed = 11 + Skv
@@ -301,12 +304,69 @@ def test_flash_backward_split_kernels_match_plain(dtype, rel, S, Skv, D, rate):
         err = ((a.float() - b.float()).abs().max() / top).item()
         assert err <= rel, f"{name}: {err}"
         assert ((a.float() - f.float()).abs().max() / top).item() <= 2.0 ** -7, name
+    assert torch.equal(got[1], fused[1]) and torch.equal(got[2], fused[2])
     again = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate, seed=seed)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     if rate > 0:
         from_bits = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate,
                                                       dropout_bits=bits)
         assert all(torch.equal(a, b) for a, b in zip(got, from_bits))
+    _assert_keep_mask(q, k, v, out, lse, dout, rate, seed, bits)
+
+
+def _assert_keep_mask(q, k, v, out, lse, dout, rate, seed, bits):
+    """The dk/dv kernel's keep mask, drawn from the seed and read from K4's
+    bits for it, equals the plain packing of those bits word for word; at
+    rate 0 there is none."""
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    _, _, mask = k1.flash_attention_backward_dkv(q, k, v, lse, dout, delta, rate, seed)
+    if rate == 0:
+        assert mask is None
+        return
+    _, _, mask_b = k1.flash_attention_backward_dkv(q, k, v, lse, dout, delta, rate,
+                                                   dropout_bits=bits)
+    torch.cuda.synchronize()
+    want = k1.pack_keep_mask_reference(bits, rate).view(torch.int32)
+    assert mask.shape == want.shape and mask.dtype == torch.uint32
+    assert torch.equal(mask.view(torch.int32), want)
+    assert torch.equal(mask_b.view(torch.int32), want)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("S,Skv", [(77, 130), (130, 1000), (1000, 77)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_split_wgmma_bodies_match_plain_k2_and_the_exported_bits(D, S, Skv, rate):
+    """K3's bf16 TMA/wgmma bodies at every head dim they take, sq != skv and
+    neither a multiple of 64 or 128: against the plain backward with the bits
+    K4 exports for the seed, 2e-2 of each gradient's max-abs (bf16 roundings
+    of pm, ds and the results); dq within 2^-7 of K2's (one bf16 step: K2
+    sums dq's tile partials in another order); dk and dv equal to K2's bit
+    for bit (one body); two launches, and the seed against its exported bits,
+    identical; the keep mask equal to the plain packing of those bits."""
+    rng, (q, k, v) = _qkv(torch.bfloat16, S, Skv, D, H=3)
+    dout = torch.from_numpy(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    seed = 0x5EED + 3 * S + D if rate > 0 else None
+    bits = k4.export_dropout_bits(seed, 3, S, Skv) if rate > 0 else None
+    out, lse = k1.flash_attention(q, k, v, rate, seed=seed)
+    got = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate, seed=seed)
+    again = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate, seed=seed)
+    fused = k1.flash_attention_backward(q, k, v, out, lse, dout, rate, seed=seed)
+    torch.cuda.synchronize()
+    want = k1.flash_attention_backward_reference(q, k, v, out, lse, dout, rate, bits)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all(), name
+        err = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+        assert err <= 2e-2, f"{name}: {err}"
+    top = want[0].float().abs().max()
+    assert (got[0].float() - fused[0].float()).abs().max() <= 2.0 ** -7 * top
+    assert torch.equal(got[1], fused[1]) and torch.equal(got[2], fused[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if rate > 0:
+        from_bits = k1.flash_attention_backward_split(q, k, v, out, lse, dout, rate,
+                                                      dropout_bits=bits)
+        assert all(torch.equal(a, b) for a, b in zip(got, from_bits))
+    _assert_keep_mask(q, k, v, out, lse, dout, rate, seed, bits)
 
 
 @pytest.mark.parametrize("D", [16, 32, 64])
