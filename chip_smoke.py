@@ -4,8 +4,9 @@
 
 `--flat-seed` (31) seeds the cloud of phases 13 and 14, for a second reading
 of their limits. `--only` runs just the named phases (k1, attention-train,
-k3, k5, trainer, trainer-split, t1), builds each kernel at its first use and
-prints no record: for work on one phase.
+k3, k5, trainer, trainer-split, t1, k7, k6, k8, flat; the last four share
+one cloud), builds each kernel at its first use and prints no record: for
+work on one phase.
 
 Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
@@ -65,16 +66,23 @@ Phases, each of which raises (exit code 1) on failure:
      every step K3's two kernels 10 times each and K2 never, finite losses,
      every parameter tensor moved.
  13. [k7] the prefix sum, [k6] the sorted segment sum and [k8] the tile
-     segment sum vs their plain versions at a ragged small shape and at the
-     shapes one 65,536-node chunk of a 524,288-point cloud gives them (its
-     flat list, and for K7 under `sort` and K8 its 327,680 slots), each column
-     held to its own size, two launches compared bit for bit;
+     segment sum (run right after [build], before any phase profiles) vs
+     their plain versions at a ragged small shape and at the shapes one
+     65,536-node chunk of a 524,288-point cloud gives them (its flat list,
+     and for K7 under `sort` and K8 its 327,680 slots), each column held to
+     its own size, two launches and each kernel's ordered twin compared bit
+     for bit, K8 against K6 on the same sorted rows bit for bit, K7 one
+     launch a call; each timed by the device time of its own launches under
+     torch.profiler (`device_ms`, warm and with a cold L2) and as one wrapper
+     call between two CUDA events (`call_ms`);
  14. [flat] the recipe over flat edge lists and the sorted reductions: config
      A (flat 'dst' lists, K6 for the encoder, K7 folds by node for the
      decoder) is exported, loaded and serves the cloud twice (accumulator bit
      for bit), then takes 2 AdamW steps with dropout; config B (K7 folds on
      both sides) and config C (slots sorted on the card, K8 or K7) serve it
-     too; all against the uniform-slot forward through K5, every column of the
+     too, and each configuration's warm forward is profiled once (device
+     busy and idle share, its five largest kernels, K6-K8's share); all
+     against the uniform-slot forward through K5, every column of the
      encoder's accumulator to a stated limit and the output in relative L2;
      then config A's
      gradient through the kernels vs through the plain versions on a 32x32x16
@@ -199,6 +207,113 @@ def cuda_ms(fn, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def profiled(fn):
+    """Run fn once under torch.profiler: (host ms until the device is done,
+    [(name, device ms, count)] of every device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return wall, [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+
+
+def print_profile(tag, label, wall, rows, top=5, mine=()):
+    """Device busy and idle share of a profiled run, its `top` kernels by
+    device time and the share of the kernels named in `mine`."""
+    busy = sum(r[1] for r in rows)
+    if busy <= 0:
+        print(f"[{tag}] {label}: torch.profiler recorded no device time here: idle share "
+              f"not measured")
+        return
+    print(f"[{tag}] {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+          f"{100 * (1 - busy / wall):.1f}%")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
+        print(f"[{tag}]   {ms:8.3f} ms {count:4d}x {key[:90]}")
+    if mine:
+        own = [r for r in rows if any(n in r[0] for n in mine)]
+        print(f"[{tag}]   K6-K8 kernels: {sum(r[1] for r in own):.3f} ms in "
+              f"{sum(r[2] for r in own)} launches, {100 * sum(r[1] for r in own) / busy:.1f}% "
+              f"of device busy")
+
+
+FLUSH_BYTES = 128 << 20  # written between calls timed with a cold L2 (50 MB on an H100)
+
+
+def kernel_ms(fn, names, bare=None, reps=5):
+    """A kernel's readings: `device_ms`, the device time of the launches of
+    one call of `fn` whose kernel names hold one of `names`, summed per call,
+    median of `reps` calls in one torch.profiler session (warm L2), and
+    `device_ms_cold` the same with FLUSH_BYTES written before each call;
+    `call_ms`, one call of the wrapper between two CUDA events (cuda_ms);
+    `device_launches_per_call`, those launches a call. Where the profiler
+    records none of them, `bare()` (20 launches of the bare C entry point
+    between two events, buffers allocated beforehand, in ms a launch) gives
+    `device_ms` and the cold reading is not measured. `ms` is `device_ms`,
+    and `ms_reading` says what it is."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+
+    def session(cold):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if cold:
+                    flush.fill_(1.0)
+                fn()
+            torch.cuda.synchronize()
+        mine = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and any(n in e.name for n in names)), key=lambda e: e.time_range.start)
+        if not mine or len(mine) % reps:
+            return None, len(mine)
+        per = len(mine) // reps
+        return [sum(e.time_range.elapsed_us() for e in mine[i * per:(i + 1) * per]) / 1e3
+                for i in range(reps)], per
+
+    fn()
+    warm, per_call = session(False)
+    cold, _ = session(True)
+    rec = {"call_ms": cuda_ms(fn, reps), "device_launches_per_call": per_call if warm else None}
+    if warm and cold:
+        rec.update(device_ms=float(np.median(warm)), device_ms_cold=float(np.median(cold)),
+                   ms_reading=f"device time of the kernel's launches under torch.profiler, "
+                              f"median of {reps} calls, warm L2")
+    else:
+        print(f"kernel_ms: torch.profiler recorded {per_call} launches of {names} in {reps} "
+              f"calls; timing 20 launches of the bare entry point between two CUDA events "
+              f"instead")
+        rec.update(device_ms=float(np.median([bare() for _ in range(reps)])),
+                   device_ms_cold=None,
+                   ms_reading="20 launches of the bare C entry point between two CUDA events, "
+                              f"median of {reps}, warm L2 (the profiler saw no device time)")
+    rec["ms"] = rec["device_ms"]
+    del flush
+    return rec
+
+
+def bare_launches(launch, n=20):
+    """ms a launch of `launch()` (a ctypes call on buffers allocated
+    beforehand), n launches between two CUDA events."""
+    import torch
+
+    launch()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def card_name_and_power():
@@ -1111,20 +1226,9 @@ def phase_train(k5b_ms=None):
     parts = [marks[i].elapsed_time(marks[i + 1]) for i in range(3)]
     print(f"[train] one step by CUDA events: forward+loss {parts[0]:.1f} ms, backward "
           f"{parts[1]:.1f} ms, optimizer {parts[2]:.1f} ms")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(model, optimizer, batch, generator)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-    busy = sum(r[1] for r in rows)
-    if busy > 0:
-        print(f"[train] profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle "
-              f"share {100 * (1 - busy / wall):.1f}%")
-        for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
-            print(f"[train]   {ms:8.2f} ms {count:4d}x {key[:90]}")
+    wall, rows = profiled(lambda: train_step(model, optimizer, batch, generator))
+    print_profile("train", "profiled step", wall, rows, top=8)
+    if rows:
         for label, kernel in (("K5", "encoder_accumulate_kernel"),
                               ("K5b", "encoder_backward_kernel")):
             mine = [r for r in rows if kernel in r[0]]
@@ -1132,8 +1236,6 @@ def phase_train(k5b_ms=None):
                   f"{sum(r[2] for r in mine)} launches"
                   + (f" ([k5b]'s five launches alone: {k5b_ms:.3f} ms)"
                      if label == "K5b" and k5b_ms is not None else ""))
-    else:
-        print("[train] torch.profiler recorded no device time here: idle share not measured")
     del model, optimizer, batch, before
 
     # kernels against their plain versions through one forward and backward:
@@ -1216,64 +1318,114 @@ def payload_like(rng, E, C=32):
     return torch.from_numpy(np.concatenate(cols, axis=1)).cuda()
 
 
-def phase_sorted_kernels(cloud_):
-    """[k7], [k6], [k8] on chunk 0 of the cloud's edges."""
+ADD_RATE = F32_FLOPS / 2  # f32 additions a second: one a cycle a lane, half the FMA flop rate
+
+
+def timed_line(tag, label, rec):
+    print(f"[{tag}] {label}: device {rec['device_ms']:.4f} ms (cold L2 "
+          f"{'not measured' if rec['device_ms_cold'] is None else format(rec['device_ms_cold'], '.4f')}"
+          f"), call {rec['call_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), library {rec['library_ms']:.4f} ms "
+          f"(medians of 5; {rec['ms_reading']})")
+
+
+def check_segments(name, limit, got, again, plain):
+    """Kernel against plain, each column to `limit` of its max-abs in the
+    plain result, and two launches bit for bit; returns the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    width = got.shape[-1]
+    err = (got - plain).abs().reshape(-1, width).amax(dim=0)
+    top = plain.abs().reshape(-1, width).amax(dim=0)
+    rel = (err / top).max().item()
+    print(f"[{name}] max_abs_err {err.max().item():.3e}; over the column's max-abs in the "
+          f"plain result (from {top.min().item():.3e} to {top.max().item():.3e}) at most "
+          f"{rel:.3e} (limit {limit:.0e}); two launches identical: {torch.equal(got, again)}")
+    if not (torch.isfinite(got).all() and rel <= limit and torch.equal(got, again)):
+        raise RuntimeError(f"{name} disagrees with its plain version or itself")
+    return err.max().item()
+
+
+def library_index_add(ids, data, M):
+    import torch
+
+    return torch.zeros((M + 1, data.shape[1]), device="cuda").index_add_(0, ids, data)
+
+
+def phase_k7(cloud_):
+    """[k7]: the prefix sum at a ragged shape and at the shapes of chunk 0 of
+    the cloud: its flat list ([E, 32], [E, 43]) and, for `sort`, its slots."""
     import torch
 
     from gaot3d_tpu_torch.kernels import prefix_sum as k7
-    from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
-    from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
-    from gaot3d_tpu_torch.ops.segment import make_tile_fold
 
     rng = np.random.default_rng(3)
-    M = LATENT[0] * LATENT[1] * LATENT[2]
-    add_rate = F32_FLOPS / 2  # one addition a cycle a lane: half the FMA flop rate
-
-    # [k7]: inclusive prefix sum, limit relative to the column's largest prefix
     E = cloud_["by_dst"].edges_per_chunk
-    rec7 = {}
+    lib = k7._library()
+    shapes = {}
     for rows, C in ((1003, 43), (E, 32), (CHUNK * BUDGET, 43), (E, 43)):
         x = payload_like(rng, rows)[:, :C].contiguous()
         got, again, plain = k7.prefix_sum(x), k7.prefix_sum(x), k7.prefix_sum_reference(x)
+        twin = k7.prefix_sum_ordered_reference(x)
         library = torch.cumsum(x, dim=0)
         torch.cuda.synchronize()
         top = plain.abs().amax(dim=0)
         rel = ((got - plain).abs() / top).max().item()
         rel_library = ((library - plain).abs() / top).max().item()
+        same = torch.equal(got, again) and torch.equal(got, twin)
         print(f"[k7] [{rows}, {C}]: kernel vs plain {rel:.3e} of the column's largest prefix "
               f"(limit {K7_BOUND:.0e}; torch.cumsum in float32 reads {rel_library:.3e}); two "
-              f"launches identical: {torch.equal(got, again)}")
-        if not (torch.isfinite(got).all() and rel <= K7_BOUND and torch.equal(got, again)):
-            raise RuntimeError(f"K7 [{rows}, {C}] disagrees with its plain version or itself")
-        if rows >= E:  # the main path's shapes: the flat lists' and, for `sort`, the slots'
-            rec = {"max_abs_err": (got - plain).abs().max().item(),
-                   "ms": cuda_ms(lambda: k7.prefix_sum(x)),
-                   "plain_ms": cuda_ms(lambda: k7.prefix_sum_reference(x)),
-                   **bound(2 * x.numel() * 4, add=x.numel() / add_rate),
-                   "library_ms": cuda_ms(lambda: torch.cumsum(x, 0))}
-            print(f"[k7] [{rows}, {C}] f32: kernel {rec['ms']:.3f} ms, plain "
-                  f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-                  f"({rec['bound_by']}), library torch.cumsum {rec['library_ms']:.3f} ms "
-                  f"(median of 5)")
-            rec7 = rec  # the [E, 43] shape, the last of the loop, is the one recorded
+              f"launches and the ordered twin bit for bit: {same}")
+        if not (torch.isfinite(got).all() and rel <= K7_BOUND and same):
+            raise RuntimeError(f"K7 [{rows}, {C}] disagrees with its plain version, its twin "
+                               f"or itself")
+        if rows < E:
+            continue
+        out = torch.empty_like(x)
+        R = k7.tile_rows(C)
+        blocks = -(-rows // (R * k7.SCAN_RADIX))
+        print(f"[k7] [{rows}, {C}]: tiles of {R} rows, {blocks} blocks of {k7.SCAN_RADIX} "
+              f"tiles, {lib.gaot_prefix_sum_ctas_per_sm(rows, C, R)} CTAs an SM")
+        scratch = torch.zeros(lib.gaot_prefix_sum_scratch_bytes(rows, C, R) + 16,
+                              dtype=torch.uint8, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        epoch = [0]
 
-    def library_index_add(ids, data):
-        return torch.zeros((M + 1, data.shape[1]), device="cuda").index_add_(0, ids, data)
+        def launch():
+            epoch[0] += 1
+            if lib.gaot_prefix_sum(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows, C, R,
+                                   k7.SCAN_RADIX, epoch[0], stream):
+                raise RuntimeError("K7's bare launch failed")
 
-    # [k6]: rows that arrive sorted (chunk 0 of the 'dst' list), padding at the tail
-    def check_segments(name, limit, got, again, plain):
-        torch.cuda.synchronize()
-        width = got.shape[-1]
-        err = (got - plain).abs().reshape(-1, width).amax(dim=0)
-        top = plain.abs().reshape(-1, width).amax(dim=0)
-        rel = (err / top).max().item()
-        print(f"[{name}] max_abs_err {err.max().item():.3e}; over the column's max-abs in the "
-              f"plain result (from {top.min().item():.3e} to {top.max().item():.3e}) at most "
-              f"{rel:.3e} (limit {limit:.0e}); two launches identical: {torch.equal(got, again)}")
-        if not (torch.isfinite(got).all() and rel <= limit and torch.equal(got, again)):
-            raise RuntimeError(f"{name} disagrees with its plain version or itself")
-        return err.max().item()
+        rec = {"max_abs_err": (got - plain).abs().max().item(),
+               **kernel_ms(lambda: k7.prefix_sum(x), k7.DEVICE_KERNELS,
+                           lambda: bare_launches(launch)),
+               "plain_ms": cuda_ms(lambda: k7.prefix_sum_reference(x)),
+               **bound(2 * x.numel() * 4, add=x.numel() / ADD_RATE),
+               "library_ms": cuda_ms(lambda: torch.cumsum(x, 0))}
+        timed_line("k7", f"[{rows}, {C}] f32", rec)
+        if rec["device_launches_per_call"] not in (1, None):
+            raise RuntimeError(f"K7 launched {rec['device_launches_per_call']} kernels a call")
+        shapes[f"{rows}x{C}"] = rec
+    # the record is the flat list's [E, 43], the last of the loop; the others ride along
+    rec = dict(shapes.pop(f"{E}x43"))
+    rec["other_shapes"] = {k: {n: v[n] for n in ("device_ms", "device_ms_cold", "call_ms",
+                                                 "bound_ms", "library_ms")}
+                           for k, v in shapes.items()}
+    return rec
 
+
+def phase_k6(cloud_):
+    """[k6]: rows that arrive sorted (chunk 0 of the 'dst' list, padding at
+    the tail), and a ragged small case."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
+
+    rng = np.random.default_rng(4)
+    M = LATENT[0] * LATENT[1] * LATENT[2]
+    E = cloud_["by_dst"].edges_per_chunk
     ids_small = torch.from_numpy(np.sort(np.where(
         rng.random(1003) < 0.9, rng.integers(0, 517, 1003), 517)).astype(np.int32)).cuda()
     data_small = payload_like(rng, 1003)
@@ -1288,16 +1440,37 @@ def phase_sorted_kernels(cloud_):
     err = check_segments(f"k6 [1, {E}, 43] ({n_valid} valid rows) -> [1, {M}, 43]", K6_BOUND,
                          k6.segment_sum_sorted(data, ids, M), k6.segment_sum_sorted(data, ids, M),
                          k6.segment_sum_sorted_reference(data, ids, M))
-    ids_long = ids[0].long()
-    rec6 = {"max_abs_err": err, "ms": cuda_ms(lambda: k6.segment_sum_sorted(data, ids, M)),
-            "plain_ms": cuda_ms(lambda: k6.segment_sum_sorted_reference(data, ids, M)),
-            **bound(n_valid * 43 * 4 + E * 4 + M * 43 * 4, add=n_valid * 43 / add_rate),
-            "library_ms": cuda_ms(lambda: library_index_add(ids_long, data[0]))}
-    print(f"[k6] one chunk: kernel {rec6['ms']:.3f} ms, plain {rec6['plain_ms']:.3f} ms, bound "
-          f"{rec6['bound_ms']:.3f} ms ({rec6['bound_by']}), library index_add_ "
-          f"{rec6['library_ms']:.3f} ms (median of 5)")
+    lib = k6._library()
+    out = torch.empty((1, M, 43), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
 
-    # [k8]: the slots of chunk 0, masked ones included, sorted on the card
+    def bare():
+        return bare_launches(lambda: lib.gaot_segment_sum_sorted(
+            data.data_ptr(), ids.data_ptr(), out.data_ptr(), 1, E, 43, M, stream))
+
+    ids_long = ids[0].long()
+    rec = {"max_abs_err": err,
+           **kernel_ms(lambda: k6.segment_sum_sorted(data, ids, M), k6.DEVICE_KERNELS, bare),
+           "plain_ms": cuda_ms(lambda: k6.segment_sum_sorted_reference(data, ids, M)),
+           **bound(n_valid * 43 * 4 + E * 4 + M * 43 * 4, add=n_valid * 43 / ADD_RATE),
+           "library_ms": cuda_ms(lambda: library_index_add(ids_long, data[0], M))}
+    timed_line("k6", "one chunk", rec)
+    return rec
+
+
+def phase_k8(cloud_):
+    """[k8]: the slots of chunk 0, masked ones included, sorted on the card,
+    read through perm; a ragged small case; K6 on the same sorted rows."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
+    from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
+    from gaot3d_tpu_torch.ops.segment import make_tile_fold
+
+    rng = np.random.default_rng(5)
+    M = LATENT[0] * LATENT[1] * LATENT[2]
+    ids_small = torch.from_numpy(np.sort(np.where(
+        rng.random(1003) < 0.9, rng.integers(0, 517, 1003), 517)).astype(np.int32)).cuda()
     fold_small = make_tile_fold(ids_small[torch.from_numpy(rng.permutation(1003)).cuda()], 517,
                                 seg_tile=100)
     shuffled = payload_like(rng, 1003)
@@ -1306,32 +1479,54 @@ def phase_sorted_kernels(cloud_):
         return k8.tile_segment_sum(rows, fold.sorted_seg, ts=fold.ts, num_segments=S,
                                    seg_tile=seg_tile, perm=fold.perm)
 
+    got_small = tile(fold_small, shuffled, 517, 100)
     check_segments("k8 ragged [1003, 43] -> [517, 43], seg_tile 100", K8_BOUND,
-                   tile(fold_small, shuffled, 517, 100), tile(fold_small, shuffled, 517, 100),
+                   got_small, tile(fold_small, shuffled, 517, 100),
                    k8.tile_segment_sum_reference(shuffled, fold_small.sorted_seg, fold_small.ts,
                                                  517, fold_small.perm))
+    if not torch.equal(got_small, k8.tile_segment_sum_ordered_reference(
+            shuffled, fold_small.sorted_seg, fold_small.ts, 517, fold_small.perm, seg_tile=100)):
+        raise RuntimeError("K8 ragged: not its ordered twin's bits")
     lat = cloud_["slots"].lat_idx[0, :CHUNK].reshape(-1)
     msk = cloud_["slots"].mask[0, :CHUNK].reshape(-1)
     rows = payload_like(rng, lat.shape[0])
     t_fold = cuda_ms(lambda: make_tile_fold(lat, M, msk))
     fold = make_tile_fold(lat, M, msk)
-    n_valid8 = int(msk.sum())
-    err = check_segments(f"k8 [{lat.shape[0]}, 43] ({n_valid8} valid rows) -> [{M}, 43]",
-                         K8_BOUND, tile(fold, rows, M), tile(fold, rows, M),
+    n_valid = int(msk.sum())
+    got = tile(fold, rows, M)
+    err = check_segments(f"k8 [{lat.shape[0]}, 43] ({n_valid} valid rows) -> [{M}, 43]",
+                         K8_BOUND, got, tile(fold, rows, M),
                          k8.tile_segment_sum_reference(rows, fold.sorted_seg, fold.ts, M,
                                                        fold.perm))
+    sorted_rows = rows[fold.perm.long()]
+    same_k6 = torch.equal(got, k6.segment_sum_sorted(sorted_rows, fold.sorted_seg, M))
+    same_sorted = torch.equal(got, k8.tile_segment_sum(sorted_rows, fold.sorted_seg, ts=fold.ts,
+                                                       num_segments=M))
+    same_twin = torch.equal(got, k8.tile_segment_sum_ordered_reference(
+        rows, fold.sorted_seg, fold.ts, M, fold.perm))
+    print(f"[k8] the same bits as its ordered twin: {same_twin}; as K6 on the sorted rows: "
+          f"{same_k6}; as K8 on the sorted rows without perm: {same_sorted}")
+    if not (same_twin and same_k6 and same_sorted):
+        raise RuntimeError("K8 differs from its twin, from K6, or from itself on the sorted rows")
+    lib = k8._library()
+    out = torch.empty((M, 43), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bare():
+        return bare_launches(lambda: lib.gaot_tile_segment_sum(
+            rows.data_ptr(), fold.sorted_seg.data_ptr(), fold.perm.data_ptr(),
+            fold.ts.data_ptr(), out.data_ptr(), 43, M, 512, stream))
+
     sorted_ids = fold.sorted_seg.long()
-    rec8 = {"max_abs_err": err, "ms": cuda_ms(lambda: tile(fold, rows, M)),
-            "plain_ms": cuda_ms(lambda: k8.tile_segment_sum_reference(
-                rows, fold.sorted_seg, fold.ts, M, fold.perm)),
-            **bound(n_valid8 * 43 * 4 + 2 * lat.shape[0] * 4 + M * 43 * 4,
-                    add=n_valid8 * 43 / add_rate),
-            "library_ms": cuda_ms(lambda: library_index_add(sorted_ids, rows[fold.perm.long()]))}
-    print(f"[k8] one chunk: kernel {rec8['ms']:.3f} ms (the sort and tile boundaries before it "
-          f"{t_fold:.3f} ms), plain {rec8['plain_ms']:.3f} ms, bound {rec8['bound_ms']:.3f} ms "
-          f"({rec8['bound_by']}), library gather + index_add_ {rec8['library_ms']:.3f} ms "
-          f"(median of 5)")
-    return rec7, rec6, rec8
+    rec = {"max_abs_err": err,
+           **kernel_ms(lambda: tile(fold, rows, M), k8.DEVICE_KERNELS, bare),
+           "plain_ms": cuda_ms(lambda: k8.tile_segment_sum_reference(
+               rows, fold.sorted_seg, fold.ts, M, fold.perm)),
+           **bound(n_valid * 43 * 4 + 2 * lat.shape[0] * 4 + M * 43 * 4,
+                   add=n_valid * 43 / ADD_RATE),
+           "library_ms": cuda_ms(lambda: library_index_add(sorted_ids, rows[fold.perm.long()], M))}
+    timed_line("k8", f"one chunk (the sort and tile boundaries before it {t_fold:.3f} ms)", rec)
+    return rec
 
 
 def phase_flat(cloud_):
@@ -1352,6 +1547,7 @@ def phase_flat(cloud_):
                 "k5": k5.encoder_accumulate, "k5b": k5.encoder_accumulate_backward,
                 "k6": k6.segment_sum_sorted, "k7": k7.prefix_sum, "k8": k8.tile_segment_sum}
     total = dict.fromkeys(counters, 0)
+    sorted_names = k6.DEVICE_KERNELS + k7.DEVICE_KERNELS + k8.DEVICE_KERNELS
     secs = cloud_["seconds"]
     nc = cloud_["by_dst"].num_chunks
     print(f"[flat] host: graph build {secs['graph'] * 1e3:.1f} ms, flatten by node "
@@ -1389,6 +1585,16 @@ def phase_flat(cloud_):
               f"request {got}; finite={ok}; accumulator of two requests identical: {same}")
         if not ok or got != expect:
             raise RuntimeError(f"{label}: bad output, or launches {got} where {expect} expected")
+        # one more warm forward under the profiler: where its device time goes
+        for fn in counters.values():
+            fn.launches = 0
+        wall, rows = profiled(lambda: infer(pos, feats, mask, enc, dec))
+        got = {n: fn.launches for n, fn in counters.items() if fn.launches}
+        if got != expect:
+            raise RuntimeError(f"{label}: the profiled forward launched {got}")
+        for n, v in got.items():
+            total[n] += v
+        print_profile("flat", f"{label}, profiled warm forward", wall, rows, mine=sorted_names)
         return outs[1], seen[1], same, times[1]
 
     def against(label, out, acc, ref_out, ref_acc, fold):
@@ -1826,14 +2032,18 @@ def phase_trainer_split(card, fused_ms):
     return total
 
 
+FLAT_PHASES = {"k7": phase_k7, "k6": phase_k6, "k8": phase_k8, "flat": phase_flat}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--flat-seed", type=int, default=31,
                         help="seed of the cloud of the [k6], [k7], [k8] and [flat] phases")
     parser.add_argument("--only", default="",
                         help="comma-separated subset of k1, attention-train, k3, k5, trainer, "
-                             "trainer-split, t1: run just these phases (kernels build at first "
-                             "use) and print no record")
+                             "trainer-split, t1, k7, k6, k8, flat: run just these phases "
+                             "(kernels build at first use; the last four share one cloud) and "
+                             "print no record")
     args = parser.parse_args()
     import torch
 
@@ -1850,7 +2060,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if args.only:
         fused_ms = float("nan")
+        flat_input = None
         for name in args.only.split(","):
+            if name in FLAT_PHASES and flat_input is None:  # one cloud for all four
+                flat_input = flat_cloud(args.flat_seed, N_POINTS, LatentGrid(dims=LATENT))
             if name == "k1":
                 phase_k1()
             elif name == "attention-train":
@@ -1870,10 +2083,16 @@ def main():
                 _, fused_ms = phase_trainer(card)
             elif name == "trainer-split":
                 phase_trainer_split(card, fused_ms)
+            elif name in FLAT_PHASES:
+                FLAT_PHASES[name](flat_input)
             else:
                 parser.error(f"unknown phase {name!r}")
         return 0
     phase_build()
+    # first, while no phase has profiled yet: later in the process torch.profiler
+    # has recorded none of these kernels' short launches
+    flat_input = flat_cloud(args.flat_seed, N_POINTS, LatentGrid(dims=LATENT))
+    k7, k6, k8 = phase_k7(flat_input), phase_k6(flat_input), phase_k8(flat_input)
     k1 = phase_k1()
     k5, k5b = phase_k5()
     serve = phase_serve()
@@ -1886,8 +2105,6 @@ def main():
     split = phase_trainer_split(card, fused_ms)
     shutil.rmtree(TRAINER_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
-    flat_input = flat_cloud(args.flat_seed, N_POINTS, LatentGrid(dims=LATENT))
-    k7, k6, k8 = phase_sorted_kernels(flat_input)
     flat = phase_flat(flat_input)
     del flat_input
     t1 = phase_t1()

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels (K1,
-// K2, K3): shared-memory addresses, mbarriers, TMA tensor maps and loads, bulk
-// copies and reduce-add, wgmma descriptors and the wgmma instructions themselves, named
-// barriers and register reallocation. Written out in PTX, as in NVIDIA's PTX
+// K2, K3) and the prefix sum (K7): shared-memory addresses, mbarriers, TMA
+// tensor maps and loads, bulk copies and reduce-add, wgmma descriptors and the
+// wgmma instructions themselves, named barriers and register reallocation. Written out in PTX, as in NVIDIA's PTX
 // ISA manual; no library beyond the CUDA headers.
 //
 // Swizzle: a TMA tile whose rows are 32, 64 or 128 bytes is stored with the
@@ -79,6 +79,14 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) copied from
+// shared to global memory by the bulk-copy engine, in the current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(src), "r"(bytes)
+               : "memory");
 }
 
 // generic-proxy writes to shared memory, made visible to the async proxy

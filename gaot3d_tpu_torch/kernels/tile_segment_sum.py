@@ -18,6 +18,11 @@ CUDA kernel loops over a tile's rows however many they are, so both
 parameters are accepted and ignored. With `perm`, `sorted_data` holds the
 rows in their original order and row r of the sorted order is
 `sorted_data[perm[r]]`: the kernel gathers while it sums.
+
+The kernel sums each segment in row order from 0.0 in float32, as K6 does;
+`tile_segment_sum_ordered_reference` repeats that order with plain torch
+ops and gives its bits. The plain version adds with `index_add_`, whose order
+on the card is not fixed: compare relative to each column's size.
 """
 from __future__ import annotations
 
@@ -29,10 +34,12 @@ import torch
 from .build import load_cuda_library
 from .prefix_sum import cumsum_fast
 
+# the kernel a call launches, by the name a profiler shows
+DEVICE_KERNELS = ("tile_segment_sum_kernel",)
+
 
 def _library() -> ctypes.CDLL:
-    lib = load_cuda_library("tile_segment_sum", "tile_segment_sum.cu",
-                            headers=["segment_walk.cuh"])
+    lib = load_cuda_library("tile_segment_sum", "tile_segment_sum.cu")
     lib.gaot_tile_segment_sum.restype = ctypes.c_int
     lib.gaot_tile_segment_sum.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -90,6 +97,37 @@ def tile_segment_sum_reference(sorted_data: torch.Tensor, sorted_seg: torch.Tens
                       device=rows.device)
     out.index_add_(0, ids, rows.to(torch.float32))
     return out[:num_segments]
+
+
+def tile_segment_sum_ordered_reference(sorted_data: torch.Tensor, sorted_seg: torch.Tensor,
+                                       ts: torch.Tensor, num_segments: int,
+                                       perm: Optional[torch.Tensor] = None,
+                                       seg_tile: int = 512) -> torch.Tensor:
+    """`tile_segment_sum` by the kernel's own order, in float32 additions:
+    each segment starts from 0.0 and, for k = 0, 1, ..., adds its k-th row.
+    A row counts when its id s lies in [0, num_segments) and the row lies
+    among its tile's rows [ts[s // seg_tile], ts[s // seg_tile + 1]). The
+    same bits as the kernel, and as K6 on the same sorted rows."""
+    rows = (sorted_data if perm is None else sorted_data[perm.long()]).to(torch.float32)
+    ids = sorted_seg.long()
+    E, P = rows.shape
+    at = torch.arange(E, device=ids.device)
+    tile = ids.clamp(0, num_segments - 1) // seg_tile
+    tsl = ts.long()
+    keep = ((ids >= 0) & (ids < num_segments) & (at >= tsl[tile]) & (at < tsl[tile + 1]))
+    kept, seg = rows[keep], ids[keep]
+    out = torch.zeros((num_segments, P), dtype=torch.float32, device=rows.device)
+    if seg.numel() == 0:
+        return out
+    # rank of each kept row within its segment (the kept rows of a segment are adjacent)
+    pos = torch.arange(seg.numel(), device=seg.device)
+    first = torch.ones_like(seg, dtype=torch.bool)
+    first[1:] = seg[1:] != seg[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), dim=0).values
+    for k in range(int(rank.max()) + 1):
+        at_k = rank == k
+        out[seg[at_k]] = out[seg[at_k]] + kept[at_k]
+    return out
 
 
 def tile_segment_sum(sorted_data: torch.Tensor, sorted_seg: torch.Tensor,

@@ -551,10 +551,12 @@ def test_train_step_on_card_matches_cpu():
 @pytest.mark.parametrize("E,C", [(1, 1), (31, 43), (160, 43), (161, 43), (5000, 32), (100_003, 43),
                                  (777, 1), (4097, 7), (300, 300), (40_000, 64)])
 def test_prefix_sum_kernel_matches_plain(E, C):
-    """Against the float64 cumsum: 2e-6 of the largest prefix of each column
-    (the kernel adds 32 rows in order, then group and block totals, so its
-    rounding follows the running sum). Against the plain float32 cumsum, whose
-    own rounding reads 1e-5 at 163,840 rows: 3e-5. Two launches bit for bit."""
+    """Against its ordered twin bit for bit: each column of a tile of
+    `tile_rows(C)` rows in row order, then the tree over tile totals in
+    groups of 32. Against the float64 cumsum: 2e-6 of the largest prefix of
+    each column (that association's rounding follows the running sum).
+    Against the plain float32 cumsum, whose own rounding reads 1e-5 at
+    163,840 rows: 3e-5. Two launches bit for bit, one launch a call."""
     rng = np.random.default_rng(E + C)
     x = torch.from_numpy(rng.normal(size=(E, C)).astype(np.float32)).cuda()
     before = k7.prefix_sum.launches
@@ -563,6 +565,7 @@ def test_prefix_sum_kernel_matches_plain(E, C):
     torch.cuda.synchronize()
     assert k7.prefix_sum.launches == before + 2
     assert torch.equal(got, again)
+    assert torch.equal(got, k7.prefix_sum_ordered_reference(x))
     want = torch.cumsum(x.double(), dim=0)
     top = want.abs().amax(dim=0).clamp_min(1.0)
     assert ((got.double() - want).abs() / top).max().item() <= 2e-6
@@ -674,7 +677,9 @@ def test_segment_sum_sorted_kernel_batches_on_the_grid():
 @pytest.mark.parametrize("E,S,P,n_valid,hot", _SEGMENT_CASES)
 def test_tile_segment_sum_kernel_matches_plain(E, S, P, n_valid, hot, seg_tile):
     """From tile boundaries and from full starts, over sorted rows and over
-    unsorted rows read through perm: all four the same bits."""
+    unsorted rows read through perm: all four the same bits, those of the
+    ordered twin (each segment in row order from 0) and of K6 on the same
+    sorted rows."""
     rng = np.random.default_rng(E + S + seg_tile)
     data, ids = _sorted_rows(rng, E, S, P, n_valid, hot)
     ts = k8.tile_boundaries(ids, S, seg_tile)
@@ -692,6 +697,9 @@ def test_tile_segment_sum_kernel_matches_plain(E, S, P, n_valid, hot, seg_tile):
     perm = torch.argsort(shuffle).to(torch.int32)  # data[shuffle][perm] == data
     assert torch.equal(got, k8.tile_segment_sum(data[shuffle], ids, ts=ts, num_segments=S,
                                                 seg_tile=seg_tile, perm=perm))
+    assert torch.equal(got, k8.tile_segment_sum_ordered_reference(data, ids, ts, S,
+                                                                  seg_tile=seg_tile))
+    assert torch.equal(got, k6.segment_sum_sorted(data, ids, S))
     plain = k8.tile_segment_sum_reference(data, ids, ts, S)
     _assert_close_to_plain(got, plain, data, ids, S)
 
