@@ -71,10 +71,11 @@ Phases, each of which raises (exit code 1) on failure:
      65,536-node chunk of a 524,288-point cloud gives them (its flat list,
      and for K7 under `sort` and K8 its 327,680 slots), each column held to
      its own size, two launches and each kernel's ordered twin compared bit
-     for bit, K8 against K6 on the same sorted rows bit for bit, K7 one
-     launch a call; each timed by the device time of its own launches under
-     torch.profiler (`device_ms`, warm and with a cold L2) and as one wrapper
-     call between two CUDA events (`call_ms`);
+     for bit, K8 against K6 on the same sorted rows bit for bit, K7 and K6
+     one launch a call, K6 also at three batches; each timed by the device
+     time of its own launches under torch.profiler (`device_ms`, warm and
+     with a cold L2) and as one wrapper call between two CUDA events
+     (`call_ms`);
  14. [flat] the recipe over flat edge lists and the sorted reductions: config
      A (flat 'dst' lists, K6 for the encoder, K7 folds by node for the
      decoder) is exported, loaded and serves the cloud twice (accumulator bit
@@ -92,7 +93,8 @@ Phases, each of which raises (exit code 1) on failure:
      to a limit relative to its value and the non-finite positions compared
      as sets; then the probe's entry point
      (`gaot3d_tpu_torch.tools.microbench_vpu_bf16.run`) at reps 64, grid 64,
-     and each case's plain time.
+     and each case's plain time; each case's bound from the instructions an
+     element-step of the kernel's own SASS, by pipe and in issue slots.
 Yardsticks off the main path (`library_ms`): torch's
 scaled_dot_product_attention forward and backward at the recipe shape,
 `torch.cumsum` and `index_add_`.
@@ -439,21 +441,48 @@ def sass(path, *args):
                           check=True, timeout=300).stdout
 
 
-def sass_ops(text):
-    """Counts of FP32-pipe instructions (F* opcodes) and special-function
-    instructions (MUFU) in SASS text."""
-    fp32 = mufu = 0
+SASS_FP32 = ("FFMA", "FADD", "FMUL", "FMNMX", "FSETP", "FSEL", "FSET", "FRND", "FCHK",
+             "FFMA32I", "FADD32I", "FMUL32I")
+SASS_INT = ("IADD3", "IMAD", "LOP3", "SHF", "ISETP", "SEL", "PRMT", "LEA", "IABS", "IMNMX",
+            "IADD", "LOP", "SHL", "SHR", "BMSK", "POPC", "FLO", "BREV", "VIADD", "VIMNMX")
+
+
+def sass_functions(text):
+    """{kernel name: its SASS instructions as (opcode with modifiers, line)}
+    in cuobjdump -sass output (those before any function's name under "")."""
+    out, name = {"": []}, ""
     for line in text.splitlines():
-        if "/*" not in line or ";" not in line:
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            out[name] = []
+        elif "/*" in line and ";" in line:
+            words = line.split("*/", 1)[1].replace(";", " ").split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                out[name].append((words[0], line))
+    return out
+
+
+def sass_pipes(instructions):
+    """Counts of instructions by pipe: MUFU, FP32 (the F* arithmetic),
+    integer and logic, packed half (H*2), and every instruction issued (the
+    issue slots; NOPs are padding and not counted)."""
+    counts = {"mufu": 0, "fp32": 0, "int": 0, "half": 0, "issue": 0}
+    for op, _ in instructions:
+        base = op.split(".")[0]
+        if base == "NOP":
             continue
-        op = line.split("*/", 1)[1].strip().split(" ")[0].lstrip("@!P0123456789T ")
-        if op.startswith("MUFU"):
-            mufu += 1
-        elif op[:1] == "F" and op.split(".")[0] in ("FFMA", "FADD", "FMUL", "FMNMX", "FSETP",
-                                                     "FSEL", "FSET", "FRND", "FCHK",
-                                                     "FFMA32I", "FADD32I", "FMUL32I"):
-            fp32 += 1
-    return fp32, mufu
+        counts["issue"] += 1
+        if base == "MUFU":
+            counts["mufu"] += 1
+        elif base in SASS_FP32:
+            counts["fp32"] += 1
+        elif base in SASS_INT:
+            counts["int"] += 1
+        elif base.startswith("H") and base.endswith("2"):
+            counts["half"] += 1
+    return counts
 
 
 def gelu_instructions():
@@ -469,8 +498,11 @@ def gelu_instructions():
             f.write(GELU_PROBE)
         subprocess.run([find_nvcc(), "-cubin", "-O3", "-gencode", arch, "-o", out, src],
                        check=True, capture_output=True, timeout=300)
-        counts = {name: sass_ops(sass(out, "-fun", name))
-                  for name in ("copy", "gelu", "gelu_and_grad")}
+        counts = {}
+        for name in ("copy", "gelu", "gelu_and_grad"):
+            pipes = sass_pipes([ins for f in sass_functions(sass(out, "-fun", name)).values()
+                                for ins in f])
+            counts[name] = (pipes["fp32"], pipes["mufu"])
     base = counts["copy"]
     return {name: (c[0] - base[0], c[1] - base[1]) for name, c in counts.items() if name != "copy"}
 
@@ -1416,9 +1448,29 @@ def phase_k7(cloud_):
     return rec
 
 
+def k6_occupancy():
+    """K6's share at the recipe's 43 columns and the CTAs an SM holds."""
+    from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
+
+    share = k6.share_items(43)
+    ctas = k6._library().gaot_segment_sum_sorted_ctas_per_sm(43, share)
+    print(f"[k6] at P = 43: shares of {share} items, {ctas} CTAs an SM")
+    if ctas < 1:
+        raise RuntimeError("K6 fits no CTA on an SM")
+
+
+def host_us(fn, n=2000):
+    """Host microseconds a call of fn, over n calls."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
 def phase_k6(cloud_):
     """[k6]: rows that arrive sorted (chunk 0 of the 'dst' list, padding at
-    the tail), and a ragged small case."""
+    the tail), a ragged small case and three batches; each against its plain
+    version and, bit for bit, its ordered twin, and timed."""
     import torch
 
     from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
@@ -1426,35 +1478,79 @@ def phase_k6(cloud_):
     rng = np.random.default_rng(4)
     M = LATENT[0] * LATENT[1] * LATENT[2]
     E = cloud_["by_dst"].edges_per_chunk
+    lib = k6._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    k6_occupancy()
+
+    def measure(label, data, ids, S):
+        B, rows, P = data.shape
+        got = k6.segment_sum_sorted(data, ids, S)
+        err = check_segments(f"k6 {label}", K6_BOUND, got, k6.segment_sum_sorted(data, ids, S),
+                             k6.segment_sum_sorted_reference(data, ids, S))
+        share = k6.share_items(P)
+        same = torch.equal(got, k6.segment_sum_sorted_ordered_reference(data, ids, S, share))
+        print(f"[k6] {label}: {-(-(rows + S) // share)} shares of {share} items a batch; the "
+              f"same bits as its ordered twin: {same}")
+        if not same:
+            raise RuntimeError(f"K6 {label}: not its ordered twin's bits")
+        out = torch.empty_like(got)
+
+        def bare():
+            return bare_launches(lambda: lib.gaot_segment_sum_sorted(
+                data.data_ptr(), ids.data_ptr(), out.data_ptr(), B, rows, P, S, share, stream))
+
+        keep = (ids >= 0) & (ids < S)
+        n_valid = int(keep.sum())
+        # index_add_ over the batches at once, each batch's rows onto its own S + 1 cells
+        flat_ids = (torch.where(keep, ids, S).long()
+                    + (S + 1) * torch.arange(B, device="cuda")[:, None]).reshape(-1)
+        flat_rows = data.reshape(-1, P)
+        rec = {"max_abs_err": err,
+               **kernel_ms(lambda: k6.segment_sum_sorted(data, ids, S), k6.DEVICE_KERNELS, bare),
+               "plain_ms": cuda_ms(lambda: k6.segment_sum_sorted_reference(data, ids, S)),
+               **bound(n_valid * P * 4 + B * rows * 4 + B * S * P * 4,
+                       add=n_valid * P / ADD_RATE),
+               "library_ms": cuda_ms(lambda: library_index_add(flat_ids, flat_rows,
+                                                               B * (S + 1) - 1))}
+        timed_line("k6", label, rec)
+        if rec["device_launches_per_call"] not in (1, None):
+            raise RuntimeError(f"K6 launched {rec['device_launches_per_call']} kernels a call")
+        return rec
+
     ids_small = torch.from_numpy(np.sort(np.where(
         rng.random(1003) < 0.9, rng.integers(0, 517, 1003), 517)).astype(np.int32)).cuda()
-    data_small = payload_like(rng, 1003)
-    check_segments("k6 ragged [1003, 43] -> [517, 43]", K6_BOUND,
-                   k6.segment_sum_sorted(data_small, ids_small, 517),
-                   k6.segment_sum_sorted(data_small, ids_small, 517),
-                   k6.segment_sum_sorted_reference(data_small, ids_small, 517))
+    small = measure("ragged [1003, 43] -> [517, 43]", payload_like(rng, 1003)[None],
+                    ids_small[None], 517)
+    # three batches of tests/test_torch_port_cuda.py's shape, 3000, 2100 and 3 valid rows
+    ids3 = torch.from_numpy(np.stack([np.sort(np.where(
+        np.arange(3000) < n, rng.integers(0, 257, 3000), 257)).astype(np.int32)
+        for n in (3000, 2100, 3)])).cuda()
+    three = measure("B = 3 [3, 3000, 43] -> [3, 257, 43]",
+                    payload_like(rng, 9000).reshape(3, 3000, 43), ids3, 257)
     mask = cloud_["by_dst"].mask[:, 0]
     ids = torch.where(mask, cloud_["by_dst"].dst[:, 0], torch.full_like(mask, M, dtype=torch.int32))
-    data = payload_like(rng, E)[None]
-    n_valid = int(mask.sum())
-    err = check_segments(f"k6 [1, {E}, 43] ({n_valid} valid rows) -> [1, {M}, 43]", K6_BOUND,
-                         k6.segment_sum_sorted(data, ids, M), k6.segment_sum_sorted(data, ids, M),
-                         k6.segment_sum_sorted_reference(data, ids, M))
-    lib = k6._library()
-    out = torch.empty((1, M, 43), device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
+    rec = measure(f"[1, {E}, 43] ({int(mask.sum())} valid rows) -> [1, {M}, 43]",
+                  payload_like(rng, E)[None], ids, M)
+    # host cost of the two steps PR 8's wrapper took on every call and this one
+    # does not: setting ctypes' argtypes, and entering the tensor's device
+    fn = lib.gaot_segment_sum_sorted
+    types = list(fn.argtypes)
+    device = torch.device("cuda", torch.cuda.current_device())
 
-    def bare():
-        return bare_launches(lambda: lib.gaot_segment_sum_sorted(
-            data.data_ptr(), ids.data_ptr(), out.data_ptr(), 1, E, 43, M, stream))
+    def set_types():
+        fn.argtypes = types
 
-    ids_long = ids[0].long()
-    rec = {"max_abs_err": err,
-           **kernel_ms(lambda: k6.segment_sum_sorted(data, ids, M), k6.DEVICE_KERNELS, bare),
-           "plain_ms": cuda_ms(lambda: k6.segment_sum_sorted_reference(data, ids, M)),
-           **bound(n_valid * 43 * 4 + E * 4 + M * 43 * 4, add=n_valid * 43 / ADD_RATE),
-           "library_ms": cuda_ms(lambda: library_index_add(ids_long, data[0], M))}
-    timed_line("k6", "one chunk", rec)
+    def enter_device():
+        with torch.cuda.device(device):
+            pass
+
+    rec["host_us_removed"] = {"argtypes": host_us(set_types), "device": host_us(enter_device)}
+    print(f"[k6] the call {rec['call_ms']:.4f} ms; the steps it no longer takes, host us a "
+          f"call: setting argtypes {rec['host_us_removed']['argtypes']:.1f}, entering the "
+          f"device {rec['host_us_removed']['device']:.1f}")
+    rec["other_shapes"] = {name: {n: r[n] for n in ("device_ms", "device_ms_cold", "call_ms",
+                                                   "bound_ms", "library_ms")}
+                           for name, r in (("ragged 1003x43", small), ("3x3000x43", three))}
     return rec
 
 
@@ -1735,6 +1831,43 @@ def phase_flat(cloud_):
     return total
 
 
+# T1's bound: each pipe's instructions over its rate, in thread instructions a
+# second. An SM sub-partition issues one warp instruction a clock, so the
+# issue slots' rate is the FP32 pipe's (32 lanes a sub-partition); the packed
+# half (H*2) instructions have no rate of their own here, since whether one
+# issues at the f32 rate is what the probe measures: they count in the issue
+# slots only.
+T1_RATES = {"mufu": SFU_OPS, "fp32": FP32_OPS, "int": INT32_OPS, "issue": FP32_OPS}
+
+
+def t1_instructions():
+    """Instructions a thread spends on one element-step of each T1 case, by
+    pipe, from the SASS of the built library: the kernel unrolled 64 times
+    less the one unrolled 32 times, over 32 steps of its 8 elements. Prints
+    them, and how many MUFU ops a packed bf16x2 exponential takes."""
+    from gaot3d_tpu_torch.kernels import build
+
+    funcs = sass_functions(sass(os.path.join(build.BUILD_DIR, "libelementwise_chain.so")))
+
+    def kernel(dtype, chain, reps):
+        found = [v for k, v in funcs.items()
+                 if f"chain_{dtype}_kernelILi{chain}ELi{reps}E" in k]
+        if len(found) != 1:
+            raise RuntimeError(f"T1: {len(found)} SASS functions for {dtype} {chain} {reps}")
+        return sass_pipes(found[0])
+
+    out = {}
+    for c, chain in enumerate(("exp", "select")):
+        for dtype, name in (("f32", "float32"), ("bf16", "bfloat16")):
+            hi, lo = kernel(dtype, c, 64), kernel(dtype, c, 32)
+            out[f"{chain} {name}"] = {pipe: (hi[pipe] - lo[pipe]) / (32 * 8) for pipe in hi}
+            print(f"[t1] SASS of {chain} {name}, instructions a thread an element-step: "
+                  + ", ".join(f"{p} {v:.3f}" for p, v in out[f"{chain} {name}"].items()))
+    print(f"[t1] ex2.approx.ftz.bf16x2 takes {2 * out['exp bfloat16']['mufu']:.2f} MUFU "
+          f"instructions a packed pair of elements")
+    return out
+
+
 def phase_t1():
     """[t1]: the elementwise-chain probe against its plain version, then
     through its entry point at the defaults, counted."""
@@ -1784,22 +1917,22 @@ def phase_t1():
     if launches != 2 * 2 * (1 + probe.STEPS):
         raise RuntimeError(f"[t1] the probe launched the kernel {launches} times")
     steps = probe.BLOCK[0] * probe.BLOCK[1] * reps * grid
-    # one special-function op an exp step; a select step's multiply and add on
-    # the FP32 pipe (its compare and select issue beside them); bf16 counts a
-    # packed op for two elements, as if it issued at f32's rate
-    pipe = {"exp": SFU_OPS, "select": F32_FLOPS / 2 / 2}
+    per_step = t1_instructions()
     for key, case in cases.items():
         chain, name = key.split()
         dtype = getattr(torch, name)
         x = x32.to("cuda", dtype)
-        per_op = 2 if dtype == torch.bfloat16 else 1
-        case.update(bound(2 * x.numel() * x.element_size(),
-                          **{chain: steps / per_op / pipe[chain]}))
+        counts = per_step[key]
+        times = {pipe: steps * counts[pipe] / rate for pipe, rate in T1_RATES.items()}
+        case.update(bound(2 * x.numel() * x.element_size(), **times))
+        case["bound_pipe"] = max(times, key=times.get)
+        case["sass_per_element_step"] = counts
         case["plain_ms"] = cuda_ms(lambda: [t1.chain_plain(x, chain, reps) for _ in range(grid)],
                                    reps=3)
         print(f"[t1] {key} reps {reps} grid {grid}: kernel {case['ms']:.3f} ms "
               f"({case['gelem_s']:.1f} Gelem/s), bound {case['bound_ms']:.3f} ms "
-              f"({case['bound_by']}), plain {case['plain_ms']:.3f} ms")
+              f"({case['bound_by']}: {case['bound_pipe']}; the kernel at "
+              f"{case['bound_ms'] / case['ms']:.2f} of it), plain {case['plain_ms']:.3f} ms")
     head = cases["exp float32"]
     return {"max_abs_err": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": None,

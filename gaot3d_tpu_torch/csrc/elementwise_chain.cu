@@ -23,20 +23,17 @@
 //         element-step;
 //   bf16: ex2.approx.ftz.bf16x2 of (acc * 0.9) * log2e with packed multiplies,
 //         one packed special-function op for two elements.
-// The select step is a compare, a multiply, an add and a select: the multiply
-// and the add on the FP32 pipe, the compare and the select issued beside them
-// (packed ops for two elements in bf16).
+// The select step is a compare, a multiply, an add and a select (packed ops
+// for two elements in bf16).
 //
 // What bounds it on an H100 (at the defaults reps 64, grid 64: 2.15e9
 // element-steps; the block is 2 MB in f32 and stays in L2, so memory is no
-// limit):
-//   exp f32:    one special-function op an element-step, 2.15e9 / 4.19e12
-//               (16 lanes an SM a clock) = 0.512 ms;
-//   select f32: 2 FP32-pipe ops an element-step, 2.15e9 * 2 / 3.35e13 (128
-//               lanes an SM a clock) = 0.128 ms;
-//   bf16:       the same counts of packed ops for half as many registers, so
-//               half those times if a packed op issues at the f32 op's rate,
-//               which is the question the probe asks.
+// limit) is instruction issue. chip_smoke.py's [t1] counts it in this
+// kernel's own SASS: each pipe's instructions an element-step over its rate
+// (MUFU 16 lanes an SM a clock, FP32 128, integer and logic 64), and all of
+// them over the issue slots (one warp instruction a clock a sub-partition);
+// the largest is the bound. bf16's packed instructions get no rate of their
+// own there: whether they issue at the f32 rate is what the probe asks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels (K1,
-// K2, K3) and the prefix sum (K7): shared-memory addresses, mbarriers, TMA
-// tensor maps and loads, bulk copies and reduce-add, wgmma descriptors and the
-// wgmma instructions themselves, named barriers and register reallocation. Written out in PTX, as in NVIDIA's PTX
-// ISA manual; no library beyond the CUDA headers.
+// K2, K3), the prefix sum (K7) and the sorted segment sums (K6, K8):
+// shared-memory addresses, mbarriers, TMA tensor maps and loads, bulk copies
+// and reduce-add, a search by the whole CTA, wgmma descriptors and the wgmma
+// instructions themselves, named barriers and register reallocation. Written
+// out in PTX, as in NVIDIA's PTX ISA manual; no library beyond the CUDA
+// headers.
 //
 // Swizzle: a TMA tile whose rows are 32, 64 or 128 bytes is stored with the
 // 32B, 64B or 128B swizzle (the 16-byte chunk index XORed with address bits
@@ -114,6 +116,32 @@ __device__ __forceinline__ void bulk_wait_read() {
 // every committed bulk operation has completed
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// ---- a search by the whole CTA --------------------------------------------
+// Narrows [lo, hi), in which the first index whose key is >= target lies
+// (hi if none; key nondecreasing), until it is at most `width` long, and
+// returns its new lo: the index lies in [lo, lo + width]. Every one of the
+// THREADS threads calls it and returns the same. Each round every thread
+// probes one of THREADS evenly spaced indices, so a range of n takes about
+// log_THREADS(n / width) rounds of one load a thread.
+template <int THREADS, class Key>
+__device__ int cta_narrow(int lo, int hi, int target, Key key, int width) {
+  while (hi - lo > width) {
+    const int step = (hi - lo + THREADS - 1) / THREADS;
+    const int p = lo + threadIdx.x * step;
+    const int below = __syncthreads_count(p < hi && key(p) < target);
+    const int next_lo = below > 0 ? lo + (below - 1) * step + 1 : lo;
+    hi = min(hi, lo + below * step);
+    lo = next_lo;
+  }
+  return lo;
+}
+
+// The first index of [lo, hi) whose key is >= target (hi if none).
+template <int THREADS, class Key>
+__device__ int cta_lower_bound(int lo, int hi, int target, Key key) {
+  return cta_narrow<THREADS>(lo, hi, target, key, 0);
 }
 
 // ---- named barriers, register reallocation ---------------------------------

@@ -38,6 +38,8 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 // What sets the pace is how many parts' loads an SM keeps in flight: the
@@ -68,21 +70,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-// The first row of [lo, hi) whose id is >= target (hi if none), ids
-// nondecreasing; every thread of the CTA returns it. Each round every
-// thread probes one of THREADS evenly spaced rows.
-__device__ int cta_lower_bound(const int* __restrict__ ids, int lo, int hi, int target) {
-  while (lo < hi) {
-    const int step = (hi - lo + THREADS - 1) / THREADS;
-    const int p = lo + threadIdx.x * step;
-    const int below = __syncthreads_count(p < hi && __ldg(ids + p) < target);
-    const int next_lo = below > 0 ? lo + (below - 1) * step + 1 : lo;
-    hi = min(hi, lo + below * step);
-    lo = next_lo;
-  }
-  return lo;
-}
-
 __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
     tile_segment_sum_kernel(const float* __restrict__ data, const int* __restrict__ ids,
                             const int* __restrict__ perm, const int* __restrict__ ts,
@@ -103,7 +90,9 @@ __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
   // 1. the first row of each segment (row_end when none follows)
   for (int k = tid; k <= nseg; k += THREADS) start[k] = row_end;
   int lo = ts[t];
-  if (row_end - lo > SMALL_TILE) lo = cta_lower_bound(ids, lo, row_end, seg_lo);
+  if (row_end - lo > SMALL_TILE)
+    lo = gaot::cta_lower_bound<THREADS>(lo, row_end, seg_lo,
+                                        [&](int r) { return __ldg(ids + r); });
   __syncthreads();
   for (int base = lo; base < row_end; base += THREADS * IDS_PER_THREAD) {
     int cur[IDS_PER_THREAD], prev[IDS_PER_THREAD];

@@ -33,13 +33,15 @@ import torch
 
 from .build import load_cuda_library
 from .prefix_sum import cumsum_fast
+from .segment_sum_sorted import sum_in_row_order
 
 # the kernel a call launches, by the name a profiler shows
 DEVICE_KERNELS = ("tile_segment_sum_kernel",)
 
 
 def _library() -> ctypes.CDLL:
-    lib = load_cuda_library("tile_segment_sum", "tile_segment_sum.cu")
+    lib = load_cuda_library("tile_segment_sum", "tile_segment_sum.cu",
+                            headers=["hopper.cuh"])
     lib.gaot_tile_segment_sum.restype = ctypes.c_int
     lib.gaot_tile_segment_sum.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -115,19 +117,7 @@ def tile_segment_sum_ordered_reference(sorted_data: torch.Tensor, sorted_seg: to
     tile = ids.clamp(0, num_segments - 1) // seg_tile
     tsl = ts.long()
     keep = ((ids >= 0) & (ids < num_segments) & (at >= tsl[tile]) & (at < tsl[tile + 1]))
-    kept, seg = rows[keep], ids[keep]
-    out = torch.zeros((num_segments, P), dtype=torch.float32, device=rows.device)
-    if seg.numel() == 0:
-        return out
-    # rank of each kept row within its segment (the kept rows of a segment are adjacent)
-    pos = torch.arange(seg.numel(), device=seg.device)
-    first = torch.ones_like(seg, dtype=torch.bool)
-    first[1:] = seg[1:] != seg[:-1]
-    rank = pos - torch.cummax(torch.where(first, pos, 0), dim=0).values
-    for k in range(int(rank.max()) + 1):
-        at_k = rank == k
-        out[seg[at_k]] = out[seg[at_k]] + kept[at_k]
-    return out
+    return sum_in_row_order(rows[keep], ids[keep], num_segments)
 
 
 def tile_segment_sum(sorted_data: torch.Tensor, sorted_seg: torch.Tensor,

@@ -1,16 +1,18 @@
-"""Where the time of K7 (prefix sum) and K8 (tile segment sum) goes on the
-card, and the settings their design set aside.
+"""Where the time of K6 (sorted segment sum), K7 (prefix sum) and K8 (tile
+segment sum) goes on the card, and the settings their design set aside.
 
 - Timelines: each kernel is built once more from the source in the checkout
-  with a stamp of `%globaltimer`, taken by thread 0 of every CTA (K8) or of
-  every block of rows (K7) where each of the steps named in the source's
+  with a stamp of `%globaltimer`, taken by thread 0 of every CTA (K6, K8) or
+  of every block of rows (K7) where each of the steps named in the source's
   comments begins and where the last ends, and run at the main path's shapes
-  (`chip_smoke.py` `[k7]`, `[k8]`). Printed: when each step ends, in us from
-  the first CTA's start, as percentiles 0 / 50 / 100 over the CTAs or
-  blocks, and each step's length.
+  (`chip_smoke.py` `[k6]`, `[k7]`, `[k8]`; K6's ids drawn like chunk 0 of the
+  recipe's 'dst' list: 155,765 of 163,840 rows onto 131,072 cells). Printed:
+  when each step ends, in us from the first CTA's start, as percentiles 0 /
+  50 / 100 over the CTAs or blocks, and each step's length.
 - Settings: K7 with tiles of 8 and of 16 rows (the rows of a tile are an
   argument of the kernel; only `tile_rows(C)` gives the ordered twin's
-  bits), and K8 with parts of other sizes (a copy with other constants);
+  bits), K8 with parts of other sizes (a copy with other constants), K6 with
+  other shares (an argument of the kernel) and other CTA sizes (a copy);
   each as 20 launches between two CUDA events, in turns (A B ... B A).
 
     python -m gaot3d_tpu_torch.tools.probe_sorted_kernels
@@ -23,12 +25,13 @@ import ctypes
 import os
 import re
 import subprocess
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gaot3d_tpu_torch.kernels import prefix_sum as k7
+from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
 from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
 from gaot3d_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, find_nvcc
 from gaot3d_tpu_torch.ops.segment import make_tile_fold
@@ -36,6 +39,8 @@ from gaot3d_tpu_torch.ops.segment import make_tile_fold
 K7_SHAPES = [(163_840, 43), (327_680, 43), (163_840, 32)]
 # the [k8] chunk: 327,680 slots, about 156,000 of them valid, onto 131,072 cells
 K8_SLOTS, K8_CELLS, K8_VALID = 327_680, 131_072, 0.475
+# the [k6] chunk: 163,840 rows of the 'dst' list, 155,765 of them valid
+K6_ROWS, K6_VALID = 163_840, 155_765
 LAUNCHES = 20
 
 _STAMP = ("{ if (threadIdx.x == 0) { unsigned long long g; "
@@ -71,6 +76,17 @@ TIMELINES: Dict[str, Tuple[str, str, List[Tuple[str, str]], List[str]]] = {
          "      sh, g_timeline);\n  return (int)cudaGetLastError();"),
         ("\nextern \"C\" {", "\n" + _GLOBAL),
     ], ["first rows", "rows staged and added", "zeros"]),
+    "segment_sum_sorted": ("segment_sum_sorted.cu", "blockIdx.x", [
+        ("const Shape sh) {", "const Shape sh, unsigned long long* tl) {\n  TL(0);"),
+        ("  // 2. the window's ids", "  TL(1);\n  // 2. the window's ids"),
+        ("  // 3. the rows [a, a + n)", "  TL(2);\n  // 3. the rows [a, a + n)"),
+        ("  // 4. thread f adds output", "  TL(3);\n  // 4. thread f adds output"),
+        ("      dst[(size_t)(nseg - 1) * P + c] = sum;\n    }\n  }\n}",
+         "      dst[(size_t)(nseg - 1) * P + c] = sum;\n    }\n  }\n  TL(4);\n}"),
+        ("      sh);\n  return (int)cudaGetLastError();",
+         "      sh, g_timeline);\n  return (int)cudaGetLastError();"),
+        ("\nextern \"C\" {", "\n" + _GLOBAL),
+    ], ["search", "ids window, split", "rows landed", "adds and stores"]),
 }
 
 # K8 settings: name -> constants of csrc/tile_segment_sum.cu that differ
@@ -105,12 +121,24 @@ def timeline_source(kernel: str) -> str:
     return src.replace("namespace {", stamp + "namespace {", 1)
 
 
-def k8_setting_source(constants: Dict[str, int]) -> str:
-    src = _read("tile_segment_sum.cu")
+# K6 settings: name -> (constants of csrc/segment_sum_sorted.cu that differ,
+# items a share, None for the wrapper's share_items(43))
+K6_SETTINGS: Dict[str, Tuple[Dict[str, int], Optional[int]]] = {
+    "shares of 190 items, 6 CTAs an SM (shipped)": ({}, None),
+    "shares of 142 items, 8 CTAs an SM at 32 registers": ({"CTAS_PER_SM": 8}, 142),
+    "shares of 142 items, 6 CTAs an SM": ({}, 142),
+    "shares of 285 items, 4 CTAs an SM": ({"CTAS_PER_SM": 4}, 285),
+    "128-thread CTAs, 12 an SM, shares of 95 items": ({"THREADS": 128, "CTAS_PER_SM": 12}, 95),
+}
+
+
+def setting_source(source: str, constants: Dict[str, int]) -> str:
+    """The kernel source `source` (a file of csrc/) with other constants."""
+    src = _read(source)
     for name, value in constants.items():
         src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};", src)
         if n != 1:
-            raise RuntimeError(f"K8 has no constant {name}")
+            raise RuntimeError(f"{source} has no constant {name}")
     return src
 
 
@@ -118,7 +146,9 @@ def variant_sources() -> Dict[str, str]:
     """Every source the probe builds, by name."""
     out = {f"{k}_timeline": timeline_source(k) for k in TIMELINES}
     for i, constants in enumerate(K8_SETTINGS.values()):
-        out[f"k8_setting_{i}"] = k8_setting_source(constants)
+        out[f"k8_setting_{i}"] = setting_source("tile_segment_sum.cu", constants)
+    for i, (constants, _) in enumerate(K6_SETTINGS.values()):
+        out[f"k6_setting_{i}"] = setting_source("segment_sum_sorted.cu", constants)
     return out
 
 
@@ -134,7 +164,10 @@ def _build(name: str, src: str) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"building {name} failed:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(lib_path)
-    if hasattr(lib, "gaot_prefix_sum"):
+    if hasattr(lib, "gaot_segment_sum_sorted"):
+        lib.gaot_segment_sum_sorted.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                                                + [ctypes.c_void_p])
+    elif hasattr(lib, "gaot_prefix_sum"):
         lib.gaot_prefix_sum.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                                         + [ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_void_p])
         lib.gaot_prefix_sum_scratch_bytes.restype = ctypes.c_longlong
@@ -182,6 +215,17 @@ def _k8_launcher(lib, rows: torch.Tensor, fold, out: torch.Tensor):
     return launch
 
 
+def _k6_launcher(lib, data: torch.Tensor, ids: torch.Tensor, out: torch.Tensor, share: int):
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if lib.gaot_segment_sum_sorted(data.data_ptr(), ids.data_ptr(), out.data_ptr(), 1,
+                                       data.shape[0], data.shape[1], out.shape[0], share,
+                                       stream):
+            raise RuntimeError("K6 launch failed")
+    return launch
+
+
 def _print_timeline(label: str, stamps: np.ndarray, steps: List[str]) -> None:
     t = (stamps.astype(np.float64) - stamps[:, 0].min()) / 1e3
     print(f"[probe] {label}: {t.shape[0]} rows of stamps; us from the first start, "
@@ -191,6 +235,13 @@ def _print_timeline(label: str, stamps: np.ndarray, steps: List[str]) -> None:
         print(f"[probe]   {name:24s} ends {np.percentile(t[:, k + 1], 0):7.2f} "
               f"{np.median(t[:, k + 1]):7.2f} {t[:, k + 1].max():7.2f}; takes "
               f"{np.median(d):6.2f} / {d.max():6.2f}")
+
+
+def _k6_input():
+    rng = np.random.default_rng(1)
+    ids = np.full(K6_ROWS, K8_CELLS, np.int32)
+    ids[:K6_VALID] = np.sort(rng.integers(0, K8_CELLS, K6_VALID))
+    return torch.randn(K6_ROWS, 43, device="cuda"), torch.from_numpy(ids).cuda()
 
 
 def _k8_input():
@@ -241,6 +292,22 @@ def run() -> None:
     used = tl[:, 3] > 0  # the CTAs that owned segments
     _print_timeline(f"K8 {K8_SLOTS} slots onto [{K8_CELLS}, 43]", tl[used][:, :4].cpu().numpy(),
                     TIMELINES["tile_segment_sum"][3])
+    data, ids = _k6_input()
+    k6_twin = {share: k6.segment_sum_sorted_ordered_reference(data, ids, K8_CELLS, share)
+               for share in {s or k6.share_items(43) for _, s in K6_SETTINGS.values()}}
+    share = k6.share_items(43)
+    out = torch.empty((K8_CELLS, 43), device="cuda")
+    tl = torch.zeros((-(-(K6_ROWS + K8_CELLS) // share), 8), dtype=torch.int64, device="cuda")
+    lib = libs["segment_sum_sorted_timeline"]
+    lib.gaot_set_timeline(ctypes.c_void_p(tl.data_ptr()))
+    _k6_launcher(lib, data, ids, out, share)()
+    torch.cuda.synchronize()
+    if not torch.equal(out, k6_twin[share]):
+        raise RuntimeError("the stamped K6 lost its twin's bits")
+    used = tl[:, 4] > 0  # the CTAs that owned segments
+    _print_timeline(f"K6 [{K6_ROWS}, 43] ({K6_VALID} valid rows) onto [{K8_CELLS}, 43], "
+                    f"shares of {share} items", tl[used][:, :5].cpu().numpy(),
+                    TIMELINES["segment_sum_sorted"][3])
 
     # settings, in turns
     for E, C in K7_SHAPES:
@@ -263,6 +330,19 @@ def run() -> None:
         if not torch.equal(out, twin):
             raise RuntimeError(f"K8 with {name} lost its twin's bits")
     print("[probe] K8 at the [k8] shape, ms a launch: "
+          + "; ".join(f"{n} {a:.4f} {b:.4f}" for n, (a, b) in times.items()))
+    out = torch.empty((K8_CELLS, 43), device="cuda")
+    runs = []
+    for i, (name, (_, share)) in enumerate(K6_SETTINGS.items()):
+        share = share or k6.share_items(43)
+        runs.append((name, share, _k6_launcher(libs[f"k6_setting_{i}"], data, ids, out, share)))
+    times = {name: [] for name, _, _ in runs}
+    for name, share, launch in runs + runs[::-1]:
+        times[name].append(_events_ms(launch))
+        torch.cuda.synchronize()
+        if not torch.equal(out, k6_twin[share]):
+            raise RuntimeError(f"K6 with {name} lost its twin's bits")
+    print("[probe] K6 at the [k6] shape, ms a launch: "
           + "; ".join(f"{n} {a:.4f} {b:.4f}" for n, (a, b) in times.items()))
 
 

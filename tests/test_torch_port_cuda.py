@@ -673,6 +673,51 @@ def test_segment_sum_sorted_kernel_batches_on_the_grid():
         _assert_segment_sums(got[b], d, i, S)
 
 
+def _k6_at_share(data, ids, S, share):
+    """K6 through its C entry point with shares of `share` items (None: the
+    wrapper, whose share is `share_items(P)`)."""
+    if share is None:
+        return k6.segment_sum_sorted(data, ids, S)
+    B, E, P = data.shape
+    out = torch.empty((B, S, P), device="cuda")
+    err = k6._library().gaot_segment_sum_sorted(
+        data.data_ptr(), ids.data_ptr(), out.data_ptr(), B, E, P, S, share,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out
+
+
+@pytest.mark.parametrize("share", [None, 1, 7, 142])
+@pytest.mark.parametrize("E,S,P,n_valid,hot", _SEGMENT_CASES)
+def test_segment_sum_sorted_kernel_equals_its_ordered_twin(E, S, P, n_valid, hot, share):
+    """The kernel gives the bits of its ordered twin along its own
+    merge-path split, with a few negative ids at the head, twice over."""
+    rng = np.random.default_rng(E + S + P)
+    data, ids = _sorted_rows(rng, E, S, P, n_valid, hot)
+    ids[: min(3, n_valid)] = -1 - torch.arange(min(3, n_valid), device="cuda").flip(0).int()
+    got = _k6_at_share(data[None], ids[None], S, share)
+    again = _k6_at_share(data[None], ids[None], S, share)
+    torch.cuda.synchronize()
+    twin = k6.segment_sum_sorted_ordered_reference(data, ids, S, share or k6.share_items(P))
+    assert torch.equal(got[0], twin) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("share", [None, 5])
+def test_segment_sum_sorted_kernel_equals_its_twin_over_batches(share):
+    """Three batches with different valid counts (one all padding) in one
+    launch: the twin's bits batch by batch."""
+    rng = np.random.default_rng(6)
+    E, S, P = 3000, 257, 43
+    pairs = [_sorted_rows(rng, E, S, P, n) for n in (3000, 2100, 0)]
+    data = torch.stack([p[0] for p in pairs])
+    ids = torch.stack([p[1] for p in pairs])
+    got = _k6_at_share(data, ids, S, share)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k6.segment_sum_sorted_ordered_reference(
+        data, ids, S, share or k6.share_items(P)))
+    assert not got[2].any()
+
+
 @pytest.mark.parametrize("seg_tile", [512, 8, 100])
 @pytest.mark.parametrize("E,S,P,n_valid,hot", _SEGMENT_CASES)
 def test_tile_segment_sum_kernel_matches_plain(E, S, P, n_valid, hot, seg_tile):
