@@ -4,9 +4,9 @@
 
 `--flat-seed` (31) seeds the cloud of phases 13 and 14, for a second reading
 of their limits. `--only` runs just the named phases (k1, attention-train,
-k3, k5, trainer, trainer-split, t1, k7, k6, k8, flat; the last four share
-one cloud), builds each kernel at its first use and prints no record: for
-work on one phase.
+k3, k5, serve-device, nf, trainer, trainer-split, trainer-nf, t1, k7, k6, k8,
+flat; the last four share one cloud), builds each kernel at its first use
+and prints no record: for work on one phase.
 
 Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
@@ -95,6 +95,28 @@ Phases, each of which raises (exit code 1) on failure:
      (`gaot3d_tpu_torch.tools.microbench_vpu_bf16.run`) at reps 64, grid 64,
      and each case's plain time; each case's bound from the instructions an
      element-step of the kernel's own SASS, by pipe and in issue slots.
+ 16. [serve-device] (run after [serve]) the recipe over uniform slots (slot
+     budget 5), exported and loaded with edges="device", answers 2 requests
+     of 524,288 points whose slots the card builds in the forward: each
+     build's time by CUDA events and its peak memory, the forward's time, K1
+     10 and K5 1 launches a request; request 1's slots against the port's
+     build on the CPU bit for bit, against the native host build
+     (native/gaot_graph.cpp) with every differing edge within BAND of the
+     radius, and its prediction against the same model's forward on the
+     host-built slots in relative L2; request 2 once more warm;
+ 17. [nf] (run after [train]) the recipe over uniform slots takes 2 AdamW
+     steps (mix schedule, dropout 0.1) by neural field, 40,000 input and
+     query nodes of a 524,288-point cloud: K1 10, K2 10, K5 1, K5b 1 a step,
+     finite loss and gradients, every parameter moves; the sampler's time;
+     a full-grid eval forward with its slots built on the card; then one
+     neural-field loss and backward on a 32x32x16 grid with 65,536 points
+     against the plain versions on the same indices;
+ 18. [trainer-nf] (run after [trainer-split], on its data) the trainer on
+     h100_500k.toml by neural field (40,000 nodes, uniform slots built on
+     the card, no precompute), 2 epochs, validation and test on the full
+     500,000-point clouds: launches a step, finite losses, every parameter
+     moved, the epoch wall a step, the loader's stall, validate and test ms
+     a sample.
 Yardsticks off the main path (`library_ms`): torch's
 scaled_dot_product_attention forward and backward at the recipe shape,
 `torch.cumsum` and `index_add_`.
@@ -152,6 +174,7 @@ FOLD_BOUND = 5e-7  # accumulator of the folds (config B, C sort), of each column
 #                   the errors of the 2 * nc prefixes do not line up, and the limit is a
 #                   quarter of K7_BOUND
 E2E_BOUND = 1e-3  # relative L2 (and loss), kernels vs plain through 10 bf16-attention layers
+NF_NODES = 40_000  # neural-field input and query nodes a graph (DatasetConfig's defaults)
 RATE = 0.1
 SHAPE = (1, 8, 16384, 32)  # B, H, S, D of the recipe's attention
 
@@ -765,10 +788,12 @@ def recipe_model(latent=LATENT, radius=RADIUS, budget=BUDGET, **magno_overrides)
                       generator=torch.Generator().manual_seed(0))
 
 
-def cloud(seed, n_points, grid, radius=RADIUS, budget=BUDGET):
-    """One random cloud with features and a target, uploaded in its degree
-    sections' node order: (pos, feats, target, mask, slots, n_sections, host
-    seconds of graph build and upload)."""
+def cloud(seed, n_points, grid=None, radius=RADIUS, budget=BUDGET):
+    """One random cloud with features and a target on the card: (pos, feats,
+    target, mask, slots, n_sections, host seconds of graph build and
+    upload). Given a grid, uploaded in its degree sections' node order with
+    their slots; without one, in the order drawn, with no slots (None, 0
+    sections, no build), for a model that builds its own."""
     import torch
 
     from gaot3d_tpu_torch.ops.grid_graph import SectionedEdgeSlots
@@ -778,13 +803,39 @@ def cloud(seed, n_points, grid, radius=RADIUS, budget=BUDGET):
     feats = rng.standard_normal((n_points, 3), dtype=np.float32)
     target = rng.standard_normal((n_points, 1), dtype=np.float32)
     t0 = time.perf_counter()
-    perm, secs = host_sections(pos, grid, radius, budget)
+    perm, secs = (host_sections(pos, grid, radius, budget) if grid is not None
+                  else (slice(None), []))
     t1 = time.perf_counter()
     tensors = [torch.from_numpy(x[perm][None]).cuda() for x in (pos, feats, target)]
     mask = torch.ones((1, n_points), dtype=torch.bool, device="cuda")
-    slots = SectionedEdgeSlots.from_numpy([(l[None], m[None]) for l, m in secs], device="cuda")
+    slots = (SectionedEdgeSlots.from_numpy([(l[None], m[None]) for l, m in secs], device="cuda")
+             if grid is not None else None)
     torch.cuda.synchronize()
     return (*tensors, mask, slots, len(secs), (t1 - t0, time.perf_counter() - t1))
+
+
+def against_plain(tag, what, fn, got):
+    """Hold `got`, what fn() gave with the kernels, against fn() with every
+    kernel replaced by its plain version: its first item (an output or a
+    gradient) to E2E_BOUND relative L2, any further ones (a loss) to
+    E2E_BOUND relative. The plain run may launch no kernel."""
+    import torch
+
+    counters = attention_counters()
+    launched = {n: fn_.launches for n, fn_ in counters.items()}
+    with plain_versions():
+        plain = fn()
+    torch.cuda.synchronize()
+    if {n: fn_.launches for n, fn_ in counters.items()} != launched:
+        raise RuntimeError(f"[{tag}] the plain run launched a kernel")
+    rel = ((got[0] - plain[0]).norm() / plain[0].norm()).item()
+    losses = "".join(f"; loss {a:.6f} with kernels, {b:.6f} with plain versions"
+                     for a, b in zip(got[1:], plain[1:]))
+    print(f"[{tag}] {what} with every kernel and with its plain version: relative L2 "
+          f"{rel:.3e} ({plain[0].numel()} values){losses}")
+    if not (rel <= E2E_BOUND and all(abs(a - b) <= E2E_BOUND * abs(b)
+                                     for a, b in zip(got[1:], plain[1:]))):
+        raise RuntimeError(f"[{tag}] kernels and plain versions disagree: {rel}")
 
 
 def phase_serve():
@@ -832,16 +883,7 @@ def phase_serve():
     launches = {"k1": fwd.launches, "k5": acc.launches}
 
     args, slots, out = outs[0]
-    with plain_versions():
-        plain = infer(*args, slots, slots)
-    torch.cuda.synchronize()
-    if (fwd.launches, acc.launches) != (launches["k1"], launches["k5"]):
-        raise RuntimeError("the plain run launched a kernel")
-    rel = ((out - plain).norm() / plain.norm()).item()
-    print(f"[serve] request 1 with every kernel replaced by its plain version: relative L2 "
-          f"difference {rel:.3e}")
-    if not rel <= E2E_BOUND:
-        raise RuntimeError(f"kernels and plain versions disagree end to end: {rel}")
+    against_plain("serve", "request 1", lambda: (infer(*args, slots, slots),), (out,))
     return launches
 
 
@@ -1195,21 +1237,17 @@ def grad_vector(model):
     return torch.cat([p.grad.detach().float().flatten() for p in model.parameters()])
 
 
-def phase_train(k5b_ms=None):
+def train_steps(tag, card, model, batch, expect, sampling=None):
+    """Two AdamW steps (mix schedule) on `batch`, full grid or by the
+    neural-field `sampling`: each step's launches, held to `expect`, its
+    loss, its time by CUDA events and on the host clock, and its peak; the
+    loss and every gradient finite, and every parameter moved. Returns (the
+    launches summed, the optimizer, the dropout generator)."""
     import torch
 
-    from gaot3d_tpu_torch.kernels import encoder_payload as k5
-    from gaot3d_tpu_torch.kernels import flash_attention as k1
-    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
-    from gaot3d_tpu_torch.train import (OptimizerargsConfig, TrainBatch, make_optimizer,
-                                        masked_mse, train_step)
+    from gaot3d_tpu_torch.train import OptimizerargsConfig, make_optimizer, train_step
 
-    counters = {"k1": k1.flash_attention, "k2": k1.flash_attention_backward,
-                "k5": k5.encoder_accumulate, "k5b": k5.encoder_accumulate_backward}
-    grid = LatentGrid(dims=LATENT)
-    model = recipe_model()
-    pos, feats, target, mask, slots, nsec, _ = cloud(21, N_POINTS, grid)
-    batch = TrainBatch(pos, feats, target, mask, slots, slots)
+    counters = attention_counters()
     optimizer = make_optimizer("adamw", model.parameters(),
                                OptimizerargsConfig(scheduler="mix"), steps_per_epoch=1)
     generator = torch.Generator().manual_seed(5)
@@ -1220,27 +1258,48 @@ def phase_train(k5b_ms=None):
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
         lr = optimizer.learning_rate
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0 = time.perf_counter()
-        loss, grad_norm = train_step(model, optimizer, batch, generator)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        start.record()
+        loss, grad_norm = train_step(model, optimizer, batch, generator, sampling)
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
         got = {name: fn.launches for name, fn in counters.items()}
         finite = bool(torch.isfinite(loss)) and all(
             bool(torch.isfinite(p.grad).all()) for p in model.parameters())
-        print(f"[train] step {step}: loss {loss.item():.6f} grad_norm {grad_norm.item():.6f} "
-              f"lr {lr:.3e} step {ms:.1f} ms peak memory "
+        print(f"[{tag}] {card}: step {step}: loss {loss.item():.6f} grad_norm "
+              f"{grad_norm.item():.6f} lr {lr:.3e} step {start.elapsed_time(end):.1f} ms (CUDA "
+              f"events), {host_ms:.1f} ms (host clock); peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches K1 {got['k1']} "
               f"K2 {got['k2']} K5 {got['k5']} K5b {got['k5b']}; finite={finite}")
         if not finite:
-            raise RuntimeError(f"step {step}: non-finite loss or gradient")
-        if got != {"k1": 10, "k2": 10, "k5": nsec, "k5b": nsec} or nsec != 5:
-            raise RuntimeError(f"step {step}: launches {got}, expected 10 / 10 / 5 / 5")
+            raise RuntimeError(f"[{tag}] step {step}: non-finite loss or gradient")
+        if got != {**dict.fromkeys(counters, 0), **expect}:
+            raise RuntimeError(f"[{tag}] step {step}: launches {got}, expected {expect}")
         for name in total:
             total[name] += got[name]
     still = [n for (n, p), b in zip(model.named_parameters(), before) if torch.equal(p, b)]
     if still:
-        raise RuntimeError(f"parameters that did not move in 2 steps: {still}")
-    print(f"[train] every one of {len(before)} parameter tensors moved")
+        raise RuntimeError(f"[{tag}] parameters that did not move in 2 steps: {still}")
+    print(f"[{tag}] every one of {len(before)} parameter tensors moved")
+    return total, optimizer, generator
+
+
+def phase_train(card, k5b_ms=None):
+    import torch
+
+    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
+    from gaot3d_tpu_torch.train import TrainBatch, masked_mse, train_step
+
+    grid = LatentGrid(dims=LATENT)
+    model = recipe_model()
+    pos, feats, target, mask, slots, nsec, _ = cloud(21, N_POINTS, grid)
+    if nsec != 5:
+        raise RuntimeError(f"[train] {nsec} sections, expected 5")
+    batch = TrainBatch(pos, feats, target, mask, slots, slots)
+    total, optimizer, generator = train_steps("train", card, model, batch,
+                                              {"k1": 10, "k2": 10, "k5": nsec, "k5b": nsec})
 
     # breakdown of one more step: device time of each part, then a profile
     model.train()
@@ -1268,7 +1327,7 @@ def phase_train(k5b_ms=None):
                   f"{sum(r[2] for r in mine)} launches"
                   + (f" ([k5b]'s five launches alone: {k5b_ms:.3f} ms)"
                      if label == "K5b" and k5b_ms is not None else ""))
-    del model, optimizer, batch, before
+    del model, optimizer, batch
 
     # kernels against their plain versions through one forward and backward:
     # same widths and depth on a 32x32x16 grid with 65,536 points, where the
@@ -1287,23 +1346,314 @@ def phase_train(k5b_ms=None):
                      generator=torch.Generator().manual_seed(9))
         loss = masked_mse(pred, target, mask)
         loss.backward()
-        return loss.item(), grad_vector(model)
+        return grad_vector(model), loss.item()
 
-    for fn in counters.values():
-        fn.launches = 0
-    loss_k, grad_k = forward_backward()
-    launched = {name: fn.launches for name, fn in counters.items()}
-    with plain_versions():
-        loss_p, grad_p = forward_backward()
-    torch.cuda.synchronize()
-    if {name: fn.launches for name, fn in counters.items()} != launched:
-        raise RuntimeError("the plain run launched a kernel")
-    rel = ((grad_k - grad_p).norm() / grad_p.norm()).item()
-    print(f"[train] 32x32x16 grid, 65,536 points, {nsec} sections (budget {budget}), rate "
-          f"{RATE}, one seed: loss {loss_k:.6f} with kernels, {loss_p:.6f} with plain versions; "
-          f"relative L2 of the gradient ({grad_p.numel()} values) {rel:.3e}")
-    if not (rel <= E2E_BOUND and abs(loss_k - loss_p) <= E2E_BOUND * abs(loss_p)):
-        raise RuntimeError(f"kernels and plain versions disagree through the train step: {rel}")
+    against_plain("train", f"32x32x16 grid, 65,536 points, {nsec} sections (budget {budget}), "
+                  f"rate {RATE}, one seed: the gradient", forward_backward, forward_backward())
+    return total
+
+
+class PayloadCalls:
+    """Context that keeps the inputs and the results of the first K5 and the
+    first K5b launch under it (`kernels/encoder_payload.py`
+    `launch_accumulate`, `launch_backward`), copied at the call, so that
+    `check` can hold them against the plain versions at the shapes the path
+    gave them."""
+
+    def __enter__(self):
+        from gaot3d_tpu_torch.kernels import encoder_payload as k5
+
+        self.k5, self.fwd, self.bwd = k5, None, None
+        fwd, bwd = k5.launch_accumulate, k5.launch_backward
+
+        def spy_fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc):
+            if self.fwd is not None:
+                return fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc)
+            inputs = [t.clone() for t in (pos, feats, lat_idx, mask, params, acc)]
+            fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc)
+            self.fwd = (inputs, n_mid, hid, grid, acc.clone())
+
+        def spy_bwd(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, dparams):
+            if self.bwd is not None:
+                return bwd(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats,
+                           dparams)
+            inputs = [t.clone() for t in (g, pos, feats, lat_idx, mask, params)]
+            bwd(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, dparams)
+            self.bwd = (inputs, n_mid, hid, grid, dfeats.clone(), dparams.clone())
+
+        self.patches = [mock.patch.object(k5, "launch_accumulate", spy_fwd),
+                        mock.patch.object(k5, "launch_backward", spy_bwd)]
+        for patch in self.patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in self.patches:
+            patch.stop()
+
+    def mlp(self, params, n_mid, hid, C):
+        return self.k5._unpack_mlp(params, [(hid, 6)] + [(hid, hid)] * n_mid + [(C, hid)])
+
+    def check(self, tag):
+        """K5 to K5_BOUND and K5b to K5B_BOUND of their plain versions on the
+        kept inputs (each kept launch's, forward or backward, if any). The
+        inputs are copied again here: copies made under inference mode (a
+        served request) take no in-place update or autograd outside it."""
+        k5 = self.k5
+        if self.fwd is not None:
+            inputs, n_mid, hid, grid, got = self.fwd
+            pos, feats, lat_idx, mask, params, acc = (t.clone() for t in inputs)
+            C = feats.shape[-1]
+            ws, bs = self.mlp(params, n_mid, hid, C)
+            ref = k5.encoder_accumulate_reference(pos, feats, lat_idx, mask, ws, bs, grid, acc,
+                                                  CHUNK)
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            rel_vals = ((got[..., :C] - ref[..., :C]).abs().max()
+                        / ref[..., :C].abs().max()).item()
+            print(f"[{tag}] K5 as the path launched it, slots {list(lat_idx.shape)} "
+                  f"({int(mask.sum())} valid) into [{acc.shape[1]}, {acc.shape[2]}] cells, "
+                  f"against its plain version: relative {rel:.3e}, value columns {rel_vals:.3e}")
+            if not (rel <= K5_BOUND and rel_vals <= K5_BOUND):
+                raise RuntimeError(f"[{tag}] K5 disagrees with its plain version: {rel}")
+        if self.bwd is not None:
+            inputs, n_mid, hid, grid, dfeats, dparams = self.bwd
+            g, pos, feats, lat_idx, mask, params = (t.clone() for t in inputs)
+            ws, bs = self.mlp(params, n_mid, hid, feats.shape[-1])
+            ref = k5.encoder_accumulate_backward_reference(g, pos, feats, lat_idx, mask, ws, bs,
+                                                           grid, CHUNK)
+            dws, dbs = self.mlp(dparams, n_mid, hid, feats.shape[-1])
+            worst = max(((a - b).abs().max() / b.abs().max()).item()
+                        for a, b in zip([dfeats, *dws, *dbs], [ref[0], *ref[1], *ref[2]]))
+            print(f"[{tag}] K5b as the path launched it, slots {list(lat_idx.shape)}, against "
+                  f"autograd through the plain version: worst relative {worst:.3e} of dfeats, "
+                  f"dW, db")
+            if not worst <= K5B_BOUND:
+                raise RuntimeError(f"[{tag}] K5b disagrees with its plain version: {worst}")
+
+
+class BuildSpy:
+    """Context that times every slot build the model makes
+    (`models/magno.py` `build_budgeted_slots`) between two CUDA events,
+    records its peak device memory above what was allocated before it, and
+    keeps the slots it returned. Nothing here waits for the card."""
+
+    def __enter__(self):
+        import torch
+
+        from gaot3d_tpu_torch.models import magno
+
+        build = magno.build_budgeted_slots
+        self.builds = []
+
+        def spy(*args, **kwargs):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            slots = build(*args, **kwargs)
+            end.record()
+            self.builds.append({"events": (start, end), "slots": slots,
+                                "peak": torch.cuda.max_memory_allocated() - base})
+            return slots
+
+        self.patch = mock.patch.object(magno, "build_budgeted_slots", spy)
+        self.patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.patch.stop()
+
+    def ms(self, i=-1):
+        start, end = self.builds[i]["events"]
+        return start.elapsed_time(end)
+
+
+BAND = 3e-5  # of r^2: a slot where the card's build and the host build differ must lie this
+#              close to the radius; one rounding of each cell coordinate moves d^2 by about
+#              6e-6 r^2 on the recipe's grid
+
+
+def host_build_differences(pos, lat_a, msk_a, lat_b, msk_b, grid, radius=RADIUS):
+    """(point, cell) edges in one of two compacted slot sets and not the
+    other, with each one's d^2 - r^2 over r^2 (float64)."""
+    import torch
+
+    big = np.iinfo(np.int32).max
+    key_a = np.sort(np.where(msk_a, lat_a, big), axis=1)
+    key_b = np.sort(np.where(msk_b, lat_b, big), axis=1)
+    rows = np.nonzero((key_a != key_b).any(axis=1))[0]
+    pairs = [(r, c) for r in rows
+             for c in set(key_a[r][key_a[r] < big]) ^ set(key_b[r][key_b[r] < big])]
+    if not pairs:
+        return []
+    cells = grid.positions_from_idx(torch.tensor([c for _, c in pairs], dtype=torch.int64),
+                                    dtype=torch.float64).numpy()
+    d2 = ((cells - pos[[r for r, _ in pairs]].astype(np.float64)) ** 2).sum(axis=1)
+    r2 = float(np.float32(radius)) ** 2
+    return [(int(r), int(c), float((d - r2) / r2)) for (r, c), d in zip(pairs, d2)]
+
+
+def phase_serve_device(card):
+    """[serve-device]: the recipe over uniform slots, exported and loaded
+    with edges="device": 2 requests of 524,288 points whose slots the card
+    builds in the forward."""
+    import torch
+
+    from gaot3d_tpu_torch.data.host_graph import build_edge_slots_host
+    from gaot3d_tpu_torch.kernels import encoder_payload as k5
+    from gaot3d_tpu_torch.kernels import flash_attention as k1
+    from gaot3d_tpu_torch.ops.grid_graph import EdgeSlots, LatentGrid, build_budgeted_slots
+    from gaot3d_tpu_torch.serve import export_inference, load_inference
+
+    grid = LatentGrid(dims=LATENT)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "recipe_slots.pt")
+        export_inference(recipe_model(edge_layout="slots"), path)
+        infer = load_inference(path, edges="device")
+        infer_args = load_inference(path)  # the same weights, edges as call-time arguments
+
+    fwd, acc = k1.flash_attention, k5.encoder_accumulate
+    fwd.launches = acc.launches = 0
+    requests = []
+    with BuildSpy() as spy, PayloadCalls() as payload:
+        for i, seed in enumerate((13, 14)):
+            pos, feats, _, mask, *_ = cloud(seed, N_POINTS)
+            n1, n5, nb = fwd.launches, acc.launches, len(spy.builds)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = infer(pos, feats, mask)
+            end.record()
+            end.synchronize()
+            total = start.elapsed_time(end)
+            d1, d5 = fwd.launches - n1, acc.launches - n5
+            builds = spy.builds[nb:]
+            ok = tuple(out.shape) == (1, N_POINTS, 1) and bool(torch.isfinite(out).all())
+            build_ms = sum(spy.ms(nb + j) for j in range(len(builds)))
+            print(f"[serve-device] {card}: request {i + 1}: {len(builds)} slot build "
+                  f"{build_ms:.2f} ms (CUDA events), its peak {builds[0]['peak'] / 2 ** 20:.1f} "
+                  f"MiB above the memory held before it; forward {total - build_ms:.2f} ms, "
+                  f"request {total:.2f} ms; out {tuple(out.shape)} finite={ok}; K1 launches "
+                  f"{d1}, K5 launches {d5}")
+            if not ok or d1 != 10 or d5 != 1 or len(builds) != 1:
+                raise RuntimeError(f"[serve-device] request {i + 1}: bad output, launch counts "
+                                   f"or builds ({len(builds)})")
+            requests.append(((pos, feats, mask), builds[0]["slots"], out))
+        args, slots, out = requests[-1]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        warm = infer(*args)
+        end.record()
+        end.synchronize()
+        warm_build = spy.ms()
+    if not torch.isfinite(warm).all():
+        raise RuntimeError("[serve-device] the warm request gave a non-finite output")
+    launches = {"k1": fwd.launches, "k5": acc.launches}
+    payload.check("serve-device")  # request 1's K5 launch
+    args, slots, out = requests[0]
+    against_plain("serve-device", "request 1", lambda: (infer(*args),), (out,))
+
+    pos, _, mask = args
+    pos_np = pos[0].cpu().numpy()
+    cpu = build_budgeted_slots(pos.cpu(), grid, RADIUS, 1, "bidirectional", mask.cpu(), BUDGET,
+                               CHUNK)
+    same = torch.equal(cpu.lat_idx, slots.lat_idx.cpu()) and torch.equal(cpu.mask,
+                                                                           slots.mask.cpu())
+    print(f"[serve-device] request 1's slots [1, {N_POINTS}, {BUDGET}] against the port's build "
+          f"on the CPU of the same cloud: bit for bit {same}")
+    if not same:
+        raise RuntimeError("[serve-device] the card's build differs from the CPU build")
+    t0 = time.perf_counter()
+    h_lat, h_msk = build_edge_slots_host(pos_np, grid, RADIUS, strategy="bidirectional",
+                                         budget=BUDGET)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    diffs = host_build_differences(pos_np, slots.lat_idx[0].cpu().numpy(),
+                                   slots.mask[0].cpu().numpy(), h_lat, h_msk, grid)
+    worst = max((abs(d) for *_, d in diffs), default=0.0)
+    print(f"[serve-device] against the host build (native/gaot_graph.cpp, budget {BUDGET}): "
+          f"{len(diffs)} edges differ of {int(h_msk.sum())}, the farthest at |d^2 - r^2| = "
+          f"{worst:.2e} r^2 (band {BAND:.0e} r^2): {diffs[:4]}")
+    if worst > BAND:
+        raise RuntimeError(f"[serve-device] a slot differs from the host build outside the band: "
+                           f"{diffs}")
+    host_slots = EdgeSlots.from_numpy(h_lat[None], h_msk[None], device="cuda")
+    ref = infer_args(*args, host_slots, host_slots)
+    rel = ((out - ref).norm() / ref.norm()).item()
+    print(f"[serve-device] request 1 against the same model's forward on the host-built slots: "
+          f"relative L2 {rel:.3e}")
+    if not rel <= E2E_BOUND:
+        raise RuntimeError(f"[serve-device] device-built and host-built slots disagree: {rel}")
+    print(f"[serve-device] {card}: request 2 answered again (warm): {warm_build:.2f} ms build, "
+          f"forward {start.elapsed_time(end) - warm_build:.2f} ms, request "
+          f"{start.elapsed_time(end):.2f} ms; the host build of request 1's cloud "
+          f"{host_ms:.1f} ms (budgeted slots, without sections or upload)")
+    return launches
+
+
+def phase_nf(card):
+    """[nf]: the recipe model over uniform slots trains by neural field."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import encoder_payload as k5
+    from gaot3d_tpu_torch.kernels import flash_attention as k1
+    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid, build_edge_slots, max_slot_degree
+    from gaot3d_tpu_torch.train import (NeuralField, TrainBatch, eval_step, neural_field_loss,
+                                        sample_nodes_without_replacement)
+
+    model = recipe_model(edge_layout="slots")
+    pos, feats, target, mask, *_ = cloud(23, N_POINTS)
+    batch = TrainBatch(pos, feats, target, mask, None, None)
+    sampling = NeuralField(NF_NODES, NF_NODES, torch.Generator(device="cuda").manual_seed(6))
+    print(f"[nf] {NF_NODES} input = query nodes of {N_POINTS} a step")
+    with PayloadCalls() as payload:  # the first step's K5 and K5b launches
+        total, *_ = train_steps("nf", card, model, batch,
+                                {"k1": 10, "k2": 10, "k5": 1, "k5b": 1}, sampling)
+    payload.check("nf")
+    sampler_ms = cuda_ms(lambda: sample_nodes_without_replacement(mask, NF_NODES,
+                                                                  sampling.generator))
+    print(f"[nf] {card}: the node sampler ({NF_NODES} of {N_POINTS}, a stable sort) "
+          f"{sampler_ms:.3f} ms (CUDA events, median of 5)")
+
+    # a full-grid eval forward, its slots built on the card
+    n1, n5 = k1.flash_attention.launches, k5.encoder_accumulate.launches
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    pred, val = eval_step(model, batch)
+    end.record()
+    end.synchronize()
+    d1, d5 = k1.flash_attention.launches - n1, k5.encoder_accumulate.launches - n5
+    ok = tuple(pred.shape) == (1, N_POINTS, 1) and bool(torch.isfinite(pred).all())
+    print(f"[nf] {card}: full-grid eval forward on {N_POINTS} points: {start.elapsed_time(end):.1f}"
+          f" ms with its slot build, loss {val.item():.6f}, finite={ok}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K1 {d1}, K5 {d5}")
+    if not ok or (d1, d5) != (10, 1):
+        raise RuntimeError("[nf] the eval forward: bad output or launch counts")
+    total["k1_eval"] = d1
+    total["k5"] += d5
+    against_plain("nf", f"the full-grid eval forward on {N_POINTS} points",
+                  lambda: (eval_step(model, batch)[0],), (pred,))
+    del model, batch, pred
+
+    # attention under autograd against its plain version through one
+    # neural-field loss and backward on the same indices, on a 32x32x16 grid
+    # where the plain [S, S] logits fit
+    small = LatentGrid(dims=(32, 32, 16))
+    radius = 2 * RADIUS
+    pos, feats, target, mask, *_ = cloud(24, 65_536)
+    budget = max_slot_degree(build_edge_slots(pos[0], small, radius, 1, "bidirectional"))
+    model = recipe_model(small.dims, radius, budget, edge_layout="slots").train()
+    batch = TrainBatch(pos, feats, target, mask, None, None)
+
+    def loss_and_grad():
+        model.zero_grad(set_to_none=True)
+        nodes = NeuralField(20_000, 12_000, torch.Generator(device="cuda").manual_seed(7))
+        loss = neural_field_loss(model, batch, nodes, torch.Generator().manual_seed(9))
+        loss.backward()
+        return grad_vector(model), loss.item()
+
+    against_plain("nf", f"32x32x16 grid, 65,536 points, 20,000 inputs and 12,000 queries "
+                  f"(budget {budget}), rate {RATE}, one seed: the gradient", loss_and_grad,
+                  loss_and_grad())
     return total
 
 
@@ -1962,11 +2312,12 @@ class TrainerSpy:
     """Context that records, for every train step the trainer takes, each
     kernel's launches, the batch's number of sections and the device time
     between two CUDA events (read after the run: nothing here waits for the
-    card), and the host seconds of every validate() call."""
+    card), the host seconds of every validate() call, and the time between
+    two CUDA events of each eval step inside it."""
 
     def __init__(self, counters):
         self.counters = counters
-        self.steps, self.events, self.validate_s = [], [], []
+        self.steps, self.events, self.validate_s, self.eval_events = [], [], [], []
         self.before = None
 
     def __enter__(self):
@@ -1975,29 +2326,45 @@ class TrainerSpy:
         from gaot3d_tpu_torch.train import trainer as trainer_module
 
         step, validate = trainer_module.train_step, trainer_module.StaticTrainer3D.validate
+        eval_step = trainer_module.StaticTrainer3D.eval_step
 
-        def spy_step(model, optimizer, batch, generator=None):
+        def spy_step(model, optimizer, batch, generator=None, neural_field=None):
             if self.before is None:
                 self.before = [p.detach().clone() for p in model.parameters()]
             was = {n: fn.launches for n, fn in self.counters.items()}
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            out = step(model, optimizer, batch, generator)
+            out = step(model, optimizer, batch, generator, neural_field)
             end.record()
             self.events.append((start, end))
+            # K5 launches once a section; uniform slots, passed in or built
+            # in the forward, are one section
+            sections = getattr(batch.enc_slots, "sections", (None,))
             self.steps.append({**{n: fn.launches - was[n] for n, fn in self.counters.items()},
-                               "sections": len(batch.enc_slots.sections)})
+                               "sections": len(sections)})
+            return out
+
+        def spy_eval(trainer, batch):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = eval_step(trainer, batch)
+            end.record()
+            self.eval_events.append((start, end))
             return out
 
         def spy_validate(trainer, loader):
+            first = len(self.eval_events)
             t0 = time.perf_counter()
             out = validate(trainer, loader)
-            self.validate_s.append((time.perf_counter() - t0, len(loader.dataset)))
+            self.validate_s.append((time.perf_counter() - t0, len(loader.dataset),
+                                    self.eval_events[first:]))
             return out
 
         self.patches = [mock.patch.object(trainer_module, "train_step", spy_step),
                         mock.patch.object(trainer_module.StaticTrainer3D, "validate",
-                                          spy_validate)]
+                                          spy_validate),
+                        mock.patch.object(trainer_module.StaticTrainer3D, "eval_step",
+                                          spy_eval)]
         for patch in self.patches:
             patch.start()
         return self
@@ -2101,7 +2468,7 @@ def phase_trainer(card):
                                "checkpoint")
 
     stats = trainer.last_loader_stats
-    val_s, val_n = spy.validate_s[-1]
+    val_s, val_n, _ = spy.validate_s[-1]
     ms = spy.step_ms()
     print(f"[trainer] {card}: {args.epoch} epochs of {steps_per_epoch} steps, validation at "
           f"epochs {want_epochs}, test on {len(trainer.test_loader.dataset)} samples in "
@@ -2165,6 +2532,79 @@ def phase_trainer_split(card, fused_ms):
     return total
 
 
+def phase_trainer_nf(card):
+    """[trainer-nf]: the recipe's config through the CLI's entry point,
+    trained by neural field with the slots built on the card."""
+    import torch
+
+    from gaot3d_tpu_torch import cli
+
+    root = TRAINER_DIR
+    overrides = trainer_overrides(root, epoch=2)
+    overrides["dataset"].update(training_strategy="neural_field",
+                                neural_field_input_nodes=NF_NODES,
+                                neural_field_query_nodes_train=NF_NODES,
+                                update_pt_files_with_edges=False)
+    overrides["model"] = {"args": {"magno": {"edge_layout": "slots"}}}
+    out = overrides["path"] = {k: v.replace(os.sep + "out" + os.sep, os.sep + "out_nf" + os.sep)
+                               for k, v in overrides["path"].items()}
+    counters = attention_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TrainerSpy(counters) as spy:
+        row, trainer = cli.run_config_file(TRAINER_CONFIG, overrides, return_trainer=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = {n: fn.launches for n, fn in counters.items()}
+    if trainer.slot_mode != "device" or trainer.model_config.args.magno.precompute_edges:
+        raise RuntimeError(f"[trainer-nf] slot mode {trainer.slot_mode}, precompute_edges "
+                           f"{trainer.model_config.args.magno.precompute_edges}")
+    args = trainer.optimizer_config.args
+    steps_per_epoch = len(trainer.train_loader)
+    if len(spy.steps) != args.epoch * steps_per_epoch:
+        raise RuntimeError(f"[trainer-nf] {len(spy.steps)} steps, expected "
+                           f"{args.epoch} x {steps_per_epoch}")
+    check_steps("[trainer-nf]", spy, {"k1": 10, "k2": 10, "k3_dq": 0, "k3_dkv": 0})
+    losses = np.load(out["loss_path"].rsplit(".", 1)[0] + ".npz")
+    if not (np.isfinite(losses["train_loss"]).all() and np.isfinite(losses["val_loss"]).all()) \
+            or len(spy.validate_s) != 1:
+        raise RuntimeError("[trainer-nf] non-finite loss or no validation")
+    still = [n for (n, p), b in zip(trainer.model.named_parameters(), spy.before)
+             if torch.equal(p, b)]
+    if still:
+        raise RuntimeError(f"[trainer-nf] parameters that did not move: {still}")
+    pred = np.load(out["result_path"].rsplit(".", 1)[0] + ".npz")["prd"]
+    n_nodes = trainer.dataset_config.synthetic_num_nodes
+    if pred.shape != (n_nodes, 1) or not np.isfinite(pred).all():
+        raise RuntimeError(f"[trainer-nf] result npz: prediction {pred.shape} or non-finite")
+    stats = trainer.last_loader_stats
+    val_s, val_n, val_events = spy.validate_s[-1]
+    val_eval = [a.elapsed_time(b) for a, b in val_events]
+    ms = spy.step_ms()
+    print(f"[trainer-nf] {card}: {args.epoch} epochs of {steps_per_epoch} steps by neural field "
+          f"({NF_NODES} input and query nodes of {n_nodes}), slots built on the card, in "
+          f"{wall:.1f} s; train loss {losses['train_loss'].tolist()}, val loss "
+          f"{losses['val_loss'].tolist()}; MSE (x10^-2) {float(row['MSE (x10^-2)']):.4f}")
+    print(f"[trainer-nf] {card}: step device time median {np.median(ms):.1f} ms (min "
+          f"{min(ms):.1f}, max {max(ms):.1f}); last epoch: wall "
+          f"{1e3 * stats['epoch_wall_s'] / stats['steps']:.1f} ms a step, loader stall "
+          f"{trainer.last_loader_stall_s:.3f} s (first wait "
+          f"{trainer.last_loader_first_wait_s:.3f} s), host_load_s "
+          f"{stats.get('host_load_s', 0.0):.3f}, put_s {stats.get('put_s', 0.0):.3f} for "
+          f"{stats['steps']} batches; validate {1e3 * val_s / val_n:.1f} ms a sample and test "
+          f"inference {1e3 * float(row['inference time']):.1f} ms a sample, full grid with "
+          f"the slot build; peak memory {peak:.2f} GiB")
+    print(f"[trainer-nf] {card}: validate of {val_n} samples {1e3 * val_s:.1f} ms on the host "
+          f"clock: eval steps {[round(t, 1) for t in val_eval]} ms between events (each "
+          f"forward with its slot build), the rest {1e3 * val_s - sum(val_eval):.1f} ms (the "
+          f"prefetch thread's load and upload of the first sample, and the waits)")
+    print(f"[trainer-nf] launches a step: K1 10, K2 10, K3 0, K5 1, K5b 1; in all {total}")
+    return total
+
+
 FLAT_PHASES = {"k7": phase_k7, "k6": phase_k6, "k8": phase_k8, "flat": phase_flat}
 
 
@@ -2173,10 +2613,10 @@ def main():
     parser.add_argument("--flat-seed", type=int, default=31,
                         help="seed of the cloud of the [k6], [k7], [k8] and [flat] phases")
     parser.add_argument("--only", default="",
-                        help="comma-separated subset of k1, attention-train, k3, k5, trainer, "
-                             "trainer-split, t1, k7, k6, k8, flat: run just these phases "
-                             "(kernels build at first use; the last four share one cloud) and "
-                             "print no record")
+                        help="comma-separated subset of k1, attention-train, k3, k5, "
+                             "serve-device, nf, trainer, trainer-split, trainer-nf, t1, k7, k6, "
+                             "k8, flat: run just these phases (kernels build at first use; the "
+                             "last four share one cloud) and print no record")
     args = parser.parse_args()
     import torch
 
@@ -2216,6 +2656,12 @@ def main():
                 _, fused_ms = phase_trainer(card)
             elif name == "trainer-split":
                 phase_trainer_split(card, fused_ms)
+            elif name == "serve-device":
+                phase_serve_device(card)
+            elif name == "nf":
+                phase_nf(card)
+            elif name == "trainer-nf":
+                phase_trainer_nf(card)
             elif name in FLAT_PHASES:
                 FLAT_PHASES[name](flat_input)
             else:
@@ -2229,13 +2675,17 @@ def main():
     k1 = phase_k1()
     k5, k5b = phase_k5()
     serve = phase_serve()
+    serve_device = phase_serve_device(card)
     k4 = phase_k4()
     k1d, k2, replay_launches = phase_attention_train()
     k3 = phase_k3()
-    train = phase_train(k5b["ms"])
+    train = phase_train(card, k5b["ms"])
+    torch.cuda.empty_cache()
+    nf = phase_nf(card)
     torch.cuda.empty_cache()
     fit, fused_ms = phase_trainer(card)
     split = phase_trainer_split(card, fused_ms)
+    fit_nf = phase_trainer_nf(card)
     shutil.rmtree(TRAINER_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     flat = phase_flat(flat_input)
@@ -2245,13 +2695,16 @@ def main():
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:394",
-         "launches": serve["k1"] + fit["k1"] - fit["k2"], **k1},  # the trainer's eval forwards
+         # serving, and the eval forwards of [nf] and of the trainers
+         "launches": serve["k1"] + serve_device["k1"] + nf["k1_eval"] + fit["k1"] - fit["k2"]
+         + fit_nf["k1"] - fit_nf["k2"], **k1},
         {"name": "flash_attn_fwd_dropout", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:144",
-         "launches": train["k1"] + fit["k2"], **k1d},  # one train forward a fused backward
+         # one train forward a fused backward
+         "launches": train["k1"] + nf["k2"] + fit["k2"] + fit_nf["k2"], **k1d},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_bwd.cu", "replaces": f"{pallas}:502",
-         "launches": train["k2"] + fit["k2"], **k2},
+         "launches": train["k2"] + nf["k2"] + fit["k2"] + fit_nf["k2"], **k2},
         # the two kernels of the pair launch together: `launches` is the dq kernel's count,
         # held equal to the dk/dv kernel's by [trainer-split]; the dk/dv kernel's body is
         # K2's, in flash_bwd_wgmma.cuh
@@ -2265,11 +2718,12 @@ def main():
         {"name": "encoder_payload", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/encoder_payload.cu",
          "replaces": "gaot3d_tpu/ops/pallas_encoder.py:203",
-         "launches": serve["k5"] + train["k5"] + fit["k5"], **k5},
+         "launches": serve["k5"] + serve_device["k5"] + train["k5"] + nf["k5"] + fit["k5"]
+         + fit_nf["k5"], **k5},
         {"name": "encoder_payload_bwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/encoder_payload_bwd.cu",
          "replaces": "gaot3d_tpu/ops/pallas_encoder.py:246",
-         "launches": train["k5b"] + fit["k5b"], **k5b},
+         "launches": train["k5b"] + nf["k5b"] + fit["k5b"] + fit_nf["k5b"], **k5b},
         {"name": "segment_sum_sorted", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/segment_sum_sorted.cu",
          "replaces": "gaot3d_tpu/ops/pallas_segment.py:103", "launches": flat["k6"], **k6},

@@ -9,9 +9,13 @@
     --num_works_per_device N   concurrent subprocess jobs a device
     --visible_devices 0 1      jobs go round these devices in turn
                                (CUDA_VISIBLE_DEVICES)
+    --device cpu               run every config on this device instead of its
+                               `setup.device` (e.g. a config written for the
+                               card, on the CPU)
 
 One CSV row a run is appended to `path.database_path`. The job runs on
-`setup.device`: the card unless the config says `cpu`.
+`setup.device`: the card unless the config says `cpu` or `--device` says
+otherwise.
 """
 from __future__ import annotations
 
@@ -52,6 +56,8 @@ def parse_args(argv=None):
                         help="concurrent subprocess jobs per device")
     parser.add_argument("--visible_devices", nargs="*", type=int, default=None,
                         help="restrict the visible CUDA devices")
+    parser.add_argument("--device", type=str, default=None,
+                        help="override setup.device of every config (auto, cuda, cuda:N, cpu)")
     parser.add_argument("--log_level", type=str,
                         default=os.environ.get("GAOT_LOG_LEVEL", "INFO"))
     args = parser.parse_args(argv)
@@ -137,9 +143,10 @@ def main(argv=None) -> None:
         if args.visible_devices:
             # before the first CUDA call of this process
             os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(str(d) for d in args.visible_devices)
+        overrides = {"setup": {"device": args.device}} if args.device else None
         for f in args.arg_files:
             log.info("Running config %s", f)
-            run_config_file(f)
+            run_config_file(f, overrides)
         return
 
     # folder mode: a subprocess a job, so that one failed job does not end the
@@ -160,7 +167,8 @@ def main(argv=None) -> None:
             log.info("Launching %s%s", f, f" on device {dev}" if dev is not None else "")
             p = subprocess.Popen(
                 [sys.executable, "-m", "gaot3d_tpu_torch", "--config", f, "--debug",
-                 "--log_level", str(args.log_level)], env=env, cwd=REPO_ROOT)
+                 "--log_level", str(args.log_level)]
+                + (["--device", args.device] if args.device else []), env=env, cwd=REPO_ROOT)
             running.append((f, p))
         time.sleep(1.0)
         still = []

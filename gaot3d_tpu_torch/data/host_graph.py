@@ -1,6 +1,6 @@
 """Host-side edge-slot building, degree sectioning and flattening, in numpy
 (port of the host-side functions of gaot3d_tpu/ops/grid_graph.py:
-`stencil_widths`, `compact_slots_np`, `build_edge_slots_host`,
+`compact_slots_np`, `build_edge_slots_host`,
 `section_slots_by_degree_np`, `section_slots_shared`, `flatten_slots_host`,
 `flatten_slots_host_batched`).
 
@@ -12,34 +12,16 @@ so the edges a server sees are always the ones the native code makes.
 from __future__ import annotations
 
 import ctypes
-import math
 import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..kernels.build import REPO_ROOT, load_library
-from ..ops.grid_graph import FlatEdgeChunks, LatentGrid, SectionedEdgeSlots
-
-DECODER_STRATEGIES = ("knn", "radius", "bidirectional", "reverse")
+from ..ops.grid_graph import (DECODER_STRATEGIES, FlatEdgeChunks, LatentGrid,
+                              SectionedEdgeSlots, stencil_widths)
 
 _GRAPH_SRC = os.path.join(REPO_ROOT, "native", "gaot_graph.cpp")
-
-
-def stencil_widths(grid: LatentGrid, radius: float, k_neighbors: int,
-                   strategy: str) -> Tuple[int, int, int]:
-    """Per-axis stencil window widths covering the radius ball and/or the k
-    nearest latent cells."""
-    need_radius = strategy in ("radius", "bidirectional", "reverse")
-    need_knn = strategy in ("knn", "bidirectional", "reverse")
-    wk = 2 if k_neighbors <= 1 else 2 * (1 + math.ceil((k_neighbors ** (1.0 / 3.0)) / 2.0))
-    widths = []
-    for a in range(3):
-        h = grid.spacing[a]
-        wr = 2 * math.ceil(radius / h) + 2 if (need_radius and h > 0) else 2
-        w = max(wr if need_radius else 2, wk if need_knn else 2)
-        widths.append(min(w, grid.dims[a]))
-    return tuple(widths)
 
 
 def _graph_library() -> ctypes.CDLL:

@@ -3,13 +3,14 @@ gaot3d_tpu/data/pipeline.py).
 
   - Ragged point clouds become fixed-shape padded [B, N, ...] arrays with node
     masks.
-  - Two graph-building modes feed the model's precomputed-edge paths:
+  - Three graph-building modes:
       * 'precomputed' ('update_pt_files_with_edges'): slots stored beside the
         samples by the sweep of `graph_precompute.py`;
       * 'async' ('asynchronous_graph_building'): slots built on the host while
-        batching.
-    Building on the device inside the step ('device') is not ported; the
-    trainer refuses it.
+        batching;
+      * 'device' (neither): batches carry no edges (enc_slots and dec_slots
+        None) and the model builds uniform slots on the device inside its
+        forward. The flat and sectioned layouts need host-built slots.
   - Batches are assembled on the host: pos, feats, target and masks as numpy,
     the edge structures as the port's containers over CPU tensors that share
     the numpy memory. `prefetch_to_device` overlaps that assembly and the

@@ -1,9 +1,10 @@
 """GAOT3D: MAGNO encoder -> U-ViT processor -> MAGNO decoder (port of
 gaot3d_tpu/models/gaot3d.py).
 
-The forward pass takes precomputed edges for both sides (uniform slots,
-degree sections or flat edge lists, each side its own); the on-device stencil
-build is not ported. In training the forward takes a
+The forward pass takes precomputed edges for either side (uniform slots,
+degree sections or flat edge lists, each side its own), or builds uniform
+slots for a side it is given none for, where its points lie (the card or the
+CPU), as the JAX model does. In training the forward takes a
 `torch.Generator`, from which the processor draws its attention-dropout
 seeds. Patchify and unpatchify
 are the reference's exact reshapes and transposes.
@@ -161,25 +162,39 @@ class GAOT3D(nn.Module):
                 decoder_slots: Optional[List] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, N, 3] points with [B, N, C_in] features -> [B, Q, out] on the
-        query points (the input points by default). The masks are accepted
-        for signature parity; with precomputed slots the slots carry them.
+        query points: the input points and their mask by default; given
+        query_pos without query_mask, every query is valid.
+
+        A side without precomputed edges builds its slots from its points
+        and mask (a false row holds no edge); slots built so are valid by
+        construction and are not checked, so the forward makes no host sync
+        for them. When both sides build the same slots from the same points,
+        they are built once. Precomputed edges carry their own masks.
         `generator` seeds the attention dropout of a training forward."""
         if condition is not None:
             raise NotImplementedError("conditioned models are not ported yet")
-        if encoder_slots is None or decoder_slots is None:
-            raise ValueError("the port needs precomputed encoder and decoder slots "
-                             "(data/host_graph.py builds them)")
-        if len(encoder_slots) != 1 or len(decoder_slots) != 1:
-            raise NotImplementedError("one scale only: pass one slot structure per side")
         if query_pos is None:
-            query_pos = point_pos
-        enc, dec = encoder_slots[0], decoder_slots[0]
-        # the encoder folds by cell when its lists come sorted so; the decoder
-        # always folds by node, so one flat list cannot serve both sides then
-        enc_order = "dst" if self.encoder.fused.flat_dst_sorted else None
-        check_slots(enc, point_pos.shape[0], point_pos.shape[1], self.grid.num_tokens, enc_order)
-        if dec is not enc or isinstance(dec, FlatEdgeChunks):
+            query_pos, query_mask = point_pos, point_mask
+        for side in (encoder_slots, decoder_slots):
+            if side is not None and len(side) != 1:
+                raise NotImplementedError("one scale only: pass one slot structure per side")
+        enc = encoder_slots[0] if encoder_slots is not None else None
+        dec = decoder_slots[0] if decoder_slots is not None else None
+        if enc is not None:
+            # the encoder folds by cell when its lists come sorted so; the
+            # decoder always folds by node, so one flat list cannot serve both
+            enc_order = "dst" if self.encoder.fused.flat_dst_sorted else None
+            check_slots(enc, point_pos.shape[0], point_pos.shape[1], self.grid.num_tokens,
+                        enc_order)
+        if dec is not None and (dec is not enc or isinstance(dec, FlatEdgeChunks)):
             check_slots(dec, query_pos.shape[0], query_pos.shape[1], self.grid.num_tokens, "src")
+        if enc is None:
+            enc = self.encoder.build_slots(point_pos, point_mask)
+            if dec is None and query_pos is point_pos and query_mask is point_mask \
+                    and self.decoder.build_slots.same_edges(self.encoder.build_slots):
+                dec = enc
+        if dec is None:
+            dec = self.decoder.build_slots(query_pos, query_mask)
         rndata = self.encoder(point_pos, point_feats, enc)
         rndata = self.process(rndata, generator)
         return self.decoder(rndata, query_pos, dec)

@@ -1,7 +1,12 @@
-"""MAGNO encoder and decoder over precomputed edges (port of
-gaot3d_tpu/models/magno.py `MAGNOConfig`, `parse_edge_layout`, `MAGNOEncoder`
-on its fused path, and `MAGNODecoder` with its GNO-only head over uniform
-slots, degree sections and flat edge lists).
+"""MAGNO encoder and decoder (port of gaot3d_tpu/models/magno.py
+`MAGNOConfig`, `parse_edge_layout`, `MAGNOEncoder` on its fused path, and
+`MAGNODecoder` with its GNO-only head over uniform slots, degree sections and
+flat edge lists).
+
+Each side takes the edges it is handed, or, given none, builds uniform slots
+from its points where they lie (`ops/grid_graph.build_budgeted_slots`: the
+stencil window, then the budget compaction), as the JAX model builds them
+inside its forward.
 
 Encoder: lift point features -> fused GNO + statistical geoembed
 (models/fused_encoder.py) -> recovery([gno | geo]) -> [B, M, C].
@@ -30,7 +35,7 @@ import torch
 from torch import nn
 
 from ..ops.grid_graph import (EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots,
-                              compact_slots)
+                              build_budgeted_slots, compact_slots)
 from .fused_encoder import FusedEncoderScale, StatisticalGeoEmbedding
 from .integral_transform import IntegralTransform, effective_chunk
 from .mlp import ChannelMLP
@@ -161,6 +166,29 @@ def _budgeted(slots: EdgeSlots, budget: Optional[int]) -> EdgeSlots:
     return slots
 
 
+class SlotBuild:
+    """The edge build of one side: uniform slots of `strategy` at the config's
+    radius (one scale) and k, compacted to its slot budget, in node chunks of
+    its edge_chunk_size."""
+
+    def __init__(self, config: MAGNOConfig, grid: LatentGrid, strategy: str):
+        self.grid = grid
+        self.strategy = strategy
+        self.radius = config.gno_radius * config.scales[0]
+        self.k_neighbors = config.k_neighbors
+        self.budget = config.slot_budget
+        self.chunk = config.edge_chunk_size
+
+    def __call__(self, pos: torch.Tensor, mask: Optional[torch.Tensor]) -> EdgeSlots:
+        return build_budgeted_slots(pos, self.grid, self.radius, self.k_neighbors,
+                                    self.strategy, mask, self.budget, self.chunk)
+
+    def same_edges(self, other: "SlotBuild") -> bool:
+        """Whether `other` builds the same slots from the same points."""
+        return (self.grid, self.strategy, self.radius, self.k_neighbors, self.budget) == \
+            (other.grid, other.strategy, other.radius, other.k_neighbors, other.budget)
+
+
 class MAGNOEncoder(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, config: MAGNOConfig,
                  grid: LatentGrid):
@@ -169,6 +197,8 @@ class MAGNOEncoder(nn.Module):
         cfg = config
         C = cfg.lifting_channels
         self.slot_budget = cfg.slot_budget
+        enc_strategy, _ = parse_neighbor_strategy(cfg.neighbor_strategy)
+        self.build_slots = SlotBuild(cfg, grid, enc_strategy)
         self.lifting = ChannelMLP([in_channels, C], cfg.mlp_type)
         self.gno = IntegralTransform(
             [2 * cfg.gno_coord_dim] + list(cfg.in_gno_channel_mlp_hidden_layers) + [C], grid)
@@ -180,9 +210,13 @@ class MAGNOEncoder(nn.Module):
             flat_reduce_impl=cfg.flat_reduce_impl)
 
     def forward(self, point_pos: torch.Tensor, point_feats: torch.Tensor,
-                slots) -> torch.Tensor:
-        """point_pos [B, N, 3], point_feats [B, N, C_in] -> [B, M, C]."""
+                slots=None, point_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """point_pos [B, N, 3], point_feats [B, N, C_in] -> [B, M, C]. Without
+        `slots`, builds them from point_pos, point_mask [B, N] (all true by
+        default) dropping the edges of false rows."""
         lifted = self.lifting(point_feats)
+        if slots is None:
+            slots = self.build_slots(point_pos, point_mask)
         if isinstance(slots, EdgeSlots):
             slots = _budgeted(slots, self.slot_budget)
         gno_out, geo = self.fused(slots, point_pos, lifted)
@@ -199,6 +233,8 @@ class MAGNODecoder(nn.Module):
         self.slot_budget = cfg.slot_budget
         self.edge_chunk_size = cfg.edge_chunk_size
         self.fused_head = cfg.fused_head
+        _, dec_strategy = parse_neighbor_strategy(cfg.neighbor_strategy)
+        self.build_slots = SlotBuild(cfg, grid, dec_strategy)
         self.gno = IntegralTransform(
             [2 * cfg.gno_coord_dim] + list(cfg.out_gno_channel_mlp_hidden_layers)
             + [in_channels], grid)
@@ -218,10 +254,14 @@ class MAGNODecoder(nn.Module):
         return torch.cat(outs, dim=1)
 
     def forward(self, latent_feats: torch.Tensor, query_pos: torch.Tensor,
-                slots) -> torch.Tensor:
+                slots=None, query_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """latent_feats [B, M, C], query_pos [B, N, 3] -> [B, N, out]. With
         sectioned slots the rows come back in the sections' (degree-sorted)
-        node order; with flat edge lists, in the caller's."""
+        node order; with flat edge lists, in the caller's. Without `slots`,
+        builds them from query_pos and query_mask [B, N] (all true by
+        default); a false row has no edge and decodes to the head's bias."""
+        if slots is None:
+            slots = self.build_slots(query_pos, query_mask)
         if isinstance(slots, SectionedEdgeSlots):
             if not self.fused_head:
                 raise ValueError("sectioned slots require fused_head=True")

@@ -2,13 +2,25 @@
 
 The artifact is `torch.save({"config": ..., "state_dict": ...})`: the model's
 constructor arguments as plain data plus its weights. `load_inference`
-rebuilds the model on a device and returns the eval forward, which takes the
-precomputed edge structures as call-time arguments like
-`make_edge_arg_model`:
+rebuilds the model on a device and returns its eval forward in one of two
+modes. With `edges="args"` (the default) the forward takes the precomputed
+edge structures as call-time arguments, like `make_edge_arg_model`:
 
     export_inference(model, "model.pt")                          # once
     infer = load_inference("model.pt")                           # serve, on the card
     pred = infer(pos, feats, mask, encoder_slots, decoder_slots)
+
+With `edges="device"` (`make_device_edge_model`) the forward builds both
+sides' slots on the device from the points, as the JAX package's default
+export does, and the decoder's queries are call-time arguments too (the
+input points by default):
+
+    infer = load_inference("model.pt", edges="device")
+    pred = infer(pos, feats, mask)                               # [B, N, out]
+    pred = infer(pos, feats, mask, query_pos, query_mask)        # [B, Q, out]
+
+The exported config holds what the build needs: grid, radius, k, strategies,
+slot budget and node chunk.
 
 Each side takes any edge structure the model runs: `EdgeSlots`,
 `SectionedEdgeSlots` or `FlatEdgeChunks` (the encoder's built in the order
@@ -80,12 +92,29 @@ def make_edge_arg_model(model: GAOT3D, num_scales: int = 1) -> Callable:
     return infer
 
 
-def load_inference(path: str, device="cuda") -> Callable:
+def make_device_edge_model(model: GAOT3D) -> Callable:
+    """The eval forward that builds its slots on the device:
+    `infer(pos, feats, mask, query_pos=None, query_mask=None)`; query_mask
+    defaults to all true when query_pos is given."""
+
+    def infer(pos, feats, mask, query_pos=None, query_mask=None):
+        with torch.inference_mode():
+            return model(pos, feats, mask, query_pos=query_pos, query_mask=query_mask)
+
+    return infer
+
+
+def load_inference(path: str, device="cuda", edges: str = "args") -> Callable:
     """Rebuild an exported model on `device` (the card unless the caller asks
-    for the CPU) in eval mode and return its call-time-edges forward (see
-    make_edge_arg_model), which accepts slots, sections or flat edge lists."""
+    for the CPU) in eval mode and return its forward: with edges "args" the
+    call-time-edges forward (see make_edge_arg_model), which accepts slots,
+    sections or flat edge lists; with edges "device" the forward that builds
+    them (see make_device_edge_model)."""
+    if edges not in ("args", "device"):
+        raise ValueError(f"edges must be 'args' or 'device', got {edges!r}")
     device = require_device(device)
     blob = torch.load(path, map_location="cpu", weights_only=True)
     model = model_from_config(blob["config"], device="cpu")
     model.load_state_dict(blob["state_dict"], strict=True)
-    return make_edge_arg_model(model.to(device).eval())
+    model = model.to(device).eval()
+    return make_device_edge_model(model) if edges == "device" else make_edge_arg_model(model)

@@ -4,7 +4,8 @@ its metrics, plots and checkpoints (`trainer.py`, `metrics.py`, `plotting.py`,
 `checkpoint.py`; import those from their modules)."""
 from .schedule import (OptimizerargsConfig, ScheduledOptimizer, make_lr_schedule,
                        make_optimizer, mix_phase_lengths)
-from .step import TrainBatch, eval_step, masked_mse, train_step
+from .step import (NeuralField, TrainBatch, eval_step, gather_nodes, masked_mse,
+                   neural_field_loss, sample_nodes_without_replacement, train_step)
 
 __all__ = [
     "OptimizerargsConfig",
@@ -12,8 +13,12 @@ __all__ = [
     "make_lr_schedule",
     "make_optimizer",
     "mix_phase_lengths",
+    "NeuralField",
     "TrainBatch",
     "eval_step",
+    "gather_nodes",
     "masked_mse",
+    "neural_field_loss",
+    "sample_nodes_without_replacement",
     "train_step",
 ]

@@ -20,12 +20,20 @@ the config says `cpu`. Batches are assembled on the host by `data/pipeline.py`
 and uploaded through pinned memory by a prefetch thread; a step is
 `train/step.py` `train_step`, so the kernels of `kernels/` run on CUDA tensors
 and their plain versions on CPU tensors. One `torch.Generator` on the device,
-seeded from `setup.seed`, feeds attention dropout.
+seeded from `setup.seed`, feeds attention dropout, and a second one, seeded
+from `setup.seed` + 1, the neural-field node sampler, so that a step's dropout
+seeds do not depend on the strategy.
+
+Edges come from one of three places, as in the JAX trainer: the precompute
+sweep (`update_pt_files_with_edges`), the loader's host build
+(`asynchronous_graph_building`), or, with neither, the model itself, which
+builds uniform slots on the device inside every forward (slot mode
+'device'). `training_strategy: neural_field` samples nodes on the device and
+builds the edges of the sampled coordinates, so it needs that last mode.
 
 Not ported, each refused with NotImplementedError naming its ROADMAP item:
-`training_strategy: neural_field` and building slots on the device inside the
-step (item 7), `setup.distributed` and `node_shards > 1` (item 9),
-`setup.dtype: bfloat16` and `kernel_dtype: bfloat16` (item 5). The JAX
+`setup.distributed` and `node_shards > 1` (item 7), `setup.dtype: bfloat16`
+and `kernel_dtype: bfloat16` (item 4). The JAX
 trainer's layout harvest, host staging by node count and compilation cache
 answer to XLA and have no counterpart here.
 """
@@ -56,7 +64,7 @@ from ..utils.rand import manual_seed
 from .checkpoint import load_checkpoint, load_msgpack_params, load_params_only, save_checkpoint
 from .metrics import compute_drivaernet_metric, compute_general_metrics, compute_poseidon_metric
 from .schedule import make_optimizer
-from .step import TrainBatch, eval_step, train_step
+from .step import NeuralField, TrainBatch, eval_step, train_step
 
 logger = logging.getLogger(__name__)
 
@@ -112,16 +120,17 @@ class TrainerBase:
         if setup.distributed or setup.node_shards > 1 or setup.world_size > 1:
             raise NotImplementedError(
                 "setup.distributed, world_size > 1 and node_shards > 1 are not ported: data "
-                "and node parallelism are ROADMAP item 9")
+                "and node parallelism are ROADMAP item 7")
         if setup.dtype == "bfloat16" or config.model.args.magno.kernel_dtype == "bfloat16":
             raise NotImplementedError(
                 "setup.dtype / magno.kernel_dtype 'bfloat16' (bf16 kernel MLPs) are not "
-                "ported: ROADMAP item 5; attention is bf16 already (attention_dtype)")
+                "ported: ROADMAP item 4; attention is bf16 already (attention_dtype)")
         self.device = resolve_device(setup.device)
         manual_seed(setup.seed)
         # weights are drawn on the CPU and moved; dropout seeds on the device
         self.init_generator = torch.Generator().manual_seed(setup.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(setup.seed)
+        self.sample_generator = torch.Generator(device=self.device).manual_seed(setup.seed + 1)
 
         self.metadata = DATASET_METADATA[self.dataset_config.metaname]
         self._wandb = None
@@ -307,11 +316,29 @@ class StaticTrainer3D(TrainerBase):
     """Static (time-independent) 3D PDE trainer."""
 
     def __init__(self, config: RunConfig):
-        if config.dataset.training_strategy != "full_grid":
-            raise NotImplementedError(
-                f"training_strategy {config.dataset.training_strategy!r} is not ported (it "
-                "builds edges on the device from sampled coordinates): ROADMAP item 7")
+        strategy = config.dataset.training_strategy
+        if strategy == "neural_field":
+            # edges are built on the device from the sampled coordinates
+            # (the reference's constraint, stat.py:48-54)
+            if config.dataset.update_pt_files_with_edges:
+                raise ValueError(
+                    "neural_field training strategy requires update_pt_files_with_edges=False")
+            if config.model.args.magno.asynchronous_graph_building:
+                # the loader would build full-graph slots for every sample
+                # that the neural-field step never reads
+                raise ValueError(
+                    "neural_field training strategy requires "
+                    "asynchronous_graph_building=False (edges are built "
+                    "on device from the sampled coordinates)")
+            config.model.args.magno.precompute_edges = False
+        # any other strategy trains on the full grid, as in the JAX trainer
         super().__init__(config)
+        self.neural_field = None
+        if strategy == "neural_field":
+            ds = self.dataset_config
+            self.neural_field = NeuralField(int(ds.neural_field_input_nodes),
+                                            int(ds.neural_field_query_nodes_train),
+                                            self.sample_generator)
 
     # -- data ---------------------------------------------------------------
     def init_dataset(self, dataset_config: DatasetConfig):
@@ -322,14 +349,22 @@ class StaticTrainer3D(TrainerBase):
         elif magno_cfg.asynchronous_graph_building:
             slot_mode = "async"
         else:
-            raise NotImplementedError(
-                "building edge slots on the device inside the step is not ported (ROADMAP "
-                "item 7): set dataset.update_pt_files_with_edges or "
-                "magno.asynchronous_graph_building")
+            slot_mode = "device"  # the model builds its slots in every forward
+        self.slot_mode = slot_mode
         layout = parse_edge_layout(magno_cfg.edge_layout)
-        if "sectioned" in layout and not magno_cfg.slot_budget:
-            raise ValueError("magno.edge_layout='sectioned' requires slot_budget (sections "
-                             "truncate the valid-first compacted K columns)")
+        if "sectioned" in layout:
+            # degree sections need host-built (compacted) slots; the node
+            # permutation happens at batch assembly (data/pipeline.py)
+            if slot_mode == "device":
+                raise ValueError("magno.edge_layout='sectioned' requires precomputed or "
+                                 "async graph building")
+            if not magno_cfg.slot_budget:
+                raise ValueError("magno.edge_layout='sectioned' requires slot_budget (sections "
+                                 "truncate the valid-first compacted K columns)")
+        if "flat" in layout and slot_mode == "device":
+            raise ValueError("magno.edge_layout='flat' requires precomputed or async graph "
+                             "building (update_pt_files_with_edges or "
+                             "asynchronous_graph_building)")
 
         t0 = time.time()
         if dataset_config.metaname.startswith("synthetic/") and not os.path.isdir(
@@ -368,7 +403,7 @@ class StaticTrainer3D(TrainerBase):
             from ..data.graph_precompute import update_sample_files_with_edges
 
             update_sample_files_with_edges(dataset_config, magno_cfg, self.grid, self.metadata)
-        else:
+        elif slot_mode == "async":
             grid = self.grid
             # sections need valid-first budget-compacted slots from the host;
             # the other layouts keep the stencil window and the model compacts
@@ -383,7 +418,7 @@ class StaticTrainer3D(TrainerBase):
                             pos, grid, r, magno_cfg.k_neighbors, strategy, budget=bud))
                 return out
         self.precompute_seconds = time.time() - t0
-        magno_cfg.precompute_edges = True
+        magno_cfg.precompute_edges = slot_mode != "device"
 
         # one test dataset and preprocessed probe sample, shared by the budget
         # check, the loaders and the datarow's edge counts
@@ -468,19 +503,22 @@ class StaticTrainer3D(TrainerBase):
         pinned memory on a card; a TrainBatch (a cached one) passes through."""
         if isinstance(batch, TrainBatch):
             return batch
-        if len(batch.enc_slots) != 1:
-            raise NotImplementedError("multiscale batches are not ported")
         memo: dict = {}
         put = lambda a: pinned_to_device(a, self.device, memo)  # noqa: E731
+        edges = [None, None]  # slot mode 'device': the model builds them
+        if batch.enc_slots is not None:
+            if len(batch.enc_slots) != 1:
+                raise NotImplementedError("multiscale batches are not ported")
+            edges = [_edges_to_device(side[0], self.device, memo)
+                     for side in (batch.enc_slots, batch.dec_slots)]
         return TrainBatch(
             pos=put(batch.pos), feats=put(batch.feats), target=put(batch.target),
-            node_mask=put(batch.node_mask),
-            enc_slots=_edges_to_device(batch.enc_slots[0], self.device, memo),
-            dec_slots=_edges_to_device(batch.dec_slots[0], self.device, memo))
+            node_mask=put(batch.node_mask), enc_slots=edges[0], dec_slots=edges[1])
 
     def train_step(self, batch) -> torch.Tensor:
         loss, self._last_grad_norm = train_step(self.model, self.optimizer,
-                                                self.put_batch(batch), self.generator)
+                                                self.put_batch(batch), self.generator,
+                                                self.neural_field)
         return loss
 
     def eval_step(self, batch):

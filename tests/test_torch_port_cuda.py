@@ -19,7 +19,8 @@ from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
 from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
 from gaot3d_tpu_torch.models import (AttentionConfig, FFNConfig, MAGNOConfig,
                                      TransformerConfig, init_model)
-from gaot3d_tpu_torch.ops.grid_graph import EdgeSlots, LatentGrid
+from gaot3d_tpu_torch.ops.grid_graph import (EdgeSlots, LatentGrid, build_budgeted_slots,
+                                             build_edge_slots_batched)
 
 pytestmark = [
     pytest.mark.cuda,
@@ -803,3 +804,28 @@ def test_sorted_reductions_agree_with_k5_on_the_model():
         assert {n: fn.launches for n, fn in counters.items()} == expect, kw
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
         assert ((got_g - want_g).norm() / want_g.norm()).item() <= 1e-4, kw
+
+
+@pytest.mark.parametrize("B,N,k,strategy,budget", [
+    (1, 524_288, 1, "bidirectional", 5), (1, 524_288, 1, "bidirectional", None),
+    (3, 1_001, 2, "bidirectional", 8), (3, 777, 4, "knn", None), (3, 999, 1, "radius", 6)])
+def test_edge_build_on_card_equals_cpu_bit_for_bit(B, N, k, strategy, budget):
+    """The slots built on the card from the recipe's grid and radius are the
+    CPU build's bits: the recipe's cloud (compacted to its budget and the
+    whole window) and ragged batches of three, padded rows and points
+    outside the grid included."""
+    grid = LatentGrid(dims=(64, 64, 32))
+    rng = np.random.default_rng(N + k)
+    pts = torch.from_numpy(rng.uniform(-1.05, 1.05, (B, N, 3)).astype(np.float32))
+    mask = torch.ones(B, N, dtype=torch.bool)
+    mask[-1, N // 3:] = False
+    if budget is None:
+        cpu = build_edge_slots_batched(pts, grid, 0.033, k, strategy, mask)
+        card = build_edge_slots_batched(pts.cuda(), grid, 0.033, k, strategy, mask.cuda())
+    else:
+        cpu = build_budgeted_slots(pts, grid, 0.033, k, strategy, mask, budget, 65_536)
+        card = build_budgeted_slots(pts.cuda(), grid, 0.033, k, strategy, mask.cuda(), budget,
+                                    65_536)
+    assert card.lat_idx.is_cuda and card.mask.is_cuda
+    assert torch.equal(card.lat_idx.cpu(), cpu.lat_idx)
+    assert torch.equal(card.mask.cpu(), cpu.mask)

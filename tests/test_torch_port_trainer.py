@@ -333,23 +333,35 @@ def test_run_config_file_applies_the_load_priority(pair, tmp_path):
 # --- (h) what the trainer refuses
 
 
-@pytest.mark.parametrize("section,update,error,match", [
-    ("dataset", {"training_strategy": "neural_field"}, NotImplementedError, "ROADMAP item 7"),
-    ("dataset", {"update_pt_files_with_edges": False}, NotImplementedError, "ROADMAP item 7"),
-    ("setup", {"distributed": True}, NotImplementedError, "ROADMAP item 9"),
-    ("setup", {"node_shards": 2}, NotImplementedError, "ROADMAP item 9"),
-    ("setup", {"dtype": "bfloat16"}, NotImplementedError, "ROADMAP item 5"),
-    ("magno", {"kernel_dtype": "bfloat16"}, NotImplementedError, "ROADMAP item 5"),
-    ("magno", {"slot_budget": None}, ValueError, "requires slot_budget"),
-    ("magno", {"slot_budget": 1}, ValueError, "below the max per-point degree"),
-    ("setup", {"device": "tpu"}, ValueError, "not a device of this package"),
-    ("setup", {"trainer_name": "sequential"}, ValueError, "unknown trainer"),
-], ids=["neural_field", "device-slots", "distributed", "node_shards", "dtype-bf16",
-        "kernel-bf16", "sectioned-no-budget", "budget-too-small", "tpu", "trainer-name"])
-def test_trainer_refusals(tmp_path, section, update, error, match):
+@pytest.mark.parametrize("updates,error,match", [
+    ({"dataset": {"training_strategy": "neural_field"}}, ValueError,
+     "neural_field training strategy requires update_pt_files_with_edges=False"),
+    ({"dataset": {"training_strategy": "neural_field", "update_pt_files_with_edges": False},
+      "magno": {"asynchronous_graph_building": True}}, ValueError,
+     r"neural_field training strategy requires asynchronous_graph_building=False \(edges "
+     r"are built on device from the sampled coordinates\)"),
+    ({"dataset": {"update_pt_files_with_edges": False}}, ValueError,
+     "magno.edge_layout='sectioned' requires precomputed or async graph building"),
+    ({"dataset": {"update_pt_files_with_edges": False}, "magno": {"edge_layout": "flat"}},
+     ValueError, "magno.edge_layout='flat' requires precomputed or async graph building"),
+    ({"setup": {"distributed": True}}, NotImplementedError, "ROADMAP item 7"),
+    ({"setup": {"node_shards": 2}}, NotImplementedError, "ROADMAP item 7"),
+    ({"setup": {"dtype": "bfloat16"}}, NotImplementedError, "ROADMAP item 4"),
+    ({"magno": {"kernel_dtype": "bfloat16"}}, NotImplementedError, "ROADMAP item 4"),
+    ({"magno": {"slot_budget": None}}, ValueError, "requires slot_budget"),
+    ({"magno": {"slot_budget": 1}}, ValueError, "below the max per-point degree"),
+    ({"setup": {"device": "tpu"}}, ValueError, "not a device of this package"),
+    ({"setup": {"trainer_name": "sequential"}}, ValueError, "unknown trainer"),
+], ids=["neural_field-precompute", "neural_field-async", "device-sectioned", "device-flat",
+        "distributed", "node_shards", "dtype-bf16", "kernel-bf16", "sectioned-no-budget",
+        "budget-too-small", "tpu", "trainer-name"])
+def test_trainer_refusals(tmp_path, updates, error, match):
+    """What the trainer refuses; the neural-field and slot-mode refusals in
+    the JAX trainer's words."""
     cfg = small_config(tmp_path)
-    target = cfg["model"]["args"]["magno"] if section == "magno" else cfg[section]
-    target.update(update)
+    for section, update in updates.items():
+        target = cfg["model"]["args"]["magno"] if section == "magno" else cfg[section]
+        target.update(update)
     with pytest.raises(error, match=match):
         port_trainer(cfg, tmp_path)
 
