@@ -11,11 +11,14 @@ and prints no record: for work on one phase.
 Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
      power limit, turns TF32 off;
-  2. build: compiles the ten CUDA sources of gaot3d_tpu_torch/csrc with
-     nvcc, all at the same time, and prints each library's registers and
-     spills from `-Xptxas -v`; for K5 and K5b at the recipe's widths also
-     the CTAs an SM holds and the TF32 tensor-core (HMMA...TF32) and FFMA
-     instructions `cuobjdump -sass` finds (none of the first fails); for
+  2. build: compiles the twelve CUDA libraries of gaot3d_tpu_torch/csrc
+     with nvcc (K5's and K5b's sources twice, their f32 and bf16 bodies),
+     all at the same time, and prints each library's registers and spills
+     from `-Xptxas -v`; for each body of K5 and K5b at the recipe's widths
+     also its shared memory, the CTAs an SM holds and the TF32
+     (HMMA...TF32) and bf16 (HMMA...BF16) tensor-core and FFMA instructions
+     `cuobjdump -sass` finds (a body without the tensor-core instructions of
+     its products fails); for
      every body of K2 and K3 its registers and spills, and for K3's its
      wgmma (HGMMA) and mma.sync (HMMA) instructions (a bf16 body at head dim
      16-64 without wgmma, or any mma.sync, fails);
@@ -28,9 +31,18 @@ Phases, each of which raises (exit code 1) on failure:
      version on the same sections, dfeats the same bits in two launches; both
      timed as the five launches alone and through their wrappers, with the
      bound from the 3xTF32 products, the GELU's instructions (counted in the
-     SASS of its formula built alone) and the bytes;
-  5. [serve] the DrivAerNet++ recipe model (random weights from a seed) is
-     exported, loaded on the card and answers 2 requests of 524,288 points;
+     SASS of its formula built alone) and the bytes; then [k5-bf16] and
+     [k5b-bf16], the bf16 bodies (`kernel_dtype: bfloat16`) vs their bf16
+     plain versions on the same sections and on the neural-field step's
+     [1, 40,000, 5] slots, in relative L2 (K5_BF16_BOUND over the value
+     columns, K5B_BF16_BOUND for each of dfeats, dW, db), K5b launched once
+     a node chunk, each timed as its launches alone beside the f32 body's
+     time and its bound (one bf16 pass forward; the backward's recompute
+     one bf16 pass, its chain and dW two TF32 passes each);
+  5. [serve] the DrivAerNet++ recipe model (random weights from a seed,
+     `kernel_dtype: bfloat16` as tpu_500k.yaml sets it) is exported, loaded
+     on the card and answers 2 requests of 524,288 points through K5's bf16
+     body;
      the second is answered once more for the warm forward time, the first
      once more with every kernel replaced by its plain version;
   6. [k4] the dropout-bits exporter vs the plain Philox, bit for bit;
@@ -49,19 +61,25 @@ Phases, each of which raises (exit code 1) on failure:
      of those bits; each kernel timed alone beside its own bound, the mask's
      bytes and the pair's peak memory;
  11. [train] the recipe model takes 2 AdamW steps (mix schedule, dropout 0.1)
-     on one 524,288-point cloud; launches per step must be exactly K1 10,
-     K2 10, K5 5, K5b 5; then one forward-and-backward on a 32x32x16 grid
-     with 65,536 points is repeated with every kernel replaced by its plain
-     version at the same seed; then a breakdown of one step, with K5's and
-     K5b's device time in its profile.
+     on one 524,288-point cloud at `kernel_dtype: bfloat16`; launches per
+     step must be exactly K1 10, K2 10, K5 5 (a section each), K5b 8 (a node
+     chunk each), all of K5 and K5b through their bf16 bodies; then a
+     breakdown of one step, with K5's, K5b's and the GEMMs' device time in
+     its profile; the decoder's bf16 kernel MLP on one chunk's rows timed as
+     the port takes it (f32 GEMMs of bf16-rounded operands) and as torch.mm
+     of bf16 operands with an f32 result; then one forward-and-backward on a
+     32x32x16 grid with 65,536 points, at f32 and at bf16, is repeated with
+     every kernel replaced by its plain version at the same seed.
  12. [trainer] `gaot3d_tpu_torch.cli.run_config_file` on
      configs/examples/synthetic/h100_500k.toml with its data and outputs
-     under .data/chip_smoke_trainer: the synthetic set (10 clouds of 500,000
-     points) is generated and swept, 3 epochs of 6 steps, validation after
+     under .data/chip_smoke_trainer (`kernel_dtype: bfloat16`): the
+     synthetic set (10 clouds of 500,000 points) is generated and swept, 3
+     epochs of 6 steps, validation after
      epoch 2, test on 2 clouds; finite losses, the checkpoint, both .npz
      files and the CSV row with the JAX trainer's columns; a new trainer that
      reloads the checkpoint tests to the same metrics; every step launched
-     K1 10, K2 10, K3 0 and K5, K5b once a section. Then [trainer-split]: one
+     K1 10, K2 10, K3 0, K5's bf16 body once a section and K5b's once a node
+     chunk. Then [trainer-split]: one
      epoch of the same config with GAOT_ATTN_BWD_FUSED=0 in the environment:
      every step K3's two kernels 10 times each and K2 never, finite losses,
      every parameter tensor moved.
@@ -76,7 +94,8 @@ Phases, each of which raises (exit code 1) on failure:
      time of its own launches under torch.profiler (`device_ms`, warm and
      with a cold L2) and as one wrapper call between two CUDA events
      (`call_ms`);
- 14. [flat] the recipe over flat edge lists and the sorted reductions: config
+ 14. [flat] the recipe (at `kernel_dtype: float32`, so that the sorted
+     reductions meet f32 limits) over flat edge lists and the sorted reductions: config
      A (flat 'dst' lists, K6 for the encoder, K7 folds by node for the
      decoder) is exported, loaded and serves the cloud twice (accumulator bit
      for bit), then takes 2 AdamW steps with dropout; config B (K7 folds on
@@ -99,12 +118,14 @@ Phases, each of which raises (exit code 1) on failure:
      budget 5), exported and loaded with edges="device", answers 2 requests
      of 524,288 points whose slots the card builds in the forward: each
      build's time by CUDA events and its peak memory, the forward's time, K1
-     10 and K5 1 launches a request; request 1's slots against the port's
+     10 and K5 1 (its bf16 body) launches a request, that launch against its
+     plain version; request 1's slots against the port's
      build on the CPU bit for bit, against the native host build
      (native/gaot_graph.cpp) with every differing edge within BAND of the
      radius, and its prediction against the same model's forward on the
      host-built slots in relative L2; request 2 once more warm;
- 17. [nf] (run after [train]) the recipe over uniform slots takes 2 AdamW
+ 17. [nf] (run after [train]) the recipe over uniform slots, at
+     `kernel_dtype: float32` (the f32 bodies on a path at full width), takes 2 AdamW
      steps (mix schedule, dropout 0.1) by neural field, 40,000 input and
      query nodes of a 524,288-point cloud: K1 10, K2 10, K5 1, K5b 1 a step,
      finite loss and gradients, every parameter moves; the sampler's time;
@@ -112,8 +133,9 @@ Phases, each of which raises (exit code 1) on failure:
      neural-field loss and backward on a 32x32x16 grid with 65,536 points
      against the plain versions on the same indices;
  18. [trainer-nf] (run after [trainer-split], on its data) the trainer on
-     h100_500k.toml by neural field (40,000 nodes, uniform slots built on
-     the card, no precompute), 2 epochs, validation and test on the full
+     h100_500k.toml (`kernel_dtype: bfloat16`) by neural field (40,000
+     nodes, uniform slots built on the card, no precompute; K5b's bf16 body
+     once a step, the nodes being one chunk), 2 epochs, validation and test on the full
      500,000-point clouds: launches a step, finite losses, every parameter
      moved, the epoch wall a step, the loader's stall, validate and test ms
      a sample.
@@ -147,6 +169,15 @@ K3_FUSED_BOUND = 2.0 ** -7  # split against fused, of the plain gradient's max a
 #                             step, for sums taken in another order before the one rounding
 K5_BOUND = 1e-5   # relative, f32 accumulator summed with float atomics
 K5B_BOUND = 1e-4  # relative to each gradient's max abs: per-CTA sums, then float atomics
+# The bf16 bodies against their bf16 plain versions, relative L2: K5 over the accumulator's
+# value columns, K5b of each of dfeats, dW, db. Sums in another order flip a bf16 rounding
+# here and there (a hidden activation, a chunk's dW: one bf16 step of it), which L2 averages;
+# tests/test_torch_port_payload_bf16.py emulates the bodies' arithmetic within these limits
+# (about 1e-5 and 5e-4) and shows that positions left in f32 (8e-4) and a cotangent rounded
+# to bf16 (6e-3) do not meet them. On an H100 the first layer's dW, a near-cancelling sum
+# over a whole chunk, read up to 9e-4 (one 200,000-row chunk): K5b's limit is twice that
+K5_BF16_BOUND = 1e-4
+K5B_BF16_BOUND = 2e-3
 K7_BOUND = 2e-6   # of the column's largest prefix |Z|, against the plain version (a float64
 #                   running sum): the kernel adds 32 rows in f32, then groups' and blocks' totals
 K6_BOUND = 1e-6   # of each column's max abs in the plain result: the same few f32 additions in
@@ -372,6 +403,17 @@ def qkv(rng, shape, skv=None):
             .to("cuda", torch.bfloat16) for s in (S, skv or S, skv or S)]
 
 
+def encoder_loaders():
+    """The loaders of K5's and K5b's four libraries: each kernel's f32 and
+    bf16 bodies, one source built twice."""
+    import functools
+
+    from gaot3d_tpu_torch.kernels import encoder_payload as k5
+
+    return [functools.partial(load, dtype) for load in (k5._library, k5._backward_library)
+            for dtype in k5.KERNEL_DTYPES]
+
+
 def phase_build():
     from gaot3d_tpu_torch.kernels import (build, dropout_bits, elementwise_chain,
                                           encoder_payload, flash_attention, prefix_sum,
@@ -380,14 +422,13 @@ def phase_build():
     t0 = time.perf_counter()
     build.build_together([dropout_bits._library, flash_attention._library,
                           flash_attention._backward_library, flash_attention._split_library,
-                          encoder_payload._library,
-                          encoder_payload._backward_library, prefix_sum._library,
+                          *encoder_loaders(), prefix_sum._library,
                           segment_sum_sorted._library, tile_segment_sum._library,
                           elementwise_chain._library])
-    print(f"[build] ten kernel libraries built together in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] twelve kernel libraries built together in {time.perf_counter() - t0:.1f} s")
     for name in ("dropout_bits", "flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_split",
-                 "encoder_payload",
-                 "encoder_payload_bwd", "prefix_sum", "segment_sum_sorted",
+                 "encoder_payload", "encoder_payload_bwd", "encoder_payload_bf16",
+                 "encoder_payload_bwd_bf16", "prefix_sum", "segment_sum_sorted",
                  "tile_segment_sum", "elementwise_chain"):
         regs, spills, serialized, entry = [], [], 0, "?"
         for line in build.build_log(name).splitlines():
@@ -547,28 +588,36 @@ def ptxas_entries(name):
 
 
 def encoder_build_facts():
-    """Registers, spills and CTAs an SM of K5 and K5b at the recipe's widths
-    (64, 32, two hidden-to-hidden layers), and the TF32 tensor-core and FFMA
-    instructions in each library's SASS. Raises when a library has no TF32
-    tensor-core instruction."""
-    from gaot3d_tpu_torch.kernels import build, encoder_payload
+    """Registers, spills, shared memory and CTAs an SM of K5 and K5b, f32 and
+    bf16 bodies, at the recipe's widths (64, 32, two hidden-to-hidden
+    layers), and the TF32 and bf16 tensor-core and FFMA instructions in each
+    library's SASS. Raises when a library lacks the tensor-core instructions
+    of its products: TF32 for the f32 bodies (3xTF32), bf16 for K5's bf16
+    body, bf16 (the recompute) and TF32 (2xTF32) for K5b's."""
+    from gaot3d_tpu_torch.kernels import build, encoder_payload as k5
 
-    for name, lib, occupancy in (
-            ("encoder_payload", encoder_payload._library(), "gaot_encoder_accumulate_occupancy"),
-            ("encoder_payload_bwd", encoder_payload._backward_library(),
-             "gaot_encoder_backward_occupancy")):
-        text = sass(os.path.join(build.BUILD_DIR, f"lib{name}.so"))
-        hmma = sum(1 for line in text.splitlines() if "HMMA" in line and "TF32" in line)
-        ffma = sum(1 for line in text.splitlines() if "FFMA" in line)
-        ctas = getattr(lib, occupancy)(2, 64, 32)
-        kernel = ("encoder_accumulate_kernelILi64ELi32E" if name == "encoder_payload"
-                  else "encoder_backward_kernelILi64ELi32ELi2E")
-        regs, spill = next(((r, sp) for entry, (r, sp) in ptxas_entries(name).items()
-                            if kernel in entry), ("?", "?"))
-        print(f"[build] {name} at the recipe's widths: {regs} registers, {spill}; {ctas} CTA(s) "
-              f"of 8 warps an SM; SASS of the library: {hmma} HMMA...TF32, {ffma} FFMA")
-        if hmma == 0:
-            raise RuntimeError(f"{name}: no TF32 tensor-core instruction in its SASS")
+    for dtype in k5.KERNEL_DTYPES:
+        bf16 = dtype == "bfloat16"
+        for lib, fn, kernel, need in (
+                (k5._library(dtype), "gaot_encoder_accumulate",
+                 "encoder_accumulate_kernelILi64ELi32E", ("BF16",) if bf16 else ("TF32",)),
+                (k5._backward_library(dtype), "gaot_encoder_backward",
+                 "encoder_backward_kernelILi64ELi32ELi2E", ("BF16", "TF32") if bf16 else ("TF32",))):
+            name = os.path.basename(lib._name)[3:-3]
+            text = sass(os.path.join(build.BUILD_DIR, f"lib{name}.so"))
+            hmma = {kind: sum(1 for line in text.splitlines() if "HMMA" in line and kind in line)
+                    for kind in ("TF32", "BF16")}
+            ffma = sum(1 for line in text.splitlines() if "FFMA" in line)
+            ctas = getattr(lib, f"{fn}_occupancy")(2, 64, 32)
+            smem = getattr(lib, f"{fn}_smem")(2, 64, 32)
+            regs, spill = next(((r, sp) for entry, (r, sp) in ptxas_entries(name).items()
+                                if kernel in entry), ("?", "?"))
+            print(f"[build] {name} at the recipe's widths: {regs} registers, {spill}; "
+                  f"{smem / 1024:.1f} KiB shared, {ctas} CTA(s) of 8 warps an SM; SASS of the "
+                  f"library: {hmma['TF32']} HMMA...TF32, {hmma['BF16']} HMMA...BF16, {ffma} FFMA")
+            missing = [kind for kind in need if hmma[kind] == 0]
+            if missing:
+                raise RuntimeError(f"{name}: no {missing} tensor-core instruction in its SASS")
 
 
 def kernel_label(entry):
@@ -620,6 +669,7 @@ def k3_build_facts():
 def phase_k5():
     import torch
 
+    from gaot3d_tpu_torch.data.host_graph import build_edge_slots_host
     from gaot3d_tpu_torch.kernels import encoder_payload as k5
     from gaot3d_tpu_torch.models.mlp import ChannelMLP, reset_linear_
     from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
@@ -761,13 +811,174 @@ def phase_k5():
           f"tensor {1e3 * bwd_ops['tensor']:.3f}, GELU FP32 {1e3 * bwd_ops['fp32']:.3f}, MUFU "
           f"{1e3 * bwd_ops['sfu']:.3f}; as f32 FMAs {3e3 * flops / F32_FLOPS:.3f}) (median of 5)")
     rec["wrapper_ms"], rec_b["wrapper_ms"] = wrapper_ms, wrapper_b
+
+    # the bf16 bodies at the recipe's sections, beside the f32 bodies' times above, then at
+    # the neural-field step's slots: 40,000 nodes of the cloud, uniform, budget 5
+    counts = {"gelu": gelu, "flops": flops, "n_weights": n_weights, "widths": ws}
+    rec_bf, rec_b_bf = bf16_bodies("recipe's sections", sections, ws, bs, g, grid, counts,
+                                   (rec["ms"], rec_b["ms"]))
+    lat_nf, msk_nf = build_edge_slots_host(pos[perm][:NF_NODES], grid, RADIUS,
+                                           strategy="bidirectional", budget=BUDGET)
+    nf = [(pos_t[:, :NF_NODES], feats[:, :NF_NODES].contiguous(),
+           torch.from_numpy(lat_nf[None]).cuda(), torch.from_numpy(msk_nf[None]).cuda())]
+    nf_fwd, nf_bwd = bf16_bodies(f"neural-field step's [1, {NF_NODES}, {BUDGET}]", nf, ws, bs,
+                                 g, grid, counts)
+    for rec_, nf_rec in ((rec_bf, nf_fwd), (rec_b_bf, nf_bwd)):
+        rec_.update({f"nf_{k}": nf_rec[k] for k in ("max_abs_err", "rel_l2", "ms", "plain_ms",
+                                                      "bound_ms", "bound_by", "f32_ms")})
+    return rec, rec_b, rec_bf, rec_b_bf
+
+
+def bf16_bodies(label, sections, ws, bs, g, grid, counts, f32_ms=None):
+    """[k5-bf16] / [k5b-bf16]: K5's and K5b's bf16 bodies against their bf16
+    plain versions on `sections` ([(pos, feats, lat, mask)], node chunks of
+    CHUNK), K5 to K5_BF16_BOUND over the value columns and K5b to
+    K5B_BF16_BOUND for each of dfeats, dW, db (relative L2); each timed as
+    its launches alone (K5 one a section, K5b one a chunk) beside the f32
+    body's time (`f32_ms`, or timed here) and its bound. Returns the two
+    records."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import encoder_payload as k5
+    from gaot3d_tpu_torch.models.integral_transform import effective_chunk
+
+    C = sections[0][1].shape[-1]
+    bf = "bfloat16"
+    acc = torch.zeros((1, grid.num_tokens, C + 11), device="cuda")
+    params, n_mid, hid = k5._pack_mlp(ws, bs), len(ws) - 2, ws[0].shape[0]
+
+    def run(fn):
+        acc.zero_()
+        for p, f, lat, msk in sections:
+            fn(p, f, lat, msk, ws, bs, grid, acc, CHUNK, kernel_dtype=bf)
+        return acc
+
+    def plain_forward(p, f, lat, msk, ws_, bs_, grid_, acc_, chunk, kernel_dtype):
+        return k5.encoder_accumulate_reference(p, f, lat, msk, ws_, bs_, grid_, acc_, chunk,
+                                               kernel_dtype)
+
+    n5 = k5.encoder_accumulate.launches_bf16
+    got = run(k5.encoder_accumulate).clone()
+    ref = run(plain_forward).clone()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all() or k5.encoder_accumulate.launches_bf16 != n5 + len(sections):
+        raise RuntimeError("K5 bf16: non-finite accumulator or a launch count off")
+    rel = ((got[..., :C] - ref[..., :C]).norm() / ref[..., :C].norm()).item()
+    err = (got - ref).abs().max().item()
+    print(f"[k5-bf16] {label}: the value columns against the bf16 plain version: relative L2 "
+          f"{rel:.3e} (max_abs_err {err:.3e})")
+    if not rel <= K5_BF16_BOUND:
+        raise RuntimeError(f"K5's bf16 body disagrees with its plain version: {rel}")
+
+    chunks = []  # K5b's launches: one a chunk of each section
+    for p, f, lat, msk in sections:
+        n = p.shape[1]
+        step = effective_chunk(n, CHUNK)
+        chunks += [(p[:, c:c + step], f[:, c:c + step], lat[:, c:c + step], msk[:, c:c + step])
+                   for c in range(0, n, step)]
+
+    def run_backward(fn):
+        out = []
+        for p, f, lat, msk in sections:
+            df, dw, db = fn(g, p, f, lat, msk, ws, bs, grid, CHUNK, kernel_dtype=bf)
+            out.append([df] + list(dw) + list(db))
+        return [torch.cat([o[0] for o in out], dim=1)] + [sum(o[i] for o in out)
+                                                          for i in range(1, len(out[0]))]
+
+    def plain_backward(g_, p, f, lat, msk, ws_, bs_, grid_, chunk, kernel_dtype):
+        return k5.encoder_accumulate_backward_reference(g_, p, f, lat, msk, ws_, bs_, grid_,
+                                                        chunk, kernel_dtype)
+
+    nb = k5.encoder_accumulate_backward.launches_bf16
+    got_b = run_backward(k5.encoder_accumulate_backward)
+    again = run_backward(k5.encoder_accumulate_backward)
+    ref_b = run_backward(plain_backward)
+    torch.cuda.synchronize()
+    if k5.encoder_accumulate_backward.launches_bf16 != nb + 2 * len(chunks):
+        raise RuntimeError("K5b bf16: not one launch a chunk")
+    if not torch.equal(got_b[0], again[0]):
+        raise RuntimeError("K5b bf16: dfeats differs between two launches")
+    names = ["dfeats"] + [f"dW{i}" for i in range(len(ws))] + [f"db{i}" for i in range(len(ws))]
+    rels = {}
+    for name, a, b in zip(names, got_b, ref_b):
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"K5b bf16: non-finite {name}")
+        rels[name] = ((a - b).norm() / b.norm()).item()
+    worst_abs = max((a - b).abs().max().item() for a, b in zip(got_b, ref_b))
+    print(f"[k5b-bf16] {label}: {len(chunks)} launches, against autograd through the bf16 "
+          f"plain version, relative L2 "
+          + ", ".join(f"{n} {r:.2e}" for n, r in rels.items())
+          + "; dfeats the same bits in two calls")
+    if max(rels.values()) > K5B_BF16_BOUND:
+        raise RuntimeError(f"K5b's bf16 body disagrees with its plain version: {rels}")
+
+    # bounds: K5's products one bf16 pass; K5b's recompute one bf16 pass, its chain (the
+    # layers after the first) and dW each two TF32 passes; the GELU's and the bytes as f32's
+    valid = int(sum(int(m.sum()) for *_, m in sections))
+    flops = valid * 2 * counts["n_weights"]
+    chain = valid * 2 * (counts["n_weights"] - ws[0].numel())
+    hidden = valid * sum(w.shape[0] for w in ws[:-1])
+    gelu = counts["gelu"]
+    fp32_fwd = hidden * gelu["gelu"][0] / FP32_OPS
+    sfu_fwd = hidden * gelu["gelu"][1] / SFU_OPS
+    fwd_ops = {"tensor": flops / BF16_FLOPS, "fp32": fp32_fwd, "sfu": sfu_fwd}
+    bwd_ops = {"tensor": flops / BF16_FLOPS + 2 * (chain + flops) / TF32_FLOPS,
+               "fp32": hidden * (gelu["gelu"][0] + gelu["gelu_and_grad"][0]) / FP32_OPS,
+               "sfu": hidden * (gelu["gelu"][1] + gelu["gelu_and_grad"][1]) / SFU_OPS}
+    n_nodes = sum(p.shape[1] for p, *_ in sections)
+    slot_bytes = sum(lat.numel() * 5 for _, _, lat, _ in sections)
+    moved = n_nodes * (3 + C) * 4 + slot_bytes + params.numel() * 4
+    acc_bytes = 2 * acc.numel() * 4
+
+    def launches_alone():
+        for p, f, lat, msk in sections:
+            k5.launch_accumulate(p, f, lat, msk, params, n_mid, hid, grid, acc, bf)
+
+    outs = [(torch.empty_like(f), torch.zeros_like(params)) for _, f, _, _ in chunks]
+
+    def backward_launches():
+        for (p, f, lat, msk), (df, dp) in zip(chunks, outs):
+            k5.launch_backward(g, p, f, lat, msk, params, n_mid, hid, grid, df, dp, bf)
+
+    def f32_launches():
+        for p, f, lat, msk in sections:
+            k5.launch_accumulate(p, f, lat, msk, params, n_mid, hid, grid, acc)
+
+    f32_outs = [(torch.empty_like(f), torch.zeros_like(params)) for _, f, _, _ in sections]
+
+    def f32_backward_launches():
+        for (p, f, lat, msk), (df, dp) in zip(sections, f32_outs):
+            k5.launch_backward(g, p, f, lat, msk, params, n_mid, hid, grid, df, dp)
+
+    if f32_ms is None:
+        f32_ms = (cuda_ms(f32_launches), cuda_ms(f32_backward_launches))
+    rec = {"max_abs_err": err, "rel_l2": rel, "ms": cuda_ms(launches_alone),
+           "plain_ms": cuda_ms(lambda: run(plain_forward)),
+           **bound(moved + acc_bytes, **fwd_ops), "library_ms": None, "f32_ms": f32_ms[0],
+           "wrapper_ms": cuda_ms(lambda: [
+               k5.encoder_accumulate(p, f, lat, msk, ws, bs, grid, acc, CHUNK, kernel_dtype=bf)
+               for p, f, lat, msk in sections])}
+    rec_b = {"max_abs_err": worst_abs, "rel_l2": max(rels.values()),
+             "ms": cuda_ms(backward_launches), "plain_ms": cuda_ms(lambda: run_backward(
+                 plain_backward)),
+             **bound(moved + g.numel() * 4 + n_nodes * C * 4, **bwd_ops), "library_ms": None,
+             "f32_ms": f32_ms[1],
+             "wrapper_ms": cuda_ms(lambda: run_backward(k5.encoder_accumulate_backward))}
+    for tag, r, ops in (("k5-bf16", rec, fwd_ops), ("k5b-bf16", rec_b, bwd_ops)):
+        print(f"[{tag}] {label}: the launches alone {r['ms']:.3f} ms against the f32 body's "
+              f"{r['f32_ms']:.3f} ms (through the wrapper {r['wrapper_ms']:.3f} ms), plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}: tensor "
+              f"{1e3 * ops['tensor']:.3f}, GELU FP32 {1e3 * ops['fp32']:.3f}, MUFU "
+              f"{1e3 * ops['sfu']:.3f}) (median of 5, CUDA events)")
     return rec, rec_b
 
 
-def recipe_model(latent=LATENT, radius=RADIUS, budget=BUDGET, **magno_overrides):
+def recipe_model(latent=LATENT, radius=RADIUS, budget=BUDGET, kernel_dtype="bfloat16",
+                 **magno_overrides):
     """The DrivAerNet++ pressure recipe at full width and depth, on the card,
-    with random weights from seed 0; `magno_overrides` replace fields of its
-    MAGNOConfig (the edge layout and the reductions)."""
+    with random weights from seed 0, its GNO kernel MLPs at `kernel_dtype`
+    (bfloat16, as tpu_500k.yaml sets it); `magno_overrides` replace fields of
+    its MAGNOConfig (the edge layout and the reductions)."""
     import torch
 
     from gaot3d_tpu_torch.models import (AttentionConfig, FFNConfig, MAGNOConfig,
@@ -778,7 +989,7 @@ def recipe_model(latent=LATENT, radius=RADIUS, budget=BUDGET, **magno_overrides)
         use_geoembed=[True, False], in_gno_channel_mlp_hidden_layers=[64, 64, 64],
         out_gno_channel_mlp_hidden_layers=[64, 64], projection_channels=256,
         mlp_type="linear", edge_chunk_size=CHUNK, slot_budget=budget,
-        kernel_dtype="float32", edge_layout="sectioned"), **magno_overrides})
+        kernel_dtype=kernel_dtype, edge_layout="sectioned"), **magno_overrides})
     attn = TransformerConfig(
         patch_size=2, hidden_size=256, num_layers=10, positional_embedding="rope",
         attn_config=AttentionConfig(hidden_size=256, num_heads=8, num_kv_heads=8,
@@ -853,22 +1064,22 @@ def phase_serve():
         infer = load_inference(path)
 
     fwd, acc = k1.flash_attention, k5.encoder_accumulate
-    fwd.launches = acc.launches = 0
+    fwd.launches = acc.launches = acc.launches_bf16 = 0
     outs = []
     for i, seed in enumerate((11, 12)):
         pos, feats, _, mask, slots, nsec, (t_graph, t_upload) = cloud(seed, N_POINTS, grid)
-        n1, n5 = fwd.launches, acc.launches
+        n1, n5, n5bf = fwd.launches, acc.launches, acc.launches_bf16
         t0 = time.perf_counter()
         out = infer(pos, feats, mask, slots, slots)
         torch.cuda.synchronize()
         t_fwd = time.perf_counter() - t0
-        d1, d5 = fwd.launches - n1, acc.launches - n5
+        d1, d5, d5bf = fwd.launches - n1, acc.launches - n5, acc.launches_bf16 - n5bf
         ok = tuple(out.shape) == (1, N_POINTS, 1) and bool(torch.isfinite(out).all())
         print(f"[serve] request {i + 1}: graph build {t_graph * 1e3:.1f} ms, upload "
               f"{t_upload * 1e3:.1f} ms, forward {t_fwd * 1e3:.1f} ms; out "
               f"{tuple(out.shape)} finite={ok}; K1 launches {d1}, K5 launches {d5} "
-              f"({nsec} sections)")
-        if not ok or d1 != 10 or d5 != nsec:
+              f"({nsec} sections), of its bf16 body {d5bf}")
+        if not ok or d1 != 10 or d5 != nsec or d5bf != nsec:
             raise RuntimeError(f"request {i + 1}: bad output or kernel launch counts")
         outs.append(((pos, feats, mask), slots, out))
     # the warm forward: the last request's cloud, already on the card, again
@@ -880,7 +1091,7 @@ def phase_serve():
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     if not torch.isfinite(warm).all():
         raise RuntimeError("the warm forward gave a non-finite output")
-    launches = {"k1": fwd.launches, "k5": acc.launches}
+    launches = {"k1": fwd.launches, "k5": acc.launches, "k5_bf16": acc.launches_bf16}
 
     args, slots, out = outs[0]
     against_plain("serve", "request 1", lambda: (infer(*args, slots, slots),), (out,))
@@ -1272,7 +1483,8 @@ def train_steps(tag, card, model, batch, expect, sampling=None):
               f"{grad_norm.item():.6f} lr {lr:.3e} step {start.elapsed_time(end):.1f} ms (CUDA "
               f"events), {host_ms:.1f} ms (host clock); peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches K1 {got['k1']} "
-              f"K2 {got['k2']} K5 {got['k5']} K5b {got['k5b']}; finite={finite}")
+              f"K2 {got['k2']} K5 {got['k5']} K5b {got['k5b']} (of their bf16 bodies "
+              f"{got['k5_bf16']} and {got['k5b_bf16']}); finite={finite}")
         if not finite:
             raise RuntimeError(f"[{tag}] step {step}: non-finite loss or gradient")
         if got != {**dict.fromkeys(counters, 0), **expect}:
@@ -1297,9 +1509,12 @@ def phase_train(card, k5b_ms=None):
     pos, feats, target, mask, slots, nsec, _ = cloud(21, N_POINTS, grid)
     if nsec != 5:
         raise RuntimeError(f"[train] {nsec} sections, expected 5")
+    chunks = node_chunks([int(sec.lat_idx.shape[1]) for sec in slots.sections])
     batch = TrainBatch(pos, feats, target, mask, slots, slots)
-    total, optimizer, generator = train_steps("train", card, model, batch,
-                                              {"k1": 10, "k2": 10, "k5": nsec, "k5b": nsec})
+    print(f"[train] the recipe at kernel_dtype bfloat16: {nsec} sections, {chunks} node chunks")
+    total, optimizer, generator = train_steps(
+        "train", card, model, batch,
+        {"k1": 10, "k2": 10, **payload_launches(nsec, chunks, "bfloat16")})
 
     # breakdown of one more step: device time of each part, then a profile
     model.train()
@@ -1320,14 +1535,17 @@ def phase_train(card, k5b_ms=None):
     wall, rows = profiled(lambda: train_step(model, optimizer, batch, generator))
     print_profile("train", "profiled step", wall, rows, top=8)
     if rows:
-        for label, kernel in (("K5", "encoder_accumulate_kernel"),
-                              ("K5b", "encoder_backward_kernel")):
-            mine = [r for r in rows if kernel in r[0]]
+        busy = sum(r[1] for r in rows)
+        for label, key in (("K5", "encoder_accumulate_kernel"),
+                           ("K5b", "encoder_backward_kernel"), ("GEMMs", "gemm")):
+            mine = [r for r in rows if key in r[0].lower()]
             print(f"[train] {label} in the profiled step: {sum(r[1] for r in mine):.3f} ms for "
-                  f"{sum(r[2] for r in mine)} launches"
-                  + (f" ([k5b]'s five launches alone: {k5b_ms:.3f} ms)"
+                  f"{sum(r[2] for r in mine)} launches, {100 * sum(r[1] for r in mine) / busy:.1f}"
+                  f"% of device busy"
+                  + (f" ([k5b-bf16]'s launches alone: {k5b_ms:.3f} ms)"
                      if label == "K5b" and k5b_ms is not None else ""))
     del model, optimizer, batch
+    decoder_mlp_products()
 
     # kernels against their plain versions through one forward and backward:
     # same widths and depth on a 32x32x16 grid with 65,536 points, where the
@@ -1338,27 +1556,72 @@ def phase_train(card, k5b_ms=None):
     budget = max_degree(np.random.default_rng(22).uniform(-1, 1, (65_536, 3)).astype(np.float32),
                         small, radius)
     pos, feats, target, mask, slots, nsec, _ = cloud(22, 65_536, small, radius, budget)
-    model = recipe_model(small.dims, radius, budget).train()
+    # the f32 bodies, then the bf16 ones, the gradient against the plain versions'
+    for dtype in ("float32", "bfloat16"):
+        model = recipe_model(small.dims, radius, budget, kernel_dtype=dtype).train()
 
-    def forward_backward():
-        model.zero_grad(set_to_none=True)
-        pred = model(pos, feats, mask, encoder_slots=[slots], decoder_slots=[slots],
-                     generator=torch.Generator().manual_seed(9))
-        loss = masked_mse(pred, target, mask)
-        loss.backward()
-        return grad_vector(model), loss.item()
+        def forward_backward():
+            model.zero_grad(set_to_none=True)
+            pred = model(pos, feats, mask, encoder_slots=[slots], decoder_slots=[slots],
+                         generator=torch.Generator().manual_seed(9))
+            loss = masked_mse(pred, target, mask)
+            loss.backward()
+            return grad_vector(model), loss.item()
 
-    against_plain("train", f"32x32x16 grid, 65,536 points, {nsec} sections (budget {budget}), "
-                  f"rate {RATE}, one seed: the gradient", forward_backward, forward_backward())
+        against_plain("train", f"32x32x16 grid, 65,536 points, {nsec} sections (budget "
+                      f"{budget}), rate {RATE}, one seed, kernel_dtype {dtype}: the gradient",
+                      forward_backward, forward_backward())
     return total
+
+
+def decoder_mlp_products():
+    """The decoder's bf16 kernel MLP (6-64-64-32) on the rows of one node
+    chunk at K = 5 (327,680), forward, two ways: the port's (F.linear of
+    bf16-rounded f32 operands, an f32 GEMM) and torch.mm of bf16 operands
+    with an f32 result (`out_dtype`, bf16 tensor cores). Each timed by CUDA
+    events, median of 5, and held to the other in relative L2. A yardstick
+    for the port's choice; the port never calls the second."""
+    import torch
+    import torch.nn.functional as F
+
+    from gaot3d_tpu_torch.kernels.encoder_payload import kernel_mlp
+
+    rng = np.random.default_rng(3)
+    rows, widths = CHUNK * BUDGET, (6, 64, 64, 32)
+    x = torch.from_numpy(rng.uniform(-1, 1, (rows, 6)).astype(np.float32)).cuda()
+    ws = [torch.from_numpy(rng.uniform(-i ** -0.5, i ** -0.5, (o, i)).astype(np.float32)).cuda()
+          for i, o in zip(widths[:-1], widths[1:])]
+    bs = [torch.zeros(o, device="cuda") for o in widths[1:]]
+
+    def bf16_mm():
+        h = x
+        for i, (w, b) in enumerate(zip(ws, bs)):
+            h = torch.mm(h.bfloat16(), w.t().bfloat16(), out_dtype=torch.float32) + b
+            if i < len(ws) - 1:
+                h = F.gelu(h)
+        return h
+
+    port = kernel_mlp(x, ws, bs, "bfloat16")
+    port_ms = cuda_ms(lambda: kernel_mlp(x, ws, bs, "bfloat16"))
+    try:
+        other = bf16_mm()
+    except (TypeError, RuntimeError) as e:  # a torch without mm's out_dtype
+        print(f"[train] the decoder's bf16 kernel MLP on {rows} rows: the port's f32 GEMMs "
+              f"{port_ms:.3f} ms; torch.mm with out_dtype not available here ({e})")
+        return
+    rel = ((other - port).norm() / port.norm()).item()
+    print(f"[train] the decoder's bf16 kernel MLP on {rows} rows: the port's f32 GEMMs on "
+          f"bf16-rounded operands {port_ms:.3f} ms, torch.mm of bf16 operands with an f32 "
+          f"result {cuda_ms(bf16_mm):.3f} ms; relative L2 between them {rel:.3e} (CUDA events, "
+          f"median of 5)")
 
 
 class PayloadCalls:
     """Context that keeps the inputs and the results of the first K5 and the
     first K5b launch under it (`kernels/encoder_payload.py`
-    `launch_accumulate`, `launch_backward`), copied at the call, so that
-    `check` can hold them against the plain versions at the shapes the path
-    gave them."""
+    `launch_accumulate`, `launch_backward`, either body), copied at the
+    call, so that `check` can hold them against the plain versions at the
+    shapes the path gave them."""
 
     def __enter__(self):
         from gaot3d_tpu_torch.kernels import encoder_payload as k5
@@ -1366,20 +1629,23 @@ class PayloadCalls:
         self.k5, self.fwd, self.bwd = k5, None, None
         fwd, bwd = k5.launch_accumulate, k5.launch_backward
 
-        def spy_fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc):
+        def spy_fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc,
+                    kernel_dtype="float32"):
             if self.fwd is not None:
-                return fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc)
+                return fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc, kernel_dtype)
             inputs = [t.clone() for t in (pos, feats, lat_idx, mask, params, acc)]
-            fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc)
-            self.fwd = (inputs, n_mid, hid, grid, acc.clone())
+            fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc, kernel_dtype)
+            self.fwd = (inputs, n_mid, hid, grid, acc.clone(), kernel_dtype)
 
-        def spy_bwd(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, dparams):
+        def spy_bwd(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, dparams,
+                    kernel_dtype="float32"):
             if self.bwd is not None:
                 return bwd(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats,
-                           dparams)
+                           dparams, kernel_dtype)
             inputs = [t.clone() for t in (g, pos, feats, lat_idx, mask, params)]
-            bwd(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, dparams)
-            self.bwd = (inputs, n_mid, hid, grid, dfeats.clone(), dparams.clone())
+            bwd(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, dparams,
+                kernel_dtype)
+            self.bwd = (inputs, n_mid, hid, grid, dfeats.clone(), dparams.clone(), kernel_dtype)
 
         self.patches = [mock.patch.object(k5, "launch_accumulate", spy_fwd),
                         mock.patch.object(k5, "launch_backward", spy_bwd)]
@@ -1391,43 +1657,65 @@ class PayloadCalls:
         for patch in self.patches:
             patch.stop()
 
+    def shapes(self, n_mid, hid, C):
+        return [(hid, 6)] + [(hid, hid)] * n_mid + [(C, hid)]
+
     def mlp(self, params, n_mid, hid, C):
-        return self.k5._unpack_mlp(params, [(hid, 6)] + [(hid, hid)] * n_mid + [(C, hid)])
+        return self.k5._unpack_mlp(params, self.shapes(n_mid, hid, C))
 
     def check(self, tag):
-        """K5 to K5_BOUND and K5b to K5B_BOUND of their plain versions on the
-        kept inputs (each kept launch's, forward or backward, if any). The
-        inputs are copied again here: copies made under inference mode (a
-        served request) take no in-place update or autograd outside it."""
+        """The f32 bodies: K5 to K5_BOUND and K5b to K5B_BOUND, relative to
+        the max abs; the bf16 bodies: K5_BF16_BOUND and K5B_BF16_BOUND in
+        relative L2, the bf16 launch's dW rounded as the wrapper rounds it
+        (one launch, one chunk). Against the plain versions on the kept
+        inputs (each kept launch's, forward or backward, if any). The inputs
+        are copied again here: copies made under inference mode (a served
+        request) take no in-place update or autograd outside it."""
         k5 = self.k5
         if self.fwd is not None:
-            inputs, n_mid, hid, grid, got = self.fwd
+            inputs, n_mid, hid, grid, got, dtype = self.fwd
             pos, feats, lat_idx, mask, params, acc = (t.clone() for t in inputs)
             C = feats.shape[-1]
             ws, bs = self.mlp(params, n_mid, hid, C)
             ref = k5.encoder_accumulate_reference(pos, feats, lat_idx, mask, ws, bs, grid, acc,
-                                                  CHUNK)
-            rel = ((got - ref).abs().max() / ref.abs().max()).item()
-            rel_vals = ((got[..., :C] - ref[..., :C]).abs().max()
-                        / ref[..., :C].abs().max()).item()
-            print(f"[{tag}] K5 as the path launched it, slots {list(lat_idx.shape)} "
-                  f"({int(mask.sum())} valid) into [{acc.shape[1]}, {acc.shape[2]}] cells, "
-                  f"against its plain version: relative {rel:.3e}, value columns {rel_vals:.3e}")
-            if not (rel <= K5_BOUND and rel_vals <= K5_BOUND):
+                                                  CHUNK, dtype)
+            if dtype == "bfloat16":
+                rel = rel_vals = ((got[..., :C] - ref[..., :C]).norm()
+                                  / ref[..., :C].norm()).item()
+                limit, what = K5_BF16_BOUND, "relative L2 of the value columns"
+            else:
+                rel = ((got - ref).abs().max() / ref.abs().max()).item()
+                rel_vals = ((got[..., :C] - ref[..., :C]).abs().max()
+                            / ref[..., :C].abs().max()).item()
+                limit, what = K5_BOUND, "value columns"
+            print(f"[{tag}] K5 ({dtype} body) as the path launched it, slots "
+                  f"{list(lat_idx.shape)} ({int(mask.sum())} valid) into [{acc.shape[1]}, "
+                  f"{acc.shape[2]}] cells, against its plain version: relative {rel:.3e}, "
+                  f"{what} {rel_vals:.3e}")
+            if not (rel <= limit and rel_vals <= limit):
                 raise RuntimeError(f"[{tag}] K5 disagrees with its plain version: {rel}")
         if self.bwd is not None:
-            inputs, n_mid, hid, grid, dfeats, dparams = self.bwd
+            inputs, n_mid, hid, grid, dfeats, dparams, dtype = self.bwd
             g, pos, feats, lat_idx, mask, params = (t.clone() for t in inputs)
-            ws, bs = self.mlp(params, n_mid, hid, feats.shape[-1])
+            C = feats.shape[-1]
+            ws, bs = self.mlp(params, n_mid, hid, C)
             ref = k5.encoder_accumulate_backward_reference(g, pos, feats, lat_idx, mask, ws, bs,
-                                                           grid, CHUNK)
-            dws, dbs = self.mlp(dparams, n_mid, hid, feats.shape[-1])
-            worst = max(((a - b).abs().max() / b.abs().max()).item()
-                        for a, b in zip([dfeats, *dws, *dbs], [ref[0], *ref[1], *ref[2]]))
-            print(f"[{tag}] K5b as the path launched it, slots {list(lat_idx.shape)}, against "
-                  f"autograd through the plain version: worst relative {worst:.3e} of dfeats, "
-                  f"dW, db")
-            if not worst <= K5B_BOUND:
+                                                           grid, CHUNK, dtype)
+            if dtype == "bfloat16":
+                for a, b in k5._weight_entries(self.shapes(n_mid, hid, C)):
+                    dparams[a:b] = k5.round_bf16(dparams[a:b])
+            dws, dbs = self.mlp(dparams, n_mid, hid, C)
+            pairs = list(zip([dfeats, *dws, *dbs], [ref[0], *ref[1], *ref[2]]))
+            if dtype == "bfloat16":
+                worst = max(((a - b).norm() / b.norm()).item() for a, b in pairs)
+                limit, what = K5B_BF16_BOUND, "relative L2"
+            else:
+                worst = max(((a - b).abs().max() / b.abs().max()).item() for a, b in pairs)
+                limit, what = K5B_BOUND, "relative"
+            print(f"[{tag}] K5b ({dtype} body) as the path launched it, slots "
+                  f"{list(lat_idx.shape)}, against autograd through the plain version: worst "
+                  f"{what} {worst:.3e} of dfeats, dW, db")
+            if not worst <= limit:
                 raise RuntimeError(f"[{tag}] K5b disagrees with its plain version: {worst}")
 
 
@@ -1513,19 +1801,19 @@ def phase_serve_device(card):
         infer_args = load_inference(path)  # the same weights, edges as call-time arguments
 
     fwd, acc = k1.flash_attention, k5.encoder_accumulate
-    fwd.launches = acc.launches = 0
+    fwd.launches = acc.launches = acc.launches_bf16 = 0
     requests = []
     with BuildSpy() as spy, PayloadCalls() as payload:
         for i, seed in enumerate((13, 14)):
             pos, feats, _, mask, *_ = cloud(seed, N_POINTS)
-            n1, n5, nb = fwd.launches, acc.launches, len(spy.builds)
+            n1, n5, nb = fwd.launches, acc.launches_bf16, len(spy.builds)
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
             out = infer(pos, feats, mask)
             end.record()
             end.synchronize()
             total = start.elapsed_time(end)
-            d1, d5 = fwd.launches - n1, acc.launches - n5
+            d1, d5 = fwd.launches - n1, acc.launches_bf16 - n5
             builds = spy.builds[nb:]
             ok = tuple(out.shape) == (1, N_POINTS, 1) and bool(torch.isfinite(out).all())
             build_ms = sum(spy.ms(nb + j) for j in range(len(builds)))
@@ -1533,7 +1821,7 @@ def phase_serve_device(card):
                   f"{build_ms:.2f} ms (CUDA events), its peak {builds[0]['peak'] / 2 ** 20:.1f} "
                   f"MiB above the memory held before it; forward {total - build_ms:.2f} ms, "
                   f"request {total:.2f} ms; out {tuple(out.shape)} finite={ok}; K1 launches "
-                  f"{d1}, K5 launches {d5}")
+                  f"{d1}, launches of K5's bf16 body {d5}")
             if not ok or d1 != 10 or d5 != 1 or len(builds) != 1:
                 raise RuntimeError(f"[serve-device] request {i + 1}: bad output, launch counts "
                                    f"or builds ({len(builds)})")
@@ -1547,7 +1835,7 @@ def phase_serve_device(card):
         warm_build = spy.ms()
     if not torch.isfinite(warm).all():
         raise RuntimeError("[serve-device] the warm request gave a non-finite output")
-    launches = {"k1": fwd.launches, "k5": acc.launches}
+    launches = {"k1": fwd.launches, "k5": acc.launches, "k5_bf16": acc.launches_bf16}
     payload.check("serve-device")  # request 1's K5 launch
     args, slots, out = requests[0]
     against_plain("serve-device", "request 1", lambda: (infer(*args),), (out,))
@@ -1599,11 +1887,13 @@ def phase_nf(card):
     from gaot3d_tpu_torch.train import (NeuralField, TrainBatch, eval_step, neural_field_loss,
                                         sample_nodes_without_replacement)
 
-    model = recipe_model(edge_layout="slots")
+    # kernel_dtype float32: the f32 bodies of K5 and K5b on a path at full width ([trainer-nf]
+    # takes the same path at bf16)
+    model = recipe_model(edge_layout="slots", kernel_dtype="float32")
     pos, feats, target, mask, *_ = cloud(23, N_POINTS)
     batch = TrainBatch(pos, feats, target, mask, None, None)
     sampling = NeuralField(NF_NODES, NF_NODES, torch.Generator(device="cuda").manual_seed(6))
-    print(f"[nf] {NF_NODES} input = query nodes of {N_POINTS} a step")
+    print(f"[nf] {NF_NODES} input = query nodes of {N_POINTS} a step, kernel_dtype float32")
     with PayloadCalls() as payload:  # the first step's K5 and K5b launches
         total, *_ = train_steps("nf", card, model, batch,
                                 {"k1": 10, "k2": 10, "k5": 1, "k5b": 1}, sampling)
@@ -1641,7 +1931,8 @@ def phase_nf(card):
     radius = 2 * RADIUS
     pos, feats, target, mask, *_ = cloud(24, 65_536)
     budget = max_slot_degree(build_edge_slots(pos[0], small, radius, 1, "bidirectional"))
-    model = recipe_model(small.dims, radius, budget, edge_layout="slots").train()
+    model = recipe_model(small.dims, radius, budget, edge_layout="slots",
+                         kernel_dtype="float32").train()
     batch = TrainBatch(pos, feats, target, mask, None, None)
 
     def loss_and_grad():
@@ -1989,6 +2280,8 @@ def phase_flat(cloud_):
     from gaot3d_tpu_torch.train import (OptimizerargsConfig, TrainBatch, make_optimizer,
                                         masked_mse, train_step)
 
+    # kernel_dtype float32 throughout: the sorted reductions are held to f32 limits against
+    # K5's f32 body
     counters = {"k1": k1.flash_attention, "k2": k1.flash_attention_backward,
                 "k5": k5.encoder_accumulate, "k5b": k5.encoder_accumulate_backward,
                 "k6": k6.segment_sum_sorted, "k7": k7.prefix_sum, "k8": k8.tile_segment_sum}
@@ -2066,7 +2359,7 @@ def phase_flat(cloud_):
             raise RuntimeError(f"{label} disagrees with the K5 forward: {rel}")
 
     # the reference: uniform slots through K5
-    ref_model = recipe_model(edge_layout="slots").eval()
+    ref_model = recipe_model(edge_layout="slots", kernel_dtype="float32").eval()
     ref_out, ref_acc, _, _ = serve(make_edge_arg_model(ref_model), ref_model, cloud_["slots"],
                                    cloud_["slots"], "uniform slots, segment_impl scatter (K5)",
                                    {"k1": 10, "k5": 1})
@@ -2074,7 +2367,7 @@ def phase_flat(cloud_):
 
     # config A through the entry points a server calls
     config_a = dict(edge_layout="flat", flat_order="dst", flat_reduce_impl="pallas")
-    model_a = recipe_model(**config_a)
+    model_a = recipe_model(kernel_dtype="float32", **config_a)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "flat.pt")
         export_inference(model_a, path)
@@ -2135,7 +2428,7 @@ def phase_flat(cloud_):
             ("C sort", "config C (slots, segment_impl sort)",
              dict(edge_layout="slots", segment_impl="sort"), cloud_["slots"], cloud_["slots"],
              {"k1": 10, "k7": nc}, True)):
-        model = recipe_model(**overrides).eval()
+        model = recipe_model(kernel_dtype="float32", **overrides).eval()
         out, acc, same, warm[name] = serve(make_edge_arg_model(model), model, enc, dec, label,
                                            expect)
         if not same:
@@ -2150,7 +2443,8 @@ def phase_flat(cloud_):
     budget = max_degree(np.random.default_rng(23).uniform(-1, 1, (65_536, 3)).astype(np.float32),
                         small, radius)
     sc = flat_cloud(23, 65_536, small, radius, budget, chunk=8192)
-    model = recipe_model(small.dims, radius, budget, edge_chunk_size=8192, **config_a).train()
+    model = recipe_model(small.dims, radius, budget, kernel_dtype="float32",
+                         edge_chunk_size=8192, **config_a).train()
 
     def forward_backward():
         model.zero_grad(set_to_none=True)
@@ -2338,10 +2632,21 @@ class TrainerSpy:
             end.record()
             self.events.append((start, end))
             # K5 launches once a section; uniform slots, passed in or built
-            # in the forward, are one section
-            sections = getattr(batch.enc_slots, "sections", (None,))
+            # in the forward, are one section (of the sampled input nodes by
+            # neural field)
+            slots = batch.enc_slots
+            if hasattr(slots, "sections"):
+                sizes = [int(sec.lat_idx.shape[1]) for sec in slots.sections]
+            elif slots is not None:
+                sizes = [int(slots.lat_idx.shape[1])]
+            else:
+                n = int(batch.pos.shape[1])
+                sizes = [min(n, neural_field.input_nodes) if neural_field else n]
+            cfg = model.magno_config
             self.steps.append({**{n: fn.launches - was[n] for n, fn in self.counters.items()},
-                               "sections": len(sections)})
+                               "sections": len(sizes),
+                               "chunks": node_chunks(sizes, cfg.edge_chunk_size),
+                               "kernel_dtype": cfg.kernel_dtype})
             return out
 
         def spy_eval(trainer, batch):
@@ -2378,20 +2683,55 @@ class TrainerSpy:
         return [a.elapsed_time(b) for a, b in self.events[1:]]
 
 
+class Bf16Launches:
+    """The launches of a K5 / K5b wrapper's bf16 body (its `launches_bf16`),
+    read and reset as `launches`, beside the wrapper's own count of all."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.launches_bf16
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches_bf16 = n
+
+
 def attention_counters():
     from gaot3d_tpu_torch.kernels import encoder_payload as k5
     from gaot3d_tpu_torch.kernels import flash_attention as k1
 
     return {"k1": k1.flash_attention, "k2": k1.flash_attention_backward,
             "k3_dq": k1.flash_attention_backward_dq, "k3_dkv": k1.flash_attention_backward_dkv,
-            "k5": k5.encoder_accumulate, "k5b": k5.encoder_accumulate_backward}
+            "k5": k5.encoder_accumulate, "k5b": k5.encoder_accumulate_backward,
+            "k5_bf16": Bf16Launches(k5.encoder_accumulate),
+            "k5b_bf16": Bf16Launches(k5.encoder_accumulate_backward)}
+
+
+def payload_launches(sections, chunks, kernel_dtype):
+    """K5's and K5b's launches of one step with `sections` sections of
+    `chunks` node chunks in all: K5 once a section; K5b once a section
+    (f32) or once a chunk (bf16, whose dW is rounded at JAX's chunks)."""
+    bf16 = kernel_dtype == "bfloat16"
+    return {"k5": sections, "k5b": chunks if bf16 else sections,
+            "k5_bf16": sections if bf16 else 0, "k5b_bf16": chunks if bf16 else 0}
+
+
+def node_chunks(sizes, chunk=CHUNK):
+    """Node chunks of sections of `sizes` nodes (JAX's `effective_chunk`)."""
+    from gaot3d_tpu_torch.models.integral_transform import effective_chunk
+
+    return sum(n // effective_chunk(n, chunk) for n in sizes)
 
 
 def check_steps(label, spy, expect_per_step):
-    """Every recorded step launched what `expect_per_step` says (K5 and K5b:
-    one launch a section of the step's batch)."""
+    """Every recorded step launched what `expect_per_step` says, and K5 and
+    K5b what the step's sections and chunks give (`payload_launches`)."""
     for i, step in enumerate(spy.steps):
-        want = {**expect_per_step, "k5": step["sections"], "k5b": step["sections"]}
+        want = {**expect_per_step,
+                **payload_launches(step["sections"], step["chunks"], step["kernel_dtype"])}
         got = {n: step[n] for n in want}
         if got != want:
             raise RuntimeError(f"{label} step {i}: launches {got}, expected {want}")
@@ -2429,7 +2769,10 @@ def phase_trainer(card):
         raise RuntimeError(f"[trainer] {len(spy.steps)} steps, expected "
                            f"{args.epoch} x {steps_per_epoch}")
     check_steps("[trainer]", spy, {"k1": 10, "k2": 10, "k3_dq": 0, "k3_dkv": 0})
-    sections = sorted({s["sections"] for s in spy.steps})
+    sections = sorted({(s["sections"], s["chunks"]) for s in spy.steps})
+    dtypes = sorted({s["kernel_dtype"] for s in spy.steps})
+    if dtypes != ["bfloat16"]:
+        raise RuntimeError(f"[trainer] kernel_dtype {dtypes}, the recipe's is bfloat16")
 
     out = overrides["path"]
     losses = np.load(out["loss_path"].rsplit(".", 1)[0] + ".npz")
@@ -2488,8 +2831,9 @@ def phase_trainer(card):
           f"{stats['steps']} batches; validate {1e3 * val_s / val_n:.1f} ms a sample, test "
           f"inference {1e3 * float(row['inference time']):.1f} ms a sample; peak memory "
           f"{peak:.2f} GiB")
-    print(f"[trainer] launches a step: K1 10, K2 10, K3 0, K5 and K5b one a section "
-          f"(sections a batch: {sections}); in all {total}")
+    print(f"[trainer] kernel_dtype {dtypes[0]}; launches a step: K1 10, K2 10, K3 0, K5's bf16 "
+          f"body one a section, K5b's one a node chunk ((sections, chunks) a batch: "
+          f"{sections}); in all {total}")
     return total, float(np.median(ms))
 
 
@@ -2601,8 +2945,17 @@ def phase_trainer_nf(card):
           f"clock: eval steps {[round(t, 1) for t in val_eval]} ms between events (each "
           f"forward with its slot build), the rest {1e3 * val_s - sum(val_eval):.1f} ms (the "
           f"prefetch thread's load and upload of the first sample, and the waits)")
-    print(f"[trainer-nf] launches a step: K1 10, K2 10, K3 0, K5 1, K5b 1; in all {total}")
+    print(f"[trainer-nf] launches a step: K1 10, K2 10, K3 0, K5 1, K5b 1 (their bf16 bodies; "
+          f"{NF_NODES} nodes are one chunk); in all {total}")
     return total
+
+
+def body_launches(phases, name, kernel_dtype):
+    """Launches of K5's or K5b's body for `kernel_dtype` over the main path's
+    phases (each counts all its launches under `name` and the bf16 body's
+    under `name`_bf16)."""
+    bf16 = sum(p.get(f"{name}_bf16", 0) for p in phases)
+    return bf16 if kernel_dtype == "bfloat16" else sum(p[name] for p in phases) - bf16
 
 
 FLAT_PHASES = {"k7": phase_k7, "k6": phase_k6, "k8": phase_k8, "flat": phase_flat}
@@ -2644,9 +2997,8 @@ def main():
             elif name == "t1":
                 phase_t1()
             elif name == "k5":
-                from gaot3d_tpu_torch.kernels import build, encoder_payload
-                build.build_together([encoder_payload._library,
-                                      encoder_payload._backward_library])
+                from gaot3d_tpu_torch.kernels import build
+                build.build_together(encoder_loaders())
                 encoder_build_facts()
                 phase_k5()
             elif name == "k3":
@@ -2673,13 +3025,13 @@ def main():
     flat_input = flat_cloud(args.flat_seed, N_POINTS, LatentGrid(dims=LATENT))
     k7, k6, k8 = phase_k7(flat_input), phase_k6(flat_input), phase_k8(flat_input)
     k1 = phase_k1()
-    k5, k5b = phase_k5()
+    k5, k5b, k5_bf16, k5b_bf16 = phase_k5()
     serve = phase_serve()
     serve_device = phase_serve_device(card)
     k4 = phase_k4()
     k1d, k2, replay_launches = phase_attention_train()
     k3 = phase_k3()
-    train = phase_train(card, k5b["ms"])
+    train = phase_train(card, k5b_bf16["ms"])
     torch.cuda.empty_cache()
     nf = phase_nf(card)
     torch.cuda.empty_cache()
@@ -2692,6 +3044,8 @@ def main():
     del flat_input
     t1 = phase_t1()
     pallas = "gaot3d_tpu/ops/pallas_attention.py"
+    k5_phases = (serve, serve_device, train, nf, fit, fit_nf)
+    k5b_phases = (train, nf, fit, fit_nf)
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:394",
@@ -2718,12 +3072,22 @@ def main():
         {"name": "encoder_payload", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/encoder_payload.cu",
          "replaces": "gaot3d_tpu/ops/pallas_encoder.py:203",
-         "launches": serve["k5"] + serve_device["k5"] + train["k5"] + nf["k5"] + fit["k5"]
-         + fit_nf["k5"], **k5},
+         "launches": body_launches(k5_phases, "k5", "float32"), **k5},
         {"name": "encoder_payload_bwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/encoder_payload_bwd.cu",
          "replaces": "gaot3d_tpu/ops/pallas_encoder.py:246",
-         "launches": train["k5b"] + nf["k5b"] + fit["k5b"] + fit_nf["k5b"], **k5b},
+         "launches": body_launches(k5b_phases, "k5b", "float32"), **k5b},
+        # the bf16 bodies (kernel_dtype bfloat16): the same sources built with GAOT_BF16=1.
+        # JAX takes its bf16 kernel MLP in XLA (models/fused_encoder.py:108), so they replace
+        # the Pallas kernels' work at another dtype, not another Pallas kernel
+        {"name": "encoder_payload_bf16", "route": "cuda",
+         "source": "gaot3d_tpu_torch/csrc/encoder_payload.cu",
+         "replaces": "gaot3d_tpu/ops/pallas_encoder.py:203",
+         "launches": body_launches(k5_phases, "k5", "bfloat16"), **k5_bf16},
+        {"name": "encoder_payload_bwd_bf16", "route": "cuda",
+         "source": "gaot3d_tpu_torch/csrc/encoder_payload_bwd.cu",
+         "replaces": "gaot3d_tpu/ops/pallas_encoder.py:246",
+         "launches": body_launches(k5b_phases, "k5b", "bfloat16"), **k5b_bf16},
         {"name": "segment_sum_sorted", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/segment_sum_sorted.cu",
          "replaces": "gaot3d_tpu/ops/pallas_segment.py:103", "launches": flat["k6"], **k6},
@@ -2738,6 +3102,9 @@ def main():
          "source": "gaot3d_tpu_torch/csrc/elementwise_chain.cu",
          "replaces": "tools/microbench_vpu_bf16.py:28", **t1},
     ]
+    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    if idle:
+        raise RuntimeError(f"kernels the main path never launched: {idle}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,9 +29,9 @@ class SetUpConfig:
     # means the CPU (the kernels' plain versions); 'tpu' raises. Nothing falls
     # back to the CPU because no GPU was found (`resolve_device`).
     device: str = "auto"
-    # ['float32', 'bfloat16']; 'bfloat16' (bf16 kernel MLPs) is not ported and
-    # the trainer refuses it. Attention q/k/v are bf16 either way
-    # (`attention_dtype`).
+    # ['float32', 'bfloat16']; 'bfloat16' turns a float32 magno.kernel_dtype
+    # into bfloat16 (the trainer's init_model, as in the JAX trainer).
+    # Attention q/k/v are bf16 either way (`attention_dtype`).
     dtype: str = "float32"
     trainer_name: str = "static3d"
     train: bool = True

@@ -31,18 +31,36 @@
 // What bounds it on an H100: the 3xTF32 products, 3 x 2 x 10,624 FLOPs a
 // valid row of the recipe's 6-64-64-64-32 MLP on the tensor cores; the erf of
 // every hidden unit on the FP32 pipe; and the accumulator's reductions in L2.
+//
+// The bf16 body (`kernel_dtype: bfloat16`, this file built with
+// -DGAOT_BF16=1) is the same kernel with the products of the JAX package's
+// bf16 kernel MLP (gaot3d_tpu/models/mlp.py `kernel_mlp_apply`): every
+// layer's input, the positions [point | cell] included, and its weights
+// rounded to bf16 to nearest even, one m16n8k16 bf16 `mma.sync` pass with an
+// f32 result, bias and GELU in f32. The weights are rounded once, when
+// staged, in fragment order (one 8-byte shared load a fragment); the last
+// layer's output and everything after it (the product with the features and
+// the 11 moment columns) stay f32. Its products are a third of the f32
+// body's, and the GELU's erf on the FP32 pipe is its bound.
 #include "encoder_tiles.cuh"
+
+#ifndef GAOT_BF16
+#define GAOT_BF16 0
+#endif
 
 namespace {
 
 using namespace enc;
 
-template <int HID, int C>
+constexpr bool BF16 = GAOT_BF16 != 0;
+
+template <int HID, int C, bool BF>
 struct FwdLayout {
-  // weights split into hi and lo, in fragment order: two floats a weight
-  static constexpr int W0 = 2 * 8 * HID;
-  static constexpr int WM = 2 * HID * HID;
-  static constexpr int WL = 2 * HID * C;
+  // in fragment order: f32 weights split into hi and lo, two floats a weight;
+  // bf16 weights one half float, the first layer padded to 16 rows
+  static constexpr int W0 = BF ? 16 * HID / 2 : 2 * 8 * HID;
+  static constexpr int WM = BF ? HID * HID / 2 : 2 * HID * HID;
+  static constexpr int WL = BF ? HID * C / 2 : 2 * HID * C;
   static constexpr int STAGE = R * X0::S + R * Mat<C>::S + R;  // x0, feature rows, acc rows
   __host__ __device__ static int bias_floats(int n_mid) {
     return ((HID * (n_mid + 1) + C) + 3) & ~3;
@@ -78,17 +96,17 @@ __device__ __forceinline__ void red2(float* p, float a, float b, bool vec) {
   }
 }
 
-template <int HID, int C>
+template <int HID, int C, bool BF>
 __global__ void __launch_bounds__(THREADS, 1)
     encoder_accumulate_kernel(const float* __restrict__ pos, const float* __restrict__ feats,
                               const int32_t* __restrict__ lat_idx,
                               const uint8_t* __restrict__ mask,
                               const float* __restrict__ params, int n_mid, Tiling T,
                               GridSpec grid, float* __restrict__ acc) {
-  using L = FwdLayout<HID, C>;
+  using L = FwdLayout<HID, C, BF>;
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);
-  float* sw0 = sw;                          // layer 0, [8][HID] as fragments
+  float* sw0 = sw;                          // layer 0, [8][HID] (bf16: [16][HID]) as fragments
   float* swm = sw0 + L::W0;                 // the n_mid hidden layers
   float* swl = swm + n_mid * L::WM;         // the last layer, [HID][C]
   float* sb = swl + L::WL;                  // biases, in layer order
@@ -97,17 +115,26 @@ __global__ void __launch_bounds__(THREADS, 1)
   // stage the weights: the packed params are, per layer, W [in][out] then b
   {
     const float* p = params;
-    stage_split_weights<HID>(reinterpret_cast<uint4*>(sw0), p, 6, 8);
+    if constexpr (BF)
+      stage_bf16_fragments<HID>(reinterpret_cast<uint2*>(sw0), p, 6, 16);
+    else
+      stage_split_weights<HID>(reinterpret_cast<uint4*>(sw0), p, 6, 8);
     p += 6 * HID;
     for (int i = threadIdx.x; i < HID; i += THREADS) sb[i] = p[i];
     p += HID;
     for (int l = 0; l < n_mid; ++l) {
-      stage_split_weights<HID>(reinterpret_cast<uint4*>(swm + l * L::WM), p, HID, HID);
+      if constexpr (BF)
+        stage_bf16_fragments<HID>(reinterpret_cast<uint2*>(swm + l * L::WM), p, HID, HID);
+      else
+        stage_split_weights<HID>(reinterpret_cast<uint4*>(swm + l * L::WM), p, HID, HID);
       p += HID * HID;
       for (int i = threadIdx.x; i < HID; i += THREADS) sb[HID * (l + 1) + i] = p[i];
       p += HID;
     }
-    stage_split_weights<C>(reinterpret_cast<uint4*>(swl), p, HID, HID);
+    if constexpr (BF)
+      stage_bf16_fragments<C>(reinterpret_cast<uint2*>(swl), p, HID, HID);
+    else
+      stage_split_weights<C>(reinterpret_cast<uint4*>(swl), p, HID, HID);
     p += HID * C;
     for (int i = threadIdx.x; i < C; i += THREADS) sb[HID * (n_mid + 1) + i] = p[i];
   }
@@ -152,13 +179,21 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // the MLP for the warp's 16 rows
     float h[HID / 8][4];
-    dense_first<HID>(x0_of(s), wrow, SplitWeights<HID>{reinterpret_cast<const uint4*>(sw0)}, h,
-                     lane);
+    if constexpr (BF)
+      dense_first_bf16<HID>(x0_of(s), wrow,
+                            Bf16Fragments<HID>{reinterpret_cast<const uint2*>(sw0)}, h, lane);
+    else
+      dense_first<HID>(x0_of(s), wrow, SplitWeights<HID>{reinterpret_cast<const uint4*>(sw0)},
+                       h, lane);
     bias_gelu(h, sb, lane);
     for (int l = 0; l < n_mid; ++l) {
       float z[HID / 8][4];
-      dense<HID, HID>(h, SplitWeights<HID>{reinterpret_cast<const uint4*>(swm + l * L::WM)}, z,
-                      lane);
+      if constexpr (BF)
+        dense_bf16<HID, HID>(
+            h, Bf16Fragments<HID>{reinterpret_cast<const uint2*>(swm + l * L::WM)}, z, lane);
+      else
+        dense<HID, HID>(
+            h, SplitWeights<HID>{reinterpret_cast<const uint4*>(swm + l * L::WM)}, z, lane);
       bias_gelu(z, sb + HID * (l + 1), lane);
 #pragma unroll
       for (int nt = 0; nt < HID / 8; ++nt)
@@ -166,7 +201,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int e = 0; e < 4; ++e) h[nt][e] = z[nt][e];
     }
     float o[C / 8][4];
-    dense<HID, C>(h, SplitWeights<C>{reinterpret_cast<const uint4*>(swl)}, o, lane);
+    if constexpr (BF)
+      dense_bf16<HID, C>(h, Bf16Fragments<C>{reinterpret_cast<const uint2*>(swl)}, o, lane);
+    else
+      dense<HID, C>(h, SplitWeights<C>{reinterpret_cast<const uint4*>(swl)}, o, lane);
 
     if (has_next) commit(in, s ^ 1);  // stage s^1 was last read before the sync above
 
@@ -210,8 +248,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int HID, int C>
 int occupancy(int n_mid, int& per_sm, int& sms) {
   static LaunchCache cache;
-  return cache.get(encoder_accumulate_kernel<HID, C>, FwdLayout<HID, C>::bytes(n_mid), n_mid,
-                   per_sm, sms);
+  return cache.get(encoder_accumulate_kernel<HID, C, BF16>, FwdLayout<HID, C, BF16>::bytes(n_mid),
+                   n_mid, per_sm, sms);
 }
 
 template <int HID, int C>
@@ -225,8 +263,9 @@ int launch(const float* pos, const float* feats, const int32_t* lat_idx, const u
   const Tiling T = Tiling::make(b, n, k, m);
   const long long cap = (long long)sms * per_sm;
   const int blocks = (int)(T.items < cap ? T.items : cap);
-  encoder_accumulate_kernel<HID, C><<<blocks, THREADS, FwdLayout<HID, C>::bytes(n_mid), stream>>>(
-      pos, feats, lat_idx, mask, params, n_mid, T, g, acc);
+  encoder_accumulate_kernel<HID, C, BF16>
+      <<<blocks, THREADS, FwdLayout<HID, C, BF16>::bytes(n_mid), stream>>>(
+          pos, feats, lat_idx, mask, params, n_mid, T, g, acc);
   return (int)cudaGetLastError();
 }
 
@@ -240,7 +279,7 @@ extern "C" {
 // checks it against the device's limit), or 0 for widths not built.
 long long gaot_encoder_accumulate_smem(int n_mid, int hid, int c) {
 #define GAOT_K5_SMEM(H, CC) \
-  if (hid == H && c == CC) return (long long)FwdLayout<H, CC>::bytes(n_mid);
+  if (hid == H && c == CC) return (long long)FwdLayout<H, CC, BF16>::bytes(n_mid);
   GAOT_K5_WIDTHS(GAOT_K5_SMEM)
 #undef GAOT_K5_SMEM
   return 0;

@@ -43,21 +43,42 @@
 // and one exp for each hidden unit on the FP32 and special-function pipes.
 // Shared memory (the weights, the hidden layers' split into hi and lo; three
 // z tiles; the rows: 211 KiB for the recipe) allows one CTA of 8 warps an SM.
+//
+// The bf16 body (`kernel_dtype: bfloat16`, this file built with
+// -DGAOT_BF16=1) follows the rounding points of jax.grad through the JAX
+// package's bf16 kernel MLP (gaot3d_tpu/models/mlp.py `kernel_mlp_apply`):
+//  - the recompute takes the forward's products (encoder_payload.cu): inputs,
+//    positions included, and weights rounded to bf16, m16n8k16 bf16 passes;
+//  - the cotangent is never rounded. The chain takes d_l W_l^T as 2xTF32
+//    against the bf16 weights and rounds the product to bf16 before gelu';
+//  - dW_l = in_l^T d_l is 2xTF32 too, in_l rounded to bf16 (the activations,
+//    and x0 for the first layer) and the f32 cotangent split; db stays f32.
+//    dW is flushed in f32 as above: JAX rounds it to bf16 once for each of
+//    its node chunks, so the wrapper launches once a chunk, rounds each
+//    launch's dW and sums them (kernels/encoder_payload.py).
+// The weights are held rounded, as f32, once each (no lo half): 179 KiB of
+// shared memory for the recipe.
 #include "encoder_tiles.cuh"
+
+#ifndef GAOT_BF16
+#define GAOT_BF16 0
+#endif
 
 namespace {
 
 using namespace enc;
 
 constexpr size_t MAX_SMEM = 232448;  // per-block limit of sm_90
+constexpr bool BF16 = GAOT_BF16 != 0;
 
-template <int HID, int C, int NMID>
+template <int HID, int C, int NMID, bool BF = BF16>
 struct BwdLayout {
   static constexpr int W0 = 8 * Mat<HID>::S;
   static constexpr int WM = HID * Mat<HID>::S;
   static constexpr int WL = HID * Mat<C>::S;
   static constexpr int BIAS = ((HID * (NMID + 1) + C) + 3) & ~3;
-  static constexpr int WEIGHTS = W0 + 2 * NMID * WM + WL + BIAS;  // hidden layers as hi and lo
+  // f32: the hidden layers as hi and lo; bf16: rounded, once
+  static constexpr int WEIGHTS = W0 + (BF ? 1 : 2) * NMID * WM + WL + BIAS;
   static constexpr int Z = R * Mat<HID>::S;   // one hidden layer: z, then gelu(z), then its cotangent
   static constexpr int FG = R * Mat<C>::S;    // F (feats -> d_out), G (gv -> gv * out)
   static constexpr int X = R * X0::S;         // x0, one of a two-stage ring
@@ -78,10 +99,16 @@ struct Split {
   static_assert(WARPS % MT == 0 && G % NG == 0 && NT % NG == 0, "warps must tile the product");
 };
 
+// How a weight product takes its operands: both f32 (3xTF32), or one of them
+// rounded to bf16 (exact in TF32) and the other, an f32 cotangent, split
+// (2xTF32).
+enum class Operands { F32, BF16_X, BF16_Y };
+
 // acc[m][n] += sum_r X[r][m] * Y[r][n] for this warp's slice, with db the
 // column sums of Y (DB_Y, this warp's n-tiles, by the warps of m-tile 0) or
-// of X (the warp's two m rows g, g+8, by the warps of n group 0).
-template <class XL, class YL, int MT, int NT, bool DB_Y>
+// of X (the warp's two m rows g, g+8, by the warps of n group 0). db sums the
+// values as stored, never rounded.
+template <class XL, class YL, int MT, int NT, bool DB_Y, Operands OP = Operands::F32>
 __device__ __forceinline__ void wgrad(const float* X, const float* Y,
                                       float (&acc)[Split<MT, NT>::WN][4],
                                       float (&db)[DB_Y ? Split<MT, NT>::WN : 2], int warp,
@@ -101,13 +128,30 @@ __device__ __forceinline__ void wgrad(const float* X, const float* Y,
       db[1] += a[1] + a[3];
     }
     uint32_t ah[4], al[4];
-    split4(a, ah, al);
+    if constexpr (OP == Operands::BF16_X) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ah[i] = __float_as_uint(round_bf16(a[i]));
+    } else {
+      split4(a, ah, al);
+    }
 #pragma unroll
     for (int j = 0; j < S::WN; ++j) {
       const int c = n0 + 8 * j + g;
       const float y0 = Y[YL::at(r0, c)], y1 = Y[YL::at(r0 + 1, c)];
       if (DB_Y && do_db) db[j] += y0 + y1;
-      mma3(acc[j], ah, al, y0, y1);
+      if constexpr (OP == Operands::F32) {
+        mma3(acc[j], ah, al, y0, y1);
+      } else if constexpr (OP == Operands::BF16_X) {
+        uint32_t yh[2], yl[2];
+        split(y0, yh[0], yl[0]);
+        split(y1, yh[1], yl[1]);
+        mma_tf32(acc[j], ah, yl[0], yl[1]);
+        mma_tf32(acc[j], ah, yh[0], yh[1]);
+      } else {
+        const uint32_t b0 = __float_as_uint(round_bf16(y0)), b1 = __float_as_uint(round_bf16(y1));
+        mma_tf32(acc[j], al, b0, b1);
+        mma_tf32(acc[j], ah, b0, b1);
+      }
     }
   }
 }
@@ -213,14 +257,43 @@ __device__ __forceinline__ void chain(const float (&d)[OUT / 8][4], const Weight
   }
 }
 
-template <int HID, int C, int NMID>
+// The bf16 chain: acc = bf16(d W^T) for the warp's rows, d the f32 cotangent
+// split into hi and lo, W rounded to bf16 (2xTF32), the result rounded to
+// bf16 as the cotangent of a bf16 operand is.
+template <int IN, int OUT, int ROWS>
+__device__ __forceinline__ void chain_bf16(const float (&d)[OUT / 8][4],
+                                           const RoundedWeights<OUT, ROWS>& w,
+                                           float (&acc)[IN / 8][4], int lane) {
+  zero(acc);
+#pragma unroll
+  for (int kt = 0; kt < OUT / 8; ++kt) {
+    float a[4];
+    as_a(d[kt], a);
+    uint32_t ah[4], al[4];
+    split4(a, ah, al);
+#pragma unroll
+    for (int nt = 0; nt < IN / 8; ++nt) {
+      uint32_t b[2];
+      w.fragment_t(kt, nt, lane, b);
+      mma_tf32(acc[nt], al, b[0], b[1]);
+      mma_tf32(acc[nt], ah, b[0], b[1]);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < IN / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = round_bf16(acc[nt][e]);
+}
+
+template <int HID, int C, int NMID, bool BF>
 __global__ void __launch_bounds__(THREADS, 1)
     encoder_backward_kernel(const float* __restrict__ pos, const float* __restrict__ feats,
                             const int32_t* __restrict__ lat_idx,
                             const uint8_t* __restrict__ mask, const float* __restrict__ params,
                             Tiling T, GridSpec grid, const float* __restrict__ gacc,
                             float* __restrict__ dfeats, float* __restrict__ dparams) {
-  using L = BwdLayout<HID, C, NMID>;
+  using L = BwdLayout<HID, C, NMID, BF>;
+  constexpr Operands OP_X = BF ? Operands::BF16_X : Operands::F32;  // X: activations
   using SF = Split<HID / 16, 1>;        // dW0^T: m the hidden unit, n the (padded) input
   using SM = Split<HID / 16, HID / 8>;  // hidden -> hidden
   using SL = Split<HID / 16, C / 8>;    // hidden -> output
@@ -230,8 +303,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   extern __shared__ float4 smem4[];
   float* sw0 = reinterpret_cast<float*>(smem4);
-  uint32_t* swm = reinterpret_cast<uint32_t*>(sw0 + L::W0);  // per hidden layer: hi, then lo
-  float* swl = reinterpret_cast<float*>(swm + 2 * NMID * L::WM);
+  // per hidden layer: hi, then lo (f32); the rounded weights (bf16)
+  uint32_t* swm = reinterpret_cast<uint32_t*>(sw0 + L::W0);
+  float* swl = reinterpret_cast<float*>(swm + (BF ? 1 : 2) * NMID * L::WM);
   float* sb = swl + L::WL;
   float* zs = sw0 + L::WEIGHTS;                 // [NMID + 1] hidden tiles
   float* x0s = zs + (NMID + 1) * L::Z;          // [2] stages of x0
@@ -240,18 +314,21 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   {
     const float* p = params;
-    stage_weights<HID>(sw0, p, 6, 8);
+    stage_weights<HID, BF>(sw0, p, 6, 8);
     p += 6 * HID;
     for (int i = threadIdx.x; i < HID; i += THREADS) sb[i] = p[i];
     p += HID;
 #pragma unroll 1
     for (int l = 0; l < NMID; ++l) {
-      stage_split_mats<HID>(swm + 2 * l * L::WM, swm + (2 * l + 1) * L::WM, p, HID);
+      if constexpr (BF)
+        stage_weights<HID, true>(reinterpret_cast<float*>(swm) + l * L::WM, p, HID, HID);
+      else
+        stage_split_mats<HID>(swm + 2 * l * L::WM, swm + (2 * l + 1) * L::WM, p, HID);
       p += HID * HID;
       for (int i = threadIdx.x; i < HID; i += THREADS) sb[HID * (l + 1) + i] = p[i];
       p += HID;
     }
-    stage_weights<C>(swl, p, HID, HID);
+    stage_weights<C, BF>(swl, p, HID, HID);
     p += HID * C;
     for (int i = threadIdx.x; i < C; i += THREADS) sb[HID * (NMID + 1) + i] = p[i];
   }
@@ -265,6 +342,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto x0_of = [&](int s) { return x0s + s * L::X; };
   auto z_of = [&](int l) { return zs + l * L::Z; };
   auto mid = [&](int l) { return SplitMats<HID>{swm + 2 * l * L::WM, swm + (2 * l + 1) * L::WM}; };
+  auto mid_bf = [&](int l) {
+    return RoundedWeights<HID, HID>{reinterpret_cast<const float*>(swm) + l * L::WM};
+  };
+  const RoundedWeights<HID, 8> first_bf{sw0};
+  const RoundedWeights<C, HID> last_bf{swl};
 
   // the next tile: x0 into stage s, once its loads have landed ...
   auto commit_x0 = [&](RowIn& in, int s) {
@@ -314,7 +396,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // recompute: z_l of every hidden layer into shared memory
     float h[HID / 8][4];
-    dense_first<HID>(x0_of(s), wrow, F32Weights<HID>{sw0}, h, lane);
+    if constexpr (BF)
+      dense_first_bf16<HID>(x0_of(s), wrow, first_bf, h, lane);
+    else
+      dense_first<HID>(x0_of(s), wrow, F32Weights<HID>{sw0}, h, lane);
     add_bias(h, sb, lane);
     store_rows<HID>(z_of(0), h, wrow, lane);
 #pragma unroll
@@ -324,7 +409,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int l = 0; l < NMID; ++l) {
       float z[HID / 8][4];
-      dense<HID, HID>(h, mid(l), z, lane);
+      if constexpr (BF)
+        dense_bf16<HID, HID>(h, mid_bf(l), z, lane);
+      else
+        dense<HID, HID>(h, mid(l), z, lane);
       add_bias(z, sb + HID * (l + 1), lane);
       store_rows<HID>(z_of(l + 1), z, wrow, lane);
 #pragma unroll
@@ -333,7 +421,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int e = 0; e < 4; ++e) h[nt][e] = gelu(z[nt][e]);
     }
     float o[C / 8][4];
-    dense<HID, C>(h, F32Weights<C>{swl}, o, lane);
+    if constexpr (BF)
+      dense_bf16<HID, C>(h, last_bf, o, lane);
+    else
+      dense<HID, C>(h, F32Weights<C>{swl}, o, lane);
     add_bias(o, sb + HID * (NMID + 1), lane);
 
     // d_out = gv * feats over F, gv * out (dfeats' terms) over G
@@ -357,7 +448,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     // the top, to keep them out of the recompute's registers)
     if (has_next) in.load(T, next, row_i, pos, lat_idx, mask);
     float dz[HID / 8][4];
-    chain<HID, C>(d, F32Weights<C>{swl}, dz, lane);
+    if constexpr (BF)
+      chain_bf16<HID, C>(d, last_bf, dz, lane);
+    else
+      chain<HID, C>(d, F32Weights<C>{swl}, dz, lane);
     through_gelu<HID>(dz, z_of(NMID), wrow, lane);
 
     if (has_next) commit_x0(in, s ^ 1);  // x0 stage s^1 was last read before the sync above
@@ -382,7 +476,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
     }
-    wgrad<Mat<HID>, Mat<C>, HID / 16, C / 8, true>(z_of(NMID), F, dwl, dbl, warp, lane);
+    wgrad<Mat<HID>, Mat<C>, HID / 16, C / 8, true, OP_X>(z_of(NMID), F, dwl, dbl, warp, lane);
     __syncthreads();
     if (has_next) copy_rows(in);  // F and G are free until the next tile's top
 
@@ -390,11 +484,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int l = NMID; l >= 1; --l) {
       store_rows<HID>(z_of(l), dz, wrow, lane);  // gelu(z_l) there was used above
       float nz[HID / 8][4];
-      chain<HID, HID>(dz, mid(l - 1), nz, lane);
+      if constexpr (BF)
+        chain_bf16<HID, HID>(dz, mid_bf(l - 1), nz, lane);
+      else
+        chain<HID, HID>(dz, mid(l - 1), nz, lane);
       through_gelu<HID>(nz, z_of(l - 1), wrow, lane);
       __syncthreads();
-      wgrad<Mat<HID>, Mat<HID>, HID / 16, HID / 8, true>(z_of(l - 1), z_of(l), dwm[l - 1],
-                                                         dbm[l - 1], warp, lane);
+      wgrad<Mat<HID>, Mat<HID>, HID / 16, HID / 8, true, OP_X>(z_of(l - 1), z_of(l), dwm[l - 1],
+                                                               dbm[l - 1], warp, lane);
       __syncthreads();
 #pragma unroll
       for (int nt = 0; nt < HID / 8; ++nt)
@@ -403,7 +500,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     store_rows<HID>(z_of(0), dz, wrow, lane);
     __syncthreads();
-    wgrad<Mat<HID>, X0, HID / 16, 1, false>(z_of(0), x0_of(s), dw0, db0, warp, lane);
+    // X the cotangent, Y the positions (rounded to bf16 in the bf16 body)
+    wgrad<Mat<HID>, X0, HID / 16, 1, false, BF ? Operands::BF16_Y : Operands::F32>(
+        z_of(0), x0_of(s), dw0, db0, warp, lane);
 
     if (!has_next) break;
     tile = next;
@@ -423,8 +522,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int HID, int C, int NMID>
 int occupancy(int& per_sm, int& sms) {
   static LaunchCache cache;
-  return cache.get(encoder_backward_kernel<HID, C, NMID>, BwdLayout<HID, C, NMID>::BYTES, NMID,
-                   per_sm, sms);
+  return cache.get(encoder_backward_kernel<HID, C, NMID, BF16>, BwdLayout<HID, C, NMID>::BYTES,
+                   NMID, per_sm, sms);
 }
 
 template <int HID, int C, int NMID>
@@ -438,7 +537,7 @@ int launch(const float* pos, const float* feats, const int32_t* lat_idx, const u
   const Tiling T = Tiling::make(b, n, k, m);
   const long long cap = (long long)sms * per_sm;
   const int blocks = (int)(T.items < cap ? T.items : cap);
-  encoder_backward_kernel<HID, C, NMID>
+  encoder_backward_kernel<HID, C, NMID, BF16>
       <<<blocks, THREADS, BwdLayout<HID, C, NMID>::BYTES, stream>>>(
           pos, feats, lat_idx, mask, params, T, g, gacc, dfeats, dparams);
   return (int)cudaGetLastError();

@@ -2,7 +2,7 @@
 // encoder_payload.cu) and backward (K5b, encoder_payload_bwd.cu) on Hopper
 // (sm_90a): node-major tiles, the asynchronous loads of a tile's inputs, the
 // shared-memory layout, and the kernel MLP's layer products on the tensor
-// cores at f32 grade.
+// cores, at f32 grade (3xTF32) or as the bf16 kernel MLP takes them.
 //
 // Products: 3xTF32. Each f32 operand x is split as x = hi + lo with hi
 // rounded to TF32 (to nearest, ties away from zero, as `cvt.rna.tf32.f32`)
@@ -19,6 +19,16 @@
 // every 8-deep step is permuted (A slot t <-> k 2t, slot t+4 <-> k 2t+1, and
 // the B operand read the same way), so one layer's accumulator is the next
 // layer's A operand register for register, with no shuffle.
+//
+// bf16 (`kernel_dtype: bfloat16`): a layer's input and weight are rounded to
+// bf16 (to nearest even, `cvt.rn.bf16x2.f32`, as JAX's astype) and the
+// product is one `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` pass
+// with an f32 result. Its A fragment holds rows g, g+8 at columns 2t, 2t+1
+// and 2t+8, 2t+9 of a 16-deep step, which is the accumulator of two adjacent
+// 8-column tiles as it stands: one layer's output packs into the next one's A
+// operand without a permutation. The backward's products of an f32 cotangent
+// with a bf16 operand are 2xTF32 (hi_d*b + lo_d*b): a bf16 value is exact in
+// TF32, so the third pass of 3xTF32 would add zero.
 //
 // Shared memory: a [rows][W] f32 matrix is stored with a row stride S (W, or
 // 24 when W < 32) and the column index XORed in its bits 3-4 with bits of the
@@ -65,6 +75,28 @@ struct X0 {
   static constexpr int S = 8;
   __device__ __forceinline__ static int at(int r, int c) { return r * 8 + c; }
 };
+
+// ---- bf16 products -------------------------------------------------------------
+// Two f32 values rounded to bf16 to nearest even and packed, `lo` in the low
+// half (the lower column or k index of a fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// x rounded to bf16 to nearest even, held in an f32 (exact in TF32)
+__device__ __forceinline__ float round_bf16(float x) {
+  return __uint_as_float(pack_bf16(x, 0.f) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // ---- 3xTF32 products -----------------------------------------------------------
 // x = hi + lo: hi rounded to TF32 to nearest, ties away from zero (what
@@ -254,13 +286,101 @@ __device__ __forceinline__ void stage_split_weights(uint4* dst, const float* src
 }
 
 // Stage one layer's weights [in][out] (packed row-major in global memory,
-// `in_real` rows; rows up to `in_pad` are zero) into a Mat<OUT>.
-template <int OUT>
+// `in_real` rows; rows up to `in_pad` are zero) into a Mat<OUT>, rounded to
+// bf16 when ROUND.
+template <int OUT, bool ROUND = false>
 __device__ __forceinline__ void stage_weights(float* dst, const float* src, int in_real,
                                               int in_pad) {
   for (int i = threadIdx.x; i < in_pad * OUT; i += blockDim.x) {
     const int r = i / OUT, c = i - r * OUT;
-    dst[Mat<OUT>::at(r, c)] = r < in_real ? src[i] : 0.f;
+    const float v = r < in_real ? src[i] : 0.f;
+    dst[Mat<OUT>::at(r, c)] = ROUND ? round_bf16(v) : v;
+  }
+}
+
+// ---- bf16 products, staged weights and layers ---------------------------------------
+// A layer's weights [in][out] rounded to bf16 once, when staged, in fragment
+// order (K5): lane l of fragment (ks, nt) finds {W[16ks+2t][8nt+g],
+// W[16ks+2t+1][..]} in .x and {W[16ks+2t+8][..], W[16ks+2t+9][..]} in .y.
+template <int OUT>
+struct Bf16Fragments {
+  const uint2* w;
+  __device__ __forceinline__ uint2 fragment16(int ks, int nt, int lane) const {
+    return w[(ks * (OUT / 8) + nt) * 32 + lane];
+  }
+};
+
+// A layer's weights [in][out] rounded to bf16 and held as f32 in a Mat<OUT>
+// (K5b): packed into bf16 fragments for the recompute, read as TF32 values of
+// W^T (exact) for the chain d W^T. `fragment16` of the first layer reads
+// rows < 8 only (its rows 6-15 are zero).
+template <int OUT, int ROWS>
+struct RoundedWeights {
+  const float* w;
+  __device__ __forceinline__ float at(int r, int c) const {
+    return r < ROWS ? w[Mat<OUT>::at(r, c)] : 0.f;
+  }
+  __device__ __forceinline__ uint2 fragment16(int ks, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+    const int r = 16 * ks + 2 * t, c = 8 * nt + g;
+    return make_uint2(pack_bf16(at(r, c), at(r + 1, c)), pack_bf16(at(r + 8, c), at(r + 9, c)));
+  }
+  __device__ __forceinline__ void fragment_t(int kt, int nt, int lane, uint32_t (&b)[2]) const {
+    const int g = lane >> 2, t = lane & 3;
+    const float2 v =
+        *reinterpret_cast<const float2*>(w + Mat<OUT>::at(8 * nt + g, 8 * kt + 2 * t));
+    b[0] = __float_as_uint(v.x);
+    b[1] = __float_as_uint(v.y);
+  }
+};
+
+// acc[16 x OUT] = bf16(act[16 x IN]) * W for one warp's 16 rows, `act` in
+// accumulator layout over IN (a multiple of 16).
+template <int IN, int OUT, class Weights>
+__device__ __forceinline__ void dense_bf16(const float (&act)[IN / 8][4], const Weights& w,
+                                           float (&acc)[OUT / 8][4], int lane) {
+  static_assert(IN % 16 == 0, "a bf16 product is 16 deep");
+  zero(acc);
+#pragma unroll
+  for (int ks = 0; ks < IN / 16; ++ks) {
+    const uint32_t a[4] = {pack_bf16(act[2 * ks][0], act[2 * ks][1]),
+                           pack_bf16(act[2 * ks][2], act[2 * ks][3]),
+                           pack_bf16(act[2 * ks + 1][0], act[2 * ks + 1][1]),
+                           pack_bf16(act[2 * ks + 1][2], act[2 * ks + 1][3])};
+#pragma unroll
+    for (int nt = 0; nt < OUT / 8; ++nt) {
+      const uint2 b = w.fragment16(ks, nt, lane);
+      mma_bf16(acc[nt], a, b.x, b.y);
+    }
+  }
+}
+
+// The first layer in bf16: the warp's rows of x0 [point | cell | 0 0], the
+// positions rounded to bf16, padded with zeros to 16 deep, times W0.
+template <int HID, class Weights>
+__device__ __forceinline__ void dense_first_bf16(const float* x0, int row0, const Weights& w,
+                                                 float (&acc)[HID / 8][4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float2 top = *reinterpret_cast<const float2*>(x0 + X0::at(row0 + g, 2 * t));
+  const float2 bot = *reinterpret_cast<const float2*>(x0 + X0::at(row0 + g + 8, 2 * t));
+  const uint32_t a[4] = {pack_bf16(top.x, top.y), pack_bf16(bot.x, bot.y), 0u, 0u};
+  zero(acc);
+#pragma unroll
+  for (int nt = 0; nt < HID / 8; ++nt) mma_bf16(acc[nt], a, w.fragment16(0, nt, lane).x, 0u);
+}
+
+// Stage one layer's weights [in][out] (packed row-major in global memory,
+// `in_real` rows; rows up to `in_pad`, a multiple of 16, are zero) rounded to
+// bf16, in fragment order.
+template <int OUT>
+__device__ __forceinline__ void stage_bf16_fragments(uint2* dst, const float* src, int in_real,
+                                                     int in_pad) {
+  const int n = (in_pad / 16) * (OUT / 8) * 32;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int lane = i & 31, f = i >> 5, ks = f / (OUT / 8), nt = f - ks * (OUT / 8);
+    const int r = 16 * ks + 2 * (lane & 3), c = 8 * nt + (lane >> 2);
+    auto at = [&](int rr) { return rr < in_real ? src[rr * OUT + c] : 0.f; };
+    dst[i] = make_uint2(pack_bf16(at(r), at(r + 1)), pack_bf16(at(r + 8), at(r + 9)));
   }
 }
 

@@ -161,7 +161,7 @@ def section_slots_shared(pairs: Sequence[Tuple[np.ndarray, np.ndarray]], chunk: 
     if shards != 1:
         raise NotImplementedError(
             "shard-aligned sections (shards > 1) are not ported: node sharding is "
-            "ROADMAP item 9")
+            "ROADMAP item 7")
     B, N, _ = pairs[0][1].shape
     if N % chunk != 0:
         raise ValueError(f"chunk {chunk} x shards {shards} must divide N {N}")

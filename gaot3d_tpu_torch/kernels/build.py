@@ -92,13 +92,17 @@ def build_log(name: str) -> str:
         return f.read()
 
 
-def load_cuda_library(name: str, source: str, headers: Sequence[str] = ()) -> ctypes.CDLL:
+def load_cuda_library(name: str, source: str, headers: Sequence[str] = (),
+                      defines: Sequence[str] = ()) -> ctypes.CDLL:
     """nvcc one csrc/ file with a plain C interface into a shared library;
-    `headers` are the csrc/ files it includes (a newer one rebuilds it)."""
+    `headers` are the csrc/ files it includes (a newer one rebuilds it) and
+    `defines` macros set on the command line (one source can build several
+    libraries, each under its own name)."""
     src = os.path.join(CSRC_DIR, source)
     deps = [src] + [os.path.join(CSRC_DIR, h) for h in headers]
+    flags = [f"-D{d}" for d in defines]
     return load_library(
-        name, deps, lambda out: [find_nvcc(), *NVCC_FLAGS, "-o", out, src])
+        name, deps, lambda out: [find_nvcc(), *NVCC_FLAGS, *flags, "-o", out, src])
 
 
 def build_together(loaders: Sequence[Callable[[], ctypes.CDLL]]) -> None:

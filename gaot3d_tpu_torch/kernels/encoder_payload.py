@@ -31,6 +31,22 @@ slot whose cell lies outside the grid is dropped, as XLA's scatter drops it.
   tensors the wrappers have checked and the MLP packed by `_pack_mlp`.
 
 MLP weights are passed in torch layout (weight [out, in], bias [out]).
+
+`kernel_dtype` picks the kernel MLP's arithmetic, as the JAX package's
+`kernel_dtype` does (gaot3d_tpu/models/mlp.py `kernel_mlp_apply`):
+'float32', or 'bfloat16', where each layer's input (the positions
+[point | cell] included) and weight are rounded to bf16, to nearest even,
+and their product has an f32 result; bias and GELU stay f32, and so do the
+last layer's output and the rest of the payload. Each kernel has a body for
+each, built from one source into two libraries. Under 'bfloat16' the
+backward rounds where jax.grad does: d(in_l) and dW_l to bf16, db and the
+cotangent never; dW once for each node chunk of `chunk` nodes, summed over
+the chunks in f32. The plain versions get those points from autograd
+through `kernel_mlp`; on the card the wrapper launches K5b once a chunk,
+each launch into its own f32 gradient, and rounds and sums them
+(`_backward_by_chunk`). `encoder_accumulate.launches` counts every K5
+launch and `encoder_accumulate.launches_bf16` those of the bf16 body; the
+same two counts sit on `encoder_accumulate_backward` for K5b.
 """
 from __future__ import annotations
 
@@ -46,10 +62,25 @@ from .build import load_cuda_library
 
 SUPPORTED_WIDTHS = ((64, 32), (64, 16), (32, 32), (32, 16), (16, 16), (16, 8))  # (hidden, C)
 MAX_SHARED_BYTES = 232448  # per-block shared memory limit of sm_90
+KERNEL_DTYPES = ("float32", "bfloat16")
 
 
-def _library() -> ctypes.CDLL:
-    lib = load_cuda_library("encoder_payload", "encoder_payload.cu", ["encoder_tiles.cuh"])
+def check_kernel_dtype(kernel_dtype: str) -> str:
+    if kernel_dtype not in KERNEL_DTYPES:
+        raise ValueError(f"kernel_dtype must be one of {KERNEL_DTYPES}, got {kernel_dtype!r}")
+    return kernel_dtype
+
+
+def _built(name: str, kernel_dtype: str):
+    """(library name, nvcc defines) of a kernel's body for kernel_dtype."""
+    if check_kernel_dtype(kernel_dtype) == "bfloat16":
+        return f"{name}_bf16", ["GAOT_BF16=1"]
+    return name, []
+
+
+def _library(kernel_dtype: str = "float32") -> ctypes.CDLL:
+    name, defines = _built("encoder_payload", kernel_dtype)
+    lib = load_cuda_library(name, "encoder_payload.cu", ["encoder_tiles.cuh"], defines)
     lib.gaot_encoder_accumulate.restype = ctypes.c_int
     lib.gaot_encoder_accumulate.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6
@@ -61,9 +92,9 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _backward_library() -> ctypes.CDLL:
-    lib = load_cuda_library("encoder_payload_bwd", "encoder_payload_bwd.cu",
-                            ["encoder_tiles.cuh"])
+def _backward_library(kernel_dtype: str = "float32") -> ctypes.CDLL:
+    name, defines = _built("encoder_payload_bwd", kernel_dtype)
+    lib = load_cuda_library(name, "encoder_payload_bwd.cu", ["encoder_tiles.cuh"], defines)
     lib.gaot_encoder_backward.restype = ctypes.c_int
     lib.gaot_encoder_backward.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6
@@ -75,9 +106,32 @@ def _backward_library() -> ctypes.CDLL:
     return lib
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even) and held in f32. Under autograd
+    the gradient takes the same rounding on its way back."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def kernel_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor],
+               biases: Sequence[torch.Tensor], kernel_dtype: str = "float32") -> torch.Tensor:
+    """The kernel MLP on rows x [..., in]: dense layers in torch layout with
+    exact GELU between them and none after the last. 'bfloat16' rounds each
+    layer's input and weight to bf16 and takes their product with an f32
+    result (the products of bf16 values are exact in f32), bias and GELU in
+    f32. Through autograd, d(input) and dW come back rounded to bf16 (dW once
+    a call) and db in f32, as from jax.grad of the JAX package's bf16 MLP."""
+    bf16 = check_kernel_dtype(kernel_dtype) == "bfloat16"
+    last = len(weights) - 1
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        x = F.linear(round_bf16(x), round_bf16(w), b) if bf16 else F.linear(x, w, b)
+        if i < last:
+            x = F.gelu(x)
+    return x
+
+
 def payload_rows(pt: torch.Tensor, fe: torch.Tensor, idx: torch.Tensor,
                  weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
-                 grid: LatentGrid) -> torch.Tensor:
+                 grid: LatentGrid, kernel_dtype: str = "float32") -> torch.Tensor:
     """The payload of one edge per row: points pt [..., 3], their lifted
     features fe [..., C] and latent cells idx [...] -> [..., C+11]. Plain
     tensor code under autograd: the unfused encoder (sorted reductions, flat
@@ -85,11 +139,7 @@ def payload_rows(pt: torch.Tensor, fe: torch.Tensor, idx: torch.Tensor,
     cell = grid.positions_from_idx(idx, dtype=pt.dtype)
     y = pt - cell
     d = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
-    x = torch.cat([pt, cell], dim=-1)
-    for i, (w, b) in enumerate(zip(weights, biases)):
-        x = F.linear(x, w, b)
-        if i < len(weights) - 1:
-            x = F.gelu(x)
+    x = kernel_mlp(torch.cat([pt, cell], dim=-1), weights, biases, kernel_dtype)
     y0, y1, y2 = y[..., 0:1], y[..., 1:2], y[..., 2:3]
     return torch.cat([x * fe, torch.ones_like(d), d, y,
                       y0 * y0, y0 * y1, y0 * y2, y1 * y1, y1 * y2, y2 * y2], dim=-1)
@@ -97,20 +147,22 @@ def payload_rows(pt: torch.Tensor, fe: torch.Tensor, idx: torch.Tensor,
 
 def encoder_payload_reference(pos: torch.Tensor, feats: torch.Tensor,
                               lat_idx: torch.Tensor, weights: Sequence[torch.Tensor],
-                              biases: Sequence[torch.Tensor],
-                              grid: LatentGrid) -> torch.Tensor:
+                              biases: Sequence[torch.Tensor], grid: LatentGrid,
+                              kernel_dtype: str = "float32") -> torch.Tensor:
     """pos [..., n, 3], feats [..., n, C], lat_idx [..., n, K] ->
     payload [..., n*K, C+11]."""
     *lead, n, K = lat_idx.shape
     C = feats.shape[-1]
     pt = pos[..., :, None, :].expand(*lead, n, K, 3)
     fe = feats[..., :, None, :].expand(*lead, n, K, C)
-    return payload_rows(pt, fe, lat_idx, weights, biases, grid).reshape(*lead, n * K, C + 11)
+    return payload_rows(pt, fe, lat_idx, weights, biases, grid,
+                        kernel_dtype).reshape(*lead, n * K, C + 11)
 
 
 def encoder_accumulate_reference(pos, feats, lat_idx, mask, weights, biases,
                                  grid: LatentGrid, acc: torch.Tensor,
-                                 chunk: Optional[int] = None) -> torch.Tensor:
+                                 chunk: Optional[int] = None,
+                                 kernel_dtype: str = "float32") -> torch.Tensor:
     """Plain twin of `encoder_accumulate`: payload chunk by chunk (`chunk`
     nodes at a time bounds the [chunk*K, hidden] intermediates), each summed
     into acc with a masked index_add_. Returns acc, updated in place."""
@@ -121,7 +173,8 @@ def encoder_accumulate_reference(pos, feats, lat_idx, mask, weights, biases,
     for c0 in range(0, n, step):
         c1 = min(c0 + step, n)
         payload = encoder_payload_reference(
-            pos[:, c0:c1], feats[:, c0:c1], lat_idx[:, c0:c1], weights, biases, grid)
+            pos[:, c0:c1], feats[:, c0:c1], lat_idx[:, c0:c1], weights, biases, grid,
+            kernel_dtype)
         for b in range(B):
             acc[b] += segment_sum(payload[b], lat_idx[b, c0:c1].reshape(-1), M,
                                   keep[b, c0:c1].reshape(-1))
@@ -130,11 +183,18 @@ def encoder_accumulate_reference(pos, feats, lat_idx, mask, weights, biases,
 
 def encoder_accumulate_backward_reference(
         g: torch.Tensor, pos, feats, lat_idx, mask, weights, biases, grid: LatentGrid,
-        chunk: Optional[int] = None
+        chunk: Optional[int] = None, kernel_dtype: str = "float32"
 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
     """Plain version of `encoder_accumulate_backward`: autograd through the
     payload reference, `chunk` nodes at a time, each row's cotangent gathered
-    from g [B, M, C+11] at its cell (zero for rows the forward skipped)."""
+    from g [B, M, C+11] at its cell (zero for rows the forward skipped).
+
+    Under 'bfloat16' that autograd keeps jax.grad's rounding points (see
+    `kernel_mlp`): with d_l the f32 cotangent of layer l's output,
+    d(in_l) = bf16(d_l W_bf16^T), then times gelu'(z) in f32;
+    dW_l = bf16(sum over the chunk's rows of bf16(in_l)^T d_l), summed over
+    the chunks in f32; db_l = sum of d_l in f32. The chunks are JAX's: all
+    B samples of `chunk` nodes each."""
     B, n, K = lat_idx.shape
     M, P = g.shape[1], g.shape[2]
     keep = mask & (lat_idx >= 0) & (lat_idx < M)
@@ -150,7 +210,7 @@ def encoder_accumulate_backward_reference(
         f = feats[:, c0:c1].detach().requires_grad_()
         with torch.enable_grad():
             payload = encoder_payload_reference(pos[:, c0:c1], f, lat_idx[:, c0:c1], ws, bs,
-                                                grid)
+                                                grid, kernel_dtype)
         rows = torch.gather(g, 1, idx[:, c0:c1].reshape(B, -1, 1).expand(B, (c1 - c0) * K, P))
         rows = rows * keep[:, c0:c1].reshape(B, -1, 1)
         grads = torch.autograd.grad(payload, [f, *ws, *bs], rows)
@@ -182,7 +242,8 @@ def _unpack_mlp(packed: torch.Tensor, shapes):
     return ws, bs
 
 
-def _check(pos, feats, lat_idx, mask, weights, biases, grid, acc):
+def _check(pos, feats, lat_idx, mask, weights, biases, grid, acc, kernel_dtype="float32"):
+    check_kernel_dtype(kernel_dtype)
     if pos.ndim != 3 or pos.shape[-1] != 3:
         raise ValueError(f"pos must be [B, n, 3], got {tuple(pos.shape)}")
     B, n, _ = pos.shape
@@ -213,35 +274,39 @@ def _check(pos, feats, lat_idx, mask, weights, biases, grid, acc):
 
 def launch_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Tensor,
                       mask: torch.Tensor, params: torch.Tensor, n_mid: int, hid: int,
-                      grid: LatentGrid, acc: torch.Tensor) -> None:
-    """K5 alone: one launch on CUDA tensors that `_check` accepted, with the
-    MLP packed by `_pack_mlp` (n_mid hidden-to-hidden layers of width hid)."""
+                      grid: LatentGrid, acc: torch.Tensor,
+                      kernel_dtype: str = "float32") -> None:
+    """K5 alone: one launch of the body for `kernel_dtype` on CUDA tensors
+    that `_check` accepted, with the MLP packed by `_pack_mlp` (n_mid
+    hidden-to-hidden layers of width hid)."""
     B, n, K = lat_idx.shape
     C = feats.shape[-1]
     _, d1, d2 = grid.dims
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().gaot_encoder_accumulate(
+        err = _library(kernel_dtype).gaot_encoder_accumulate(
             pos.data_ptr(), feats.data_ptr(), lat_idx.data_ptr(), mask.data_ptr(),
             params.data_ptr(), params.numel(), n_mid, hid, C, B, n, K, grid.num_tokens, d1,
             d2, *grid.lo, *grid.spacing, acc.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"encoder_payload launch failed: cudaError {err}")
     encoder_accumulate.launches += 1
+    encoder_accumulate.launches_bf16 += kernel_dtype == "bfloat16"
 
 
 def launch_backward(g: torch.Tensor, pos: torch.Tensor, feats: torch.Tensor,
                     lat_idx: torch.Tensor, mask: torch.Tensor, params: torch.Tensor, n_mid: int,
                     hid: int, grid: LatentGrid, dfeats: torch.Tensor,
-                    dparams: torch.Tensor) -> None:
-    """K5b alone: one launch that writes every row of dfeats and adds into
-    dparams (packed like params, zeroed by the caller)."""
+                    dparams: torch.Tensor, kernel_dtype: str = "float32") -> None:
+    """K5b alone: one launch of the body for `kernel_dtype` that writes every
+    row of dfeats and adds into dparams (packed like params, zeroed by the
+    caller) in f32."""
     B, n, K = lat_idx.shape
     C = feats.shape[-1]
     _, d1, d2 = grid.dims
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _backward_library().gaot_encoder_backward(
+        err = _backward_library(kernel_dtype).gaot_encoder_backward(
             pos.data_ptr(), feats.data_ptr(), lat_idx.data_ptr(), mask.data_ptr(),
             params.data_ptr(), params.numel(), n_mid, hid, C, B, n, K, grid.num_tokens, d1,
             d2, *grid.lo, *grid.spacing, g.data_ptr(), dfeats.data_ptr(), dparams.data_ptr(),
@@ -249,6 +314,7 @@ def launch_backward(g: torch.Tensor, pos: torch.Tensor, feats: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"encoder_payload_bwd launch failed: cudaError {err}")
     encoder_accumulate_backward.launches += 1
+    encoder_accumulate_backward.launches_bf16 += kernel_dtype == "bfloat16"
 
 
 def _check_shared_memory(need: int, what: str, hid: int, C: int, n_mid: int) -> None:
@@ -264,58 +330,106 @@ def encoder_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Te
                        mask: torch.Tensor, weights: Sequence[torch.Tensor],
                        biases: Sequence[torch.Tensor], grid: LatentGrid,
                        acc: torch.Tensor, chunk: Optional[int] = None, *,
-                       params: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       params: Optional[torch.Tensor] = None,
+                       kernel_dtype: str = "float32") -> torch.Tensor:
     """Add the payload of every valid (node, slot) row into acc[b, cell]:
     pos [B,n,3], feats [B,n,C], lat_idx/mask [B,n,K], acc [B,M,C+11]
     (updated in place and returned). `chunk` only bounds the twin's memory;
     `params`, the MLP already packed by `_pack_mlp`, saves packing it again."""
     if pos.device.type == "cpu":
         return encoder_accumulate_reference(pos, feats, lat_idx, mask, weights,
-                                            biases, grid, acc, chunk)
+                                            biases, grid, acc, chunk, kernel_dtype)
     if pos.device.type != "cuda":
         raise ValueError(f"encoder_accumulate: no kernel for device {pos.device}")
-    _check(pos, feats, lat_idx, mask, weights, biases, grid, acc)
+    _check(pos, feats, lat_idx, mask, weights, biases, grid, acc, kernel_dtype)
     hid, C, n_mid = weights[0].shape[0], feats.shape[-1], len(weights) - 2
-    _check_shared_memory(_library().gaot_encoder_accumulate_smem(n_mid, hid, C),
+    _check_shared_memory(_library(kernel_dtype).gaot_encoder_accumulate_smem(n_mid, hid, C),
                          "the forward", hid, C, n_mid)
     if params is None:
         params = _pack_mlp(weights, biases)
-    launch_accumulate(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc)
+    launch_accumulate(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc, kernel_dtype)
     return acc
 
 
 encoder_accumulate.launches = 0
+encoder_accumulate.launches_bf16 = 0
+
+
+def _weight_entries(shapes) -> List[Tuple[int, int]]:
+    """[start, end) of each layer's weights in the packed layout of
+    `_pack_mlp` for torch shapes [(out, in), ...] (the biases lie between)."""
+    spans, off = [], 0
+    for out, inp in shapes:
+        spans.append((off, off + inp * out))
+        off += inp * out + out
+    return spans
+
+
+def _backward_by_chunk(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, chunk,
+                       shapes) -> torch.Tensor:
+    """The bf16 backward at JAX's rounding of dW: one K5b launch for each node
+    chunk of `chunk` nodes (all B samples, as one JAX chunk), each into its
+    own f32 gradient, whose weights are rounded to bf16 before the chunks are
+    summed in f32; the biases' gradients are summed as they are. Writes every
+    row of dfeats; returns the packed gradient."""
+    n = pos.shape[1]
+    step = n if chunk is None else chunk
+    total = torch.zeros_like(params)
+    part = torch.empty_like(params)
+    for c0 in range(0, n, step):
+        rows = slice(c0, min(c0 + step, n))
+        cut = [t[:, rows].contiguous() for t in (pos, feats, lat_idx, mask)]
+        df = dfeats[:, rows]
+        out = df if df.is_contiguous() else torch.empty_like(cut[1])
+        part.zero_()
+        launch_backward(g, *cut, params, n_mid, hid, grid, out, part, "bfloat16")
+        if out is not df:
+            df.copy_(out)
+        for a, b in _weight_entries(shapes):
+            part[a:b] = round_bf16(part[a:b])
+        total += part
+    return total
 
 
 def encoder_accumulate_backward(
         g: torch.Tensor, pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Tensor,
         mask: torch.Tensor, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
         grid: LatentGrid, chunk: Optional[int] = None, *,
-        params: Optional[torch.Tensor] = None
+        params: Optional[torch.Tensor] = None, kernel_dtype: str = "float32"
 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
     """Gradients of `encoder_accumulate` given the accumulator's cotangent g
     [B, M, C+11]: (dfeats [B,n,C], dW per layer in torch layout, db per
-    layer; on CUDA, views of one packed gradient). `chunk` only bounds the
-    plain version's memory; `params` as for `encoder_accumulate`."""
+    layer; on CUDA, views of one packed gradient). `params` as for
+    `encoder_accumulate`. Under 'float32' `chunk` only bounds the plain
+    version's memory; under 'bfloat16' dW is rounded once a chunk of `chunk`
+    nodes, so the card launches K5b once a chunk."""
     if pos.device.type == "cpu":
         return encoder_accumulate_backward_reference(g, pos, feats, lat_idx, mask, weights,
-                                                     biases, grid, chunk)
+                                                     biases, grid, chunk, kernel_dtype)
     if pos.device.type != "cuda":
         raise ValueError(f"encoder_accumulate_backward: no kernel for device {pos.device}")
-    _check(pos, feats, lat_idx, mask, weights, biases, grid, g)
+    _check(pos, feats, lat_idx, mask, weights, biases, grid, g, kernel_dtype)
     hid, C, n_mid = weights[0].shape[0], feats.shape[-1], len(weights) - 2
-    _check_shared_memory(_backward_library().gaot_encoder_backward_smem(n_mid, hid, C),
-                         "the backward", hid, C, n_mid)
+    _check_shared_memory(
+        _backward_library(kernel_dtype).gaot_encoder_backward_smem(n_mid, hid, C),
+        "the backward", hid, C, n_mid)
     if params is None:
         params = _pack_mlp(weights, biases)
+    shapes = [tuple(w.shape) for w in weights]
     dfeats = torch.empty_like(feats)  # the kernel writes every node
-    dparams = torch.zeros_like(params)
-    launch_backward(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, dparams)
-    dws, dbs = _unpack_mlp(dparams, [tuple(w.shape) for w in weights])
+    if kernel_dtype == "bfloat16":
+        dparams = _backward_by_chunk(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid,
+                                     dfeats, chunk, shapes)
+    else:
+        dparams = torch.zeros_like(params)
+        launch_backward(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats,
+                        dparams)
+    dws, dbs = _unpack_mlp(dparams, shapes)
     return dfeats, dws, dbs
 
 
 encoder_accumulate_backward.launches = 0
+encoder_accumulate_backward.launches_bf16 = 0
 
 
 class _EncoderAccumulate(torch.autograd.Function):
@@ -325,33 +439,36 @@ class _EncoderAccumulate(torch.autograd.Function):
     packed tensor is saved for the backward."""
 
     @staticmethod
-    def forward(ctx, acc, pos, feats, lat_idx, mask, grid, chunk, *mlp):
+    def forward(ctx, acc, pos, feats, lat_idx, mask, grid, chunk, kernel_dtype, *mlp):
         n_layers = len(mlp) // 2
         weights = [w.detach() for w in mlp[:n_layers]]
         biases = [b.detach() for b in mlp[n_layers:]]
         params = _pack_mlp(weights, biases) if pos.device.type == "cuda" else None
         encoder_accumulate(pos, feats, lat_idx, mask, weights, biases, grid, acc, chunk,
-                           params=params)
+                           params=params, kernel_dtype=kernel_dtype)
         ctx.mark_dirty(acc)
         ctx.save_for_backward(pos, feats, lat_idx, mask, params, *mlp)
-        ctx.static = (grid, chunk, n_layers)
+        ctx.static = (grid, chunk, kernel_dtype, n_layers)
         return acc
 
     @staticmethod
     def backward(ctx, g):
         pos, feats, lat_idx, mask, params, *mlp = ctx.saved_tensors
-        grid, chunk, n_layers = ctx.static
+        grid, chunk, kernel_dtype, n_layers = ctx.static
         dfeats, dws, dbs = encoder_accumulate_backward(
             g.contiguous(), pos, feats, lat_idx, mask, [w.detach() for w in mlp[:n_layers]],
-            [b.detach() for b in mlp[n_layers:]], grid, chunk, params=params)
-        return (g, None, dfeats, None, None, None, None, *dws, *dbs)
+            [b.detach() for b in mlp[n_layers:]], grid, chunk, params=params,
+            kernel_dtype=kernel_dtype)
+        return (g, None, dfeats, None, None, None, None, None, *dws, *dbs)
 
 
 def accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Tensor,
                mask: torch.Tensor, weights: Sequence[torch.Tensor],
                biases: Sequence[torch.Tensor], grid: LatentGrid, acc: torch.Tensor,
-               chunk: Optional[int] = None) -> torch.Tensor:
+               chunk: Optional[int] = None, kernel_dtype: str = "float32") -> torch.Tensor:
     """Differentiable `encoder_accumulate` (with respect to feats, weights,
-    biases and acc): adds into `acc` in place and returns it."""
-    return _EncoderAccumulate.apply(acc, pos, feats, lat_idx, mask, grid, chunk, *weights,
-                                    *biases)
+    biases and acc): adds into `acc` in place and returns it. Under
+    'bfloat16', `chunk` is JAX's node chunk, at whose boundaries dW is
+    rounded."""
+    return _EncoderAccumulate.apply(acc, pos, feats, lat_idx, mask, grid, chunk, kernel_dtype,
+                                    *weights, *biases)

@@ -22,6 +22,11 @@ code adds them follows the layout and `segment_impl`, as in the JAX package:
 The sorted reductions use no atomics, so their accumulator is the same bits
 on every run.
 
+The kernel MLP runs at `kernel_dtype` (float32 | bfloat16, as
+kernels/encoder_payload.py `kernel_mlp` takes it) on every path: K5 and K5b
+have a body for each, and the plain rows of the other paths get it from
+`payload_rows`, as the JAX package's XLA path does.
+
 `_finalize` turns the accumulator into the GNO mean and the statistical
 features: count, mean distance, distance variance, centroid offset and PCA
 eigenvalues of the local covariance, z-normalised over the whole batch
@@ -60,7 +65,8 @@ class FusedEncoderScale:
     def __init__(self, gno: IntegralTransform, geoembed: StatisticalGeoEmbedding,
                  grid: LatentGrid, lifting_channels: int,
                  edge_chunk_size: Optional[int] = None, segment_impl: str = "scatter",
-                 flat_dst_sorted: bool = False, flat_reduce_impl: str = "fold"):
+                 flat_dst_sorted: bool = False, flat_reduce_impl: str = "fold",
+                 kernel_dtype: str = "float32"):
         self.gno = gno
         self.geoembed = geoembed
         self.grid = grid
@@ -69,6 +75,7 @@ class FusedEncoderScale:
         self.segment_impl = segment_impl
         self.flat_dst_sorted = flat_dst_sorted
         self.flat_reduce_impl = flat_reduce_impl
+        self.kernel_dtype = kernel_dtype
 
     def __call__(self, slots, point_pos: torch.Tensor,
                  lifted_feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -121,7 +128,7 @@ class FusedEncoderScale:
             return accumulate(
                 point_pos.contiguous(), lifted_feats.contiguous(),
                 slots.lat_idx.contiguous(), slots.mask.contiguous(),
-                weights, biases, self.grid, acc, chunk=chunk)
+                weights, biases, self.grid, acc, chunk=chunk, kernel_dtype=self.kernel_dtype)
         for c0 in range(0, n, chunk):
             rows = slice(c0, c0 + chunk)
             acc = acc + self._pass_chunk(lifted_feats[:, rows], point_pos[:, rows],
@@ -150,7 +157,7 @@ class FusedEncoderScale:
         B, n, K = mask_c.shape
         weights, biases = self._kernel_mlp()
         payload = encoder_payload_reference(pos_c, feats_c, lat_idx_c, weights, biases,
-                                            self.grid)
+                                            self.grid, self.kernel_dtype)
         return self._reduce(payload, lat_idx_c.reshape(B, n * K), mask_c.reshape(B, n * K))
 
     def _pass_chunk_flat(self, feats_c: torch.Tensor, pos_c: torch.Tensor,
@@ -164,7 +171,7 @@ class FusedEncoderScale:
         pt = torch.gather(pos_c, 1, idx.expand(B, E, pos_c.shape[-1]))
         fe = torch.gather(feats_c, 1, idx.expand(B, E, feats_c.shape[-1]))
         weights, biases = self._kernel_mlp()
-        payload = payload_rows(pt, fe, dst_e, weights, biases, self.grid)
+        payload = payload_rows(pt, fe, dst_e, weights, biases, self.grid, self.kernel_dtype)
         if not self.flat_dst_sorted:
             return self._reduce(payload, dst_e, emask_e)
         if self.flat_reduce_impl == "pallas":

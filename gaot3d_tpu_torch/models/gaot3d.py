@@ -7,7 +7,8 @@ slots for a side it is given none for, where its points lie (the card or the
 CPU), as the JAX model does. In training the forward takes a
 `torch.Generator`, from which the processor draws its attention-dropout
 seeds. Patchify and unpatchify
-are the reference's exact reshapes and transposes.
+are the reference's exact reshapes and transposes. Both sides' GNO kernel
+MLPs run at `magno_config.kernel_dtype` (float32 | bfloat16).
 """
 from __future__ import annotations
 

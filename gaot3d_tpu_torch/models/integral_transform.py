@@ -3,7 +3,9 @@ gaot3d_tpu/models/integral_transform.py `effective_chunk`, the decoder chunk
 bodies for slots and for flat edge lists, and the decoder branches of
 `__call__`; callers slice node chunks directly instead of `reshape_chunks`).
 
-Per edge between a point and a latent cell: kernel = MLP([cell | point]),
+Per edge between a point and a latent cell: kernel = MLP([cell | point])
+at `kernel_dtype` (float32 | bfloat16, see models/mlp.py `kernel_mlp_apply`;
+a plain product, which the JAX package leaves to XLA too),
 value = kernel * latent features of the cell; each point takes the mean over
 its valid edges: a masked mean over its K slots, or, for flat edge lists
 sorted by node, a presorted fold by node through the prefix-sum kernel K7.
@@ -36,13 +38,14 @@ class IntegralTransform(nn.Module):
     """`transform_type: linear` GNO; its kernel MLP sits in `channel_mlp`."""
 
     def __init__(self, channel_mlp_layers: Sequence[int], grid: LatentGrid,
-                 transform_type: str = "linear"):
+                 transform_type: str = "linear", kernel_dtype: str = "float32"):
         super().__init__()
         if transform_type != "linear":
             raise NotImplementedError(
                 f"transform_type {transform_type!r} is not ported (only 'linear')")
         self.channel_mlp = ChannelMLP(channel_mlp_layers, "linear")
         self.grid = grid
+        self.kernel_dtype = kernel_dtype
 
     def decoder_chunk(self, latent_feats: torch.Tensor, pos_c: torch.Tensor,
                       lat_idx_c: torch.Tensor, mask_c: torch.Tensor) -> torch.Tensor:
@@ -55,7 +58,8 @@ class IntegralTransform(nn.Module):
         lat_pos = self.grid.positions_from_idx(idx, dtype=pos_c.dtype)
         pt_pos = pos_c[:, :, None, :].expand(B, n, K, pos_c.shape[-1])
         src = torch.gather(latent_feats, 1, idx.reshape(B, n * K, 1).expand(B, n * K, C))
-        vals = kernel_mlp_apply(torch.cat([lat_pos, pt_pos], dim=-1), self.channel_mlp.fcs)
+        vals = kernel_mlp_apply(torch.cat([lat_pos, pt_pos], dim=-1), self.channel_mlp.fcs,
+                                self.kernel_dtype)
         vals = vals * src.reshape(B, n, K, C)
         total = torch.where(mask_c[..., None], vals, torch.zeros((), dtype=vals.dtype,
                                                                   device=vals.device)).sum(2)
@@ -77,7 +81,8 @@ class IntegralTransform(nn.Module):
         # padding rows hold cell 0 and are zeroed, as the fold drops them
         cell = dst_e.clamp(0, latent_feats.shape[1] - 1).long()[..., None].expand(B, E, C)
         src = torch.gather(latent_feats, 1, cell) * emask_e[..., None].to(latent_feats.dtype)
-        vals = kernel_mlp_apply(torch.cat([lat_pos, pt_pos], dim=-1), self.channel_mlp.fcs) * src
+        vals = kernel_mlp_apply(torch.cat([lat_pos, pt_pos], dim=-1), self.channel_mlp.fcs,
+                                self.kernel_dtype) * src
         outs = []
         for v, s, m in zip(vals, src_e, emask_e):
             ctx = make_segment_fold_presorted(s, n, m)

@@ -18,7 +18,9 @@ packages. The model dispatches on the type of the edge structure it is
 handed; four fields say how the encoder reduces, as in the JAX package:
 `segment_impl` (scatter | sort | tile) for slots, sections and src-ordered
 flat lists, `flat_order` (src | dst) for how the encoder's flat lists were
-built, `flat_reduce_impl` (fold | pallas) for dst-ordered flat lists. The
+built, `flat_reduce_impl` (fold | pallas) for dst-ordered flat lists.
+`kernel_dtype` (float32 | bfloat16) sets the arithmetic of both sides' GNO
+kernel MLPs, as JAX's magno.py passes it to its encoder and decoder scales. The
 data side reads `edge_layout` (scalar or [encoder, decoder] pair, see
 `parse_edge_layout`), `flat_order` and `flat_edges_per_chunk`
 (`data.host_graph.flatten_slots_host_batched`). Values the port does not
@@ -36,6 +38,7 @@ from torch import nn
 
 from ..ops.grid_graph import (EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots,
                               build_budgeted_slots, compact_slots)
+from ..kernels.encoder_payload import KERNEL_DTYPES
 from .fused_encoder import FusedEncoderScale, StatisticalGeoEmbedding
 from .integral_transform import IntegralTransform, effective_chunk
 from .mlp import ChannelMLP
@@ -136,13 +139,12 @@ def check_supported(cfg: MAGNOConfig) -> None:
     parse_edge_layout(cfg.edge_layout)
     for name, known in (("segment_impl", ("scatter", "sort", "tile")),
                         ("flat_order", ("src", "dst")),
-                        ("flat_reduce_impl", ("fold", "pallas"))):
+                        ("flat_reduce_impl", ("fold", "pallas")),
+                        ("kernel_dtype", KERNEL_DTYPES)):
         if getattr(cfg, name) not in known:
             raise ValueError(f"unknown {name}: {getattr(cfg, name)!r} (one of {known})")
     enc_geo, dec_geo = parse_geoembed_strategy(cfg.use_geoembed)
     unsupported = [
-        (cfg.kernel_dtype != "float32",
-         f"kernel_dtype {cfg.kernel_dtype!r} (the encoder kernel is float32 only)"),
         (not cfg.use_gno, "use_gno: false"),
         (bool(cfg.use_attn), "use_attn (per-edge GNO attention)"),
         (len(cfg.scales) != 1, f"multiscale (scales {cfg.scales})"),
@@ -201,13 +203,14 @@ class MAGNOEncoder(nn.Module):
         self.build_slots = SlotBuild(cfg, grid, enc_strategy)
         self.lifting = ChannelMLP([in_channels, C], cfg.mlp_type)
         self.gno = IntegralTransform(
-            [2 * cfg.gno_coord_dim] + list(cfg.in_gno_channel_mlp_hidden_layers) + [C], grid)
+            [2 * cfg.gno_coord_dim] + list(cfg.in_gno_channel_mlp_hidden_layers) + [C], grid,
+            kernel_dtype=cfg.kernel_dtype)
         self.geoembed = StatisticalGeoEmbedding(cfg.gno_coord_dim, C)
         self.recovery = ChannelMLP([2 * C, C], cfg.mlp_type)
         self.fused = FusedEncoderScale(
             self.gno, self.geoembed, grid, C, cfg.edge_chunk_size,
             segment_impl=cfg.segment_impl, flat_dst_sorted=cfg.flat_order == "dst",
-            flat_reduce_impl=cfg.flat_reduce_impl)
+            flat_reduce_impl=cfg.flat_reduce_impl, kernel_dtype=cfg.kernel_dtype)
 
     def forward(self, point_pos: torch.Tensor, point_feats: torch.Tensor,
                 slots=None, point_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -237,7 +240,7 @@ class MAGNODecoder(nn.Module):
         self.build_slots = SlotBuild(cfg, grid, dec_strategy)
         self.gno = IntegralTransform(
             [2 * cfg.gno_coord_dim] + list(cfg.out_gno_channel_mlp_hidden_layers)
-            + [in_channels], grid)
+            + [in_channels], grid, kernel_dtype=cfg.kernel_dtype)
         self.projection = ChannelMLP(
             [in_channels, cfg.projection_channels, out_channels], cfg.mlp_type)
 

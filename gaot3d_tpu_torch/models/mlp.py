@@ -12,8 +12,9 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from ..kernels.encoder_payload import kernel_mlp
 
 
 def reset_linear_(layer: nn.Module, generator: Optional[torch.Generator]) -> None:
@@ -29,20 +30,14 @@ def reset_linear_(layer: nn.Module, generator: Optional[torch.Generator]) -> Non
                 p.copy_(draw * (2 * bound) - bound)
 
 
-def dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Apply an nn.Linear or a kernel-size-1 nn.Conv1d over the last axis."""
-    w = layer.weight
-    return F.linear(x, w[..., 0] if w.ndim == 3 else w, layer.bias)
-
-
-def kernel_mlp_apply(x: torch.Tensor, fcs: Sequence[nn.Module]) -> torch.Tensor:
-    """Dense layers with exact GELU between them and none after the last."""
-    n = len(fcs)
-    for i, fc in enumerate(fcs):
-        x = dense(fc, x)
-        if i < n - 1:
-            x = F.gelu(x)
-    return x
+def kernel_mlp_apply(x: torch.Tensor, fcs: Sequence[nn.Module],
+                     compute_dtype: str = "float32") -> torch.Tensor:
+    """Dense layers with exact GELU between them and none after the last, at
+    the GNO kernel MLP's `kernel_dtype`: 'float32', or 'bfloat16' (operands
+    rounded to bf16 a layer, products with an f32 result, bias and GELU in
+    f32, as kernels/encoder_payload.py `kernel_mlp` says)."""
+    weights = [fc.weight[..., 0] if fc.weight.ndim == 3 else fc.weight for fc in fcs]
+    return kernel_mlp(x, weights, [fc.bias for fc in fcs], compute_dtype)
 
 
 class ChannelMLP(nn.Module):

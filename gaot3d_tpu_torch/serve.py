@@ -20,7 +20,8 @@ input points by default):
     pred = infer(pos, feats, mask, query_pos, query_mask)        # [B, Q, out]
 
 The exported config holds what the build needs: grid, radius, k, strategies,
-slot budget and node chunk.
+slot budget and node chunk; and `kernel_dtype`, so a bf16 model is served
+at bf16.
 
 Each side takes any edge structure the model runs: `EdgeSlots`,
 `SectionedEdgeSlots` or `FlatEdgeChunks` (the encoder's built in the order

@@ -62,10 +62,13 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]], List[Tuple[str, str]], str
     "k5b": ("bwd", [], [], "as shipped"),
     "k5b_cvt_split": ("bwd", [], [(_SPLIT, _CVT)], "the split by cvt.rna.tf32.f32"),
     "k5b_no_weight_products": ("bwd", [
-        ("wgrad<Mat<HID>, Mat<C>, HID / 16, C / 8, true>(z_of(NMID), F, dwl, dbl, warp, lane);", ";"),
-        ("wgrad<Mat<HID>, Mat<HID>, HID / 16, HID / 8, true>(z_of(l - 1), z_of(l), dwm[l - 1],\n"
-         "                                                         dbm[l - 1], warp, lane);", ";"),
-        ("wgrad<Mat<HID>, X0, HID / 16, 1, false>(z_of(0), x0_of(s), dw0, db0, warp, lane);", ";")],
+        ("wgrad<Mat<HID>, Mat<C>, HID / 16, C / 8, true, OP_X>(z_of(NMID), F, dwl, dbl, warp, "
+         "lane);", ";"),
+        ("wgrad<Mat<HID>, Mat<HID>, HID / 16, HID / 8, true, OP_X>(z_of(l - 1), z_of(l), "
+         "dwm[l - 1],\n                                                               "
+         "dbm[l - 1], warp, lane);", ";"),
+        ("wgrad<Mat<HID>, X0, HID / 16, 1, false, BF ? Operands::BF16_Y : Operands::F32>(\n"
+         "        z_of(0), x0_of(s), dw0, db0, warp, lane);", ";")],
         [], "no dW, db products"),
     "k5b_no_gelu_grad": ("bwd", [("      gelu_and_grad(z.x, h0, gp0);\n      gelu_and_grad(z.y, h1, gp1);",
                                   "      h0 = z.x; gp0 = 1.f; h1 = z.y; gp1 = 1.f;")], [],

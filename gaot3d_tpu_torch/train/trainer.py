@@ -31,9 +31,13 @@ builds uniform slots on the device inside every forward (slot mode
 'device'). `training_strategy: neural_field` samples nodes on the device and
 builds the edges of the sampled coordinates, so it needs that last mode.
 
-Not ported, each refused with NotImplementedError naming its ROADMAP item:
-`setup.distributed` and `node_shards > 1` (item 7), `setup.dtype: bfloat16`
-and `kernel_dtype: bfloat16` (item 4). The JAX
+`setup.dtype: bfloat16` follows the JAX trainer's rule: it turns a float32
+`magno.kernel_dtype` into bfloat16 (the GNO kernel MLPs in bf16) and leaves
+an explicit one alone; parameters and AdamW state stay f32, and attention is
+bf16 either way (`attention_dtype`).
+
+Not ported, refused with NotImplementedError naming its ROADMAP item:
+`setup.distributed` and `node_shards > 1` (item 7). The JAX
 trainer's layout harvest, host staging by node count and compilation cache
 answer to XLA and have no counterpart here.
 """
@@ -121,10 +125,6 @@ class TrainerBase:
             raise NotImplementedError(
                 "setup.distributed, world_size > 1 and node_shards > 1 are not ported: data "
                 "and node parallelism are ROADMAP item 7")
-        if setup.dtype == "bfloat16" or config.model.args.magno.kernel_dtype == "bfloat16":
-            raise NotImplementedError(
-                "setup.dtype / magno.kernel_dtype 'bfloat16' (bf16 kernel MLPs) are not "
-                "ported: ROADMAP item 4; attention is bf16 already (attention_dtype)")
         self.device = resolve_device(setup.device)
         manual_seed(setup.seed)
         # weights are drawn on the CPU and moved; dropout seeds on the device
@@ -485,6 +485,12 @@ class StaticTrainer3D(TrainerBase):
 
     # -- model ----------------------------------------------------------------
     def init_model(self, model_config):
+        # setup.dtype 'bfloat16' turns the GNO kernel MLPs bf16 unless the
+        # config pinned kernel_dtype already (gaot3d_tpu/train/trainer.py)
+        if self.setup_config.dtype == "bfloat16":
+            magno_cfg = model_config.args.magno
+            if magno_cfg.kernel_dtype == "float32":
+                magno_cfg.kernel_dtype = "bfloat16"
         self.model = init_model(
             input_size=self.num_input_channels,
             output_size=self.num_output_channels,

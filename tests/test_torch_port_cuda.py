@@ -196,6 +196,75 @@ def test_encoder_backward_dfeats_repeat_bit_for_bit(K):
     assert torch.equal(first, second)
 
 
+# the bf16 bodies against their bf16 plain versions: relative L2, as chip_smoke.py holds them
+# (K5_BF16_BOUND, K5B_BF16_BOUND; their reasons in tests/test_torch_port_payload_bf16.py)
+K5_BF16, K5B_BF16 = 1e-4, 2e-3
+
+
+def _rel_l2(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+@pytest.mark.parametrize("hid,C,K,B,n,n_mid,chunk", [
+    *[(64, 32, K, 1, 1001, 2, None) for K in (1, 3, 5)],
+    (64, 32, 5, 1, 3000, 2, 1000),  # three chunks: three launches, dW rounded in each
+    (64, 32, 3, 2, 1001, 2, 500),   # B = 2: a chunk's rows are copied out, dfeats back
+    (64, 16, 3, 1, 1001, 2, None), (32, 32, 5, 1, 777, 0, None), (32, 16, 4, 1, 777, 3, 300),
+    (16, 8, 5, 1, 555, 3, None), (64, 32, 130, 1, 37, 2, None),
+])
+def test_encoder_bf16_bodies_match_plain(hid, C, K, B, n, n_mid, chunk):
+    """K5's bf16 body (the accumulator's value columns) and K5b's (dfeats,
+    dW, db), one K5b launch a chunk, against the bf16 plain versions."""
+    args, ws, bs, grid, g = _edge_problem(hid, C, K, B, n, n_mid, seed=hid + C + K + n + 1)
+    acc = torch.zeros((B, grid.num_tokens, C + 11), device="cuda")
+    n5, n5b = k5.encoder_accumulate.launches_bf16, k5.encoder_accumulate_backward.launches_bf16
+    k5.encoder_accumulate(*args, ws, bs, grid, acc, chunk, kernel_dtype="bfloat16")
+    ref = k5.encoder_accumulate_reference(*args, ws, bs, grid, torch.zeros_like(acc), chunk,
+                                          "bfloat16")
+    torch.cuda.synchronize()
+    assert torch.isfinite(acc).all() and _rel_l2(acc[..., :C], ref[..., :C]) <= K5_BF16
+    got = k5.encoder_accumulate_backward(g, *args, ws, bs, grid, chunk, kernel_dtype="bfloat16")
+    want = k5.encoder_accumulate_backward_reference(g, *args, ws, bs, grid, chunk, "bfloat16")
+    chunks = 1 if chunk is None else -(-n // chunk)
+    assert k5.encoder_accumulate.launches_bf16 == n5 + 1
+    assert k5.encoder_accumulate_backward.launches_bf16 == n5b + chunks
+    pairs = [(got[0], want[0])] + list(zip(got[1], want[1])) + list(zip(got[2], want[2]))
+    for a, b in pairs:
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert _rel_l2(a, b) <= K5B_BF16
+    if chunks == 1:  # one launch: dW is its bf16 rounding, db is not rounded
+        assert all(torch.equal(k5.round_bf16(w), w) for w in got[1])
+        assert not all(torch.equal(k5.round_bf16(b), b) for b in got[2])
+
+
+def test_encoder_bf16_backward_dfeats_repeat_bit_for_bit():
+    args, ws, bs, grid, g = _edge_problem(64, 32, 3, 2, 2001, 2, seed=5)
+    first = k5.encoder_accumulate_backward(g, *args, ws, bs, grid, 700, kernel_dtype="bfloat16")
+    second = k5.encoder_accumulate_backward(g, *args, ws, bs, grid, 700, kernel_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+
+
+def test_encoder_bf16_autograd_on_card_matches_cpu():
+    """`accumulate` at bf16 under autograd on the card (K5, then K5b once a
+    chunk) against the same on the CPU (the plain versions)."""
+    args, ws, bs, grid, g = _edge_problem(64, 32, 4, 1, 3000, 2, seed=9)
+
+    def run(device):
+        a = [t.to(device) for t in args]
+        feats = a[1].clone().requires_grad_()
+        w = [x.to(device).requires_grad_() for x in ws]
+        b = [x.to(device).requires_grad_() for x in bs]
+        acc = k5.accumulate(a[0], feats, a[2], a[3], w, b, grid,
+                            torch.zeros((1, grid.num_tokens, 43), device=device), 1000,
+                            "bfloat16")
+        grads = torch.autograd.grad(acc, [feats, *w, *b], g.to(device))
+        return [acc.detach().cpu()] + [x.cpu() for x in grads]
+
+    for a, b in zip(run("cuda"), run("cpu")):
+        assert _rel_l2(a, b) <= K5B_BF16
+
+
 @pytest.mark.parametrize("S,Skv", [(4096, 4096), (77, 130), (1000, 1001)])
 def test_dropout_bits_kernel_matches_plain_bit_for_bit(S, Skv):
     seed = 0x1234_5678_9ABC_DEF0 + S
@@ -544,6 +613,46 @@ def test_train_step_on_card_matches_cpu():
     assert torch.isfinite(grads[1]).all()
     rel = ((grads[1] - grads[0]).norm() / grads[0].norm()).item()
     assert rel <= 1e-4
+
+
+def test_train_step_bf16_on_card_matches_cpu():
+    """kernel_dtype bfloat16: one forward-and-backward through K5's and
+    K5b's bf16 bodies (K5b once a 64-node chunk) on the card against the
+    plain versions on the CPU, same seeds, f32 attention, no dropout:
+    relative L2 of the gradient within K5B_BF16 (bf16 roundings that the
+    sums' other order flips)."""
+    from gaot3d_tpu_torch.train import masked_mse
+
+    magno = MAGNOConfig(lifting_channels=8, use_geoembed=[True, False], gno_radius=0.45,
+                        in_gno_channel_mlp_hidden_layers=[16, 16],
+                        out_gno_channel_mlp_hidden_layers=[16], projection_channels=16,
+                        edge_chunk_size=64, kernel_dtype="bfloat16")
+    attn = TransformerConfig(
+        patch_size=2, hidden_size=32, num_layers=2, positional_embedding="rope",
+        attn_config=AttentionConfig(hidden_size=32, num_heads=4, num_kv_heads=2,
+                                    atten_dropout=0.0, attention_dtype="float32"),
+        ffn_config=FFNConfig(hidden_size=64))
+    rng = np.random.default_rng(2)
+    t = torch.from_numpy
+    pos = t(rng.uniform(-1, 1, (1, 256, 3)).astype(np.float32))
+    feats = t(rng.normal(size=(1, 256, 2)).astype(np.float32))
+    target = t(rng.normal(size=(1, 256, 1)).astype(np.float32))
+    lat = t(rng.integers(0, 64, (1, 256, 4)).astype(np.int32))
+    msk = t(rng.random((1, 256, 4)) < 0.7)
+    mask = torch.ones(1, 256, dtype=torch.bool)
+    grads = []
+    n5b = k5.encoder_accumulate_backward.launches_bf16
+    for device in ("cpu", "cuda"):
+        model = init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=(4, 4, 4),
+                           generator=torch.Generator().manual_seed(0), device=device).train()
+        slots = EdgeSlots(lat.to(device), msk.to(device))
+        pred = model(pos.to(device), feats.to(device), mask.to(device), encoder_slots=[slots],
+                     decoder_slots=[slots])
+        masked_mse(pred, target.to(device), mask.to(device)).backward()
+        grads.append(torch.cat([p.grad.flatten().cpu() for p in model.parameters()]))
+    assert k5.encoder_accumulate_backward.launches_bf16 == n5b + 4
+    assert torch.isfinite(grads[1]).all()
+    assert _rel_l2(grads[1], grads[0]) <= K5B_BF16
 
 
 # --- K7 prefix sum, K6 sorted segment sum, K8 tile segment sum ---------------

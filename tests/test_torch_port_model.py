@@ -196,19 +196,22 @@ def test_init_model_is_seeded_by_its_generator():
     assert w.abs().max() <= bound and w.abs().max() > 0.8 * bound
 
 
-@pytest.mark.parametrize("magno_kw,attn_kw,match", [
-    (dict(kernel_dtype="bfloat16"), {}, "kernel_dtype"),
-    (dict(use_attn=True), {}, "use_attn"),
-    (dict(scales=[1.0, 2.0]), {}, "multiscale"),
-    (dict(use_geoembed=[True, True]), {}, "decoder geoembed"),
-    (dict(in_gno_transform_type="nonlinear"), {}, "transform"),
-    ({}, dict(positional_embedding="rope3d"), "rope3d"),
-])
-def test_unsupported_configs_raise(magno_kw, attn_kw, match):
+@pytest.mark.parametrize("magno_kw,attn_kw,match,error", [
+    (dict(kernel_dtype="float16"), {}, "kernel_dtype", ValueError),  # float32 | bfloat16 run
+    (dict(use_attn=True), {}, "use_attn", NotImplementedError),
+    (dict(scales=[1.0, 2.0]), {}, "multiscale", NotImplementedError),
+    (dict(use_geoembed=[True, True]), {}, "decoder geoembed", NotImplementedError),
+    (dict(in_gno_transform_type="nonlinear"), {}, "transform", NotImplementedError),
+    ({}, dict(positional_embedding="rope3d"), "rope3d", NotImplementedError),
+], ids=[f"magno_kw{i}-attn_kw{i}-{m}" for i, m in enumerate(
+    ["kernel_dtype", "use_attn", "multiscale", "decoder geoembed", "transform", "rope3d"])])
+def test_unsupported_configs_raise(magno_kw, attn_kw, match, error):
+    """Values the port does not run raise NotImplementedError, unknown ones
+    ValueError."""
     magno, attn = _port_configs(_flagship_model())
     magno = dataclasses.replace(magno, **magno_kw)
     attn = dataclasses.replace(attn, **attn_kw)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=(4, 4, 4), device="cpu")
 
 

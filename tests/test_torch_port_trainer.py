@@ -346,14 +346,12 @@ def test_run_config_file_applies_the_load_priority(pair, tmp_path):
      ValueError, "magno.edge_layout='flat' requires precomputed or async graph building"),
     ({"setup": {"distributed": True}}, NotImplementedError, "ROADMAP item 7"),
     ({"setup": {"node_shards": 2}}, NotImplementedError, "ROADMAP item 7"),
-    ({"setup": {"dtype": "bfloat16"}}, NotImplementedError, "ROADMAP item 4"),
-    ({"magno": {"kernel_dtype": "bfloat16"}}, NotImplementedError, "ROADMAP item 4"),
     ({"magno": {"slot_budget": None}}, ValueError, "requires slot_budget"),
     ({"magno": {"slot_budget": 1}}, ValueError, "below the max per-point degree"),
     ({"setup": {"device": "tpu"}}, ValueError, "not a device of this package"),
     ({"setup": {"trainer_name": "sequential"}}, ValueError, "unknown trainer"),
 ], ids=["neural_field-precompute", "neural_field-async", "device-sectioned", "device-flat",
-        "distributed", "node_shards", "dtype-bf16", "kernel-bf16", "sectioned-no-budget",
+        "distributed", "node_shards", "sectioned-no-budget",
         "budget-too-small", "tpu", "trainer-name"])
 def test_trainer_refusals(tmp_path, updates, error, match):
     """What the trainer refuses; the neural-field and slot-mode refusals in
@@ -467,6 +465,6 @@ def test_recipe_toml_is_the_yamls_twin():
                 differ.add(prefix + key)
 
     walk(t, j)
-    assert differ == {"setup.device", "model.args.magno.kernel_dtype", "path.ckpt_path",
+    assert differ == {"setup.device", "path.ckpt_path",
                       "path.loss_path", "path.result_path", "path.database_path"}
     assert t["model"]["args"]["transformer"]["attn_config"]["atten_dropout"] == 0.1
