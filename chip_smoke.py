@@ -4,9 +4,10 @@
 
 `--flat-seed` (31) seeds the cloud of phases 13 and 14, for a second reading
 of their limits. `--only` runs just the named phases (k1, attention-train,
-k3, k5, serve-device, nf, trainer, trainer-split, trainer-nf, t1, k7, k6, k8,
-flat; the last four share one cloud), builds each kernel at its first use
-and prints no record: for work on one phase.
+k3, k5, serve-device, serve-buckets, nf, trainer, export (after trainer),
+trainer-split, trainer-nf, t1, k7, k6, k8, flat; the last four share one
+cloud), builds each kernel at its first use and prints no record: for work
+on one phase.
 
 Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
@@ -138,7 +139,25 @@ Phases, each of which raises (exit code 1) on failure:
      once a step, the nodes being one chunk), 2 epochs, validation and test on the full
      500,000-point clouds: launches a step, finite losses, every parameter
      moved, the epoch wall a step, the loader's stall, validate and test ms
-     a sample.
+     a sample;
+ 19. [serve-buckets] (run after [serve-device]) the recipe over uniform slots
+     in a bucket bundle of {262,144, 524,288} nodes that builds its slots on
+     the card (`export_inference_buckets`, `load_inference_buckets`):
+     requests of 400,000 points (padded to 524,288), 262,144, 524,288, and
+     524,288 with host-built sections passed at call time, each of shape
+     [1, n, 1] and finite, with K1 10 and K5's bf16 body 1 (device-built
+     slots) or once a section; the dispatcher's pad, forward and slice by
+     CUDA events, the request's wall and peak memory; request 1 within
+     RERUN_BOUND of the model's forward on the same padded inputs and within
+     1e-3 relative L2 of the plain versions, its K5 launch against its plain
+     version at the padded shape, once more warm; a request of 600,000
+     points raises and launches nothing;
+ 20. [export] (run after [trainer], on its checkpoint) the port's
+     `tools/export_model.py` writes a serving artifact that builds its
+     slots, `load_inference` serves one request of 524,288 points within
+     RERUN_BOUND of the trainer's model's own eval forward (K1 10, K5 1);
+     then `tools/export_torch_ckpt.py` and `tools/import_torch_ckpt.py` take
+     the checkpoint to the reference's layout and back, the same bits.
 Yardsticks off the main path (`library_ms`): torch's
 scaled_dot_product_attention forward and backward at the recipe shape,
 `torch.cumsum` and `index_add_`.
@@ -1025,6 +1044,10 @@ def cloud(seed, n_points, grid=None, radius=RADIUS, budget=BUDGET):
     return (*tensors, mask, slots, len(secs), (t1 - t0, time.perf_counter() - t1))
 
 
+def rel_l2(got, want):
+    return ((got - want).norm() / want.norm()).item()
+
+
 def against_plain(tag, what, fn, got):
     """Hold `got`, what fn() gave with the kernels, against fn() with every
     kernel replaced by its plain version: its first item (an output or a
@@ -1874,6 +1897,146 @@ def phase_serve_device(card):
           f"forward {start.elapsed_time(end) - warm_build:.2f} ms, request "
           f"{start.elapsed_time(end):.2f} ms; the host build of request 1's cloud "
           f"{host_ms:.1f} ms (budgeted slots, without sections or upload)")
+    return launches
+
+
+BUCKETS = (262_144, N_POINTS)
+PADDED = 400_000  # the request the dispatcher pads to the larger bucket
+# relative L2, a forward against the same forward on the same inputs and weights (the
+# dispatcher against the model on the padded inputs, an exported model against the
+# trainer's): K5's float atomics add in another order on every run, and through the bf16
+# attention two runs of one model on one input differ by about 3e-5 on an H100; the limit
+# is RELOAD_BOUND's, for the same cause. Each phase prints that spread beside its reading
+RERUN_BOUND = 1e-4
+
+
+class DispatchSpy:
+    """Answers requests through a bucket dispatcher (`serve.BucketedInference`)
+    and records CUDA events around its pad, around its forward and after it
+    returns (the slice back to the request's nodes, a view), the request's
+    wall on the host clock (synchronized) and its peak device memory above
+    what was held before it."""
+
+    def __init__(self, infer):
+        self.infer = infer
+
+    def __call__(self, *args):
+        import torch
+
+        marks = {}
+
+        def mark(name):
+            marks[name] = torch.cuda.Event(enable_timing=True)
+            marks[name].record()
+
+        def timed(name, fn):
+            def run(*a):
+                mark(name)
+                out = fn(*a)
+                mark(name + " end")
+                return out
+            return run
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(self.infer, "pad", timed("pad", self.infer.pad)), \
+                mock.patch.object(self.infer, "infer", timed("forward", self.infer.infer)):
+            t0 = time.perf_counter()
+            mark("request")
+            out = self.infer(*args)
+            mark("request end")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+
+        def ms(a, b):
+            return marks[a].elapsed_time(marks[b]) if a in marks else 0.0
+
+        times = {"pad": ms("pad", "pad end"), "forward": ms("forward", "forward end"),
+                 "slice": ms("forward end", "request end"), "request": ms("request", "request end"),
+                 "wall": 1e3 * wall,
+                 "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2 ** 20}
+        return out, times
+
+
+def phase_serve_buckets(card):
+    """[serve-buckets]: the recipe over uniform slots in a bucket bundle of
+    {262,144, 524,288} nodes that builds its slots on the card: requests of
+    400,000 points (padded), 262,144, 524,288, 524,288 with host-built
+    sections passed at call time, and 600,000, which must raise."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import encoder_payload as k5
+    from gaot3d_tpu_torch.kernels import flash_attention as k1
+    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
+    from gaot3d_tpu_torch.serve import export_inference_buckets, load_inference_buckets
+
+    grid = LatentGrid(dims=LATENT)
+    model = recipe_model(edge_layout="slots").eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "recipe_buckets.pt")
+        export_inference_buckets(model, path, BUCKETS)
+        infer = load_inference_buckets(path)
+    if infer.buckets != list(BUCKETS):
+        raise RuntimeError(f"[serve-buckets] buckets {infer.buckets}")
+    spy = DispatchSpy(infer)
+    fwd, acc = k1.flash_attention, k5.encoder_accumulate
+    fwd.launches = acc.launches = acc.launches_bf16 = 0
+    answered = []
+    with PayloadCalls() as payload:  # request 1's K5 launch, at the padded shape
+        for label, n, seed, sectioned in (("padded", PADDED, 21, False),
+                                          ("bucket 262,144", BUCKETS[0], 22, False),
+                                          ("bucket 524,288", N_POINTS, 23, False),
+                                          ("sections at call time", N_POINTS, 24, True)):
+            pos, feats, _, mask, slots, nsec, _ = cloud(seed, n, grid if sectioned else None)
+            edges = (slots, slots) if sectioned else ()
+            n1, n5 = fwd.launches, acc.launches_bf16
+            out, ms = spy(pos, feats, mask, *edges)
+            d1, d5 = fwd.launches - n1, acc.launches_bf16 - n5
+            ok = tuple(out.shape) == (1, n, 1) and bool(torch.isfinite(out).all())
+            print(f"[serve-buckets] {card}: request {len(answered) + 1} ({label}), {n} points in "
+                  f"bucket {infer.bucket(n)}: pad {ms['pad']:.3f} ms, forward {ms['forward']:.2f} "
+                  f"ms, slice {ms['slice']:.3f} ms, request {ms['request']:.2f} ms (CUDA events), "
+                  f"wall {ms['wall']:.1f} ms, peak {ms['peak_mib']:.1f} MiB above the memory held "
+                  f"before it; out {tuple(out.shape)} finite={ok}; K1 launches {d1}, launches of "
+                  f"K5's bf16 body {d5}{f' ({nsec} sections)' if sectioned else ''}")
+            if not ok or d1 != 10 or d5 != (nsec if sectioned else 1):
+                raise RuntimeError(f"[serve-buckets] request {label}: bad output or launch counts")
+            answered.append(((pos, feats, mask), out))
+    (pos, feats, mask), out = answered[0]
+    warm, ms = spy(pos, feats, mask)
+    print(f"[serve-buckets] {card}: request 1 answered again (warm): pad {ms['pad']:.3f} ms, "
+          f"forward {ms['forward']:.2f} ms, slice {ms['slice']:.3f} ms, request "
+          f"{ms['request']:.2f} ms, wall {ms['wall']:.1f} ms")
+    if not torch.isfinite(warm).all():
+        raise RuntimeError("[serve-buckets] the warm request gave a non-finite output")
+    launches = {"k1": fwd.launches, "k5": acc.launches, "k5_bf16": acc.launches_bf16}
+    payload.check("serve-buckets")
+
+    with torch.inference_mode():
+        padded, again = (model(*infer.pad(pos, feats, mask, BUCKETS[1]))[:, :PADDED]
+                         for _ in range(2))
+    rel, own = rel_l2(out, padded), rel_l2(again, padded)
+    print(f"[serve-buckets] request 1 against the model's forward on the same padded inputs: "
+          f"relative L2 {rel:.3e} (the same bits {torch.equal(out, padded)}); that forward "
+          f"against itself {own:.3e}, request 1 against its warm answer "
+          f"{rel_l2(warm, out):.3e}")
+    if not rel <= RERUN_BOUND:
+        raise RuntimeError(f"[serve-buckets] the dispatcher and the padded forward disagree: {rel}")
+    against_plain("serve-buckets", "request 1", lambda: (infer(pos, feats, mask),), (out,))
+
+    big = [torch.zeros((1, 600_000, c), device="cuda") for c in (3, 3)]
+    before = (fwd.launches, acc.launches)
+    try:
+        infer(*big, torch.ones((1, 600_000), dtype=torch.bool, device="cuda"))
+    except ValueError as e:
+        if "exceeds the largest bucket" not in str(e):
+            raise
+        print(f"[serve-buckets] a request of 600,000 points raised: {e}")
+    else:
+        raise RuntimeError("[serve-buckets] a request above the largest bucket was answered")
+    if (fwd.launches, acc.launches) != before:
+        raise RuntimeError("[serve-buckets] the refused request launched a kernel")
     return launches
 
 
@@ -2834,7 +2997,69 @@ def phase_trainer(card):
     print(f"[trainer] kernel_dtype {dtypes[0]}; launches a step: K1 10, K2 10, K3 0, K5's bf16 "
           f"body one a section, K5b's one a node chunk ((sections, chunks) a batch: "
           f"{sections}); in all {total}")
-    return total, float(np.median(ms))
+    return total, float(np.median(ms)), trainer
+
+
+def phase_export(card, trainer):
+    """[export] (run after [trainer], on its checkpoint): the port's export
+    tool writes a serving artifact that builds its slots on the card, which
+    `load_inference` serves; then the checkpoint goes out to the reference's
+    layout and back in."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import encoder_payload as k5
+    from gaot3d_tpu_torch.kernels import flash_attention as k1
+    from gaot3d_tpu_torch.serve import load_inference
+    from gaot3d_tpu_torch.tools import export_model, export_torch_ckpt, import_torch_ckpt
+    from gaot3d_tpu_torch.train.checkpoint import load_params_only
+
+    ckpt = trainer.path_config.ckpt_path
+    cin, cout = trainer.num_input_channels, trainer.num_output_channels
+    out_dir = os.path.join(TRAINER_DIR, "export")
+    os.makedirs(out_dir, exist_ok=True)
+    artifact = os.path.join(out_dir, "h100_500k_serve.pt")
+    t0 = time.perf_counter()
+    export_model.main(["--config", TRAINER_CONFIG, "--ckpt", ckpt, "--output", artifact,
+                       "--nodes", str(N_POINTS), "--in-channels", str(cin),
+                       "--out-channels", str(cout)])
+    t_export = time.perf_counter() - t0
+    infer = load_inference(artifact)
+
+    rng = np.random.default_rng(41)
+    pos = torch.from_numpy(rng.uniform(-1, 1, (1, N_POINTS, 3)).astype(np.float32)).cuda()
+    feats = torch.from_numpy(rng.standard_normal((1, N_POINTS, cin), dtype=np.float32)).cuda()
+    mask = torch.ones((1, N_POINTS), dtype=torch.bool, device="cuda")
+    fwd, acc = k1.flash_attention, k5.encoder_accumulate
+    fwd.launches = acc.launches = acc.launches_bf16 = 0
+    t0 = time.perf_counter()
+    out = infer(pos, feats, mask)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"k1": fwd.launches, "k5": acc.launches, "k5_bf16": acc.launches_bf16}
+    with torch.inference_mode():
+        want, again = (trainer.model.eval()(pos, feats, mask) for _ in range(2))
+    rel, own = rel_l2(out, want), rel_l2(again, want)
+    ok = tuple(out.shape) == (1, N_POINTS, cout) and bool(torch.isfinite(out).all())
+    print(f"[export] {card}: export_model on the trainer's checkpoint in {t_export:.1f} s "
+          f"({os.path.getsize(artifact)} bytes), served by load_inference (its stored mode "
+          f"'device'): a request of {N_POINTS} points in {1e3 * wall:.1f} ms (first, kernels "
+          f"built), out {tuple(out.shape)} finite={ok}, against the trainer's model's eval "
+          f"forward relative L2 {rel:.3e} (that forward against itself {own:.3e}); K1 "
+          f"launches {launches['k1']}, launches of K5's bf16 body {launches['k5_bf16']}")
+    if not ok or not rel <= RERUN_BOUND or launches != {"k1": 10, "k5": 1, "k5_bf16": 1}:
+        raise RuntimeError(f"[export] bad output, relative L2 {rel} or launches {launches}")
+
+    reference, back = (os.path.join(out_dir, f) for f in ("reference.pt", "back.pt"))
+    export_torch_ckpt.main(["--config", TRAINER_CONFIG, "--ckpt", ckpt, "--output", reference])
+    import_torch_ckpt.main(["--config", TRAINER_CONFIG, "--torch-ckpt", reference,
+                            "--output", back])
+    a, b = load_params_only(ckpt), load_params_only(back)
+    same = list(a) == list(b) and all(torch.equal(a[k].cpu(), b[k]) for k in a)
+    print(f"[export] the checkpoint to the reference's layout and back: {len(a)} tensors, the "
+          f"same bits {same}")
+    if not same:
+        raise RuntimeError("[export] export_torch_ckpt -> import_torch_ckpt changed the weights")
+    return launches
 
 
 def phase_trainer_split(card, fused_ms):
@@ -2967,9 +3192,10 @@ def main():
                         help="seed of the cloud of the [k6], [k7], [k8] and [flat] phases")
     parser.add_argument("--only", default="",
                         help="comma-separated subset of k1, attention-train, k3, k5, "
-                             "serve-device, nf, trainer, trainer-split, trainer-nf, t1, k7, k6, "
-                             "k8, flat: run just these phases (kernels build at first use; the "
-                             "last four share one cloud) and print no record")
+                             "serve-device, serve-buckets, nf, trainer, export (after trainer), "
+                             "trainer-split, trainer-nf, t1, k7, k6, k8, flat: run just these "
+                             "phases (kernels build at first use; the last four share one "
+                             "cloud) and print no record")
     args = parser.parse_args()
     import torch
 
@@ -2986,7 +3212,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if args.only:
         fused_ms = float("nan")
-        flat_input = None
+        flat_input = trainer = None
         for name in args.only.split(","):
             if name in FLAT_PHASES and flat_input is None:  # one cloud for all four
                 flat_input = flat_cloud(args.flat_seed, N_POINTS, LatentGrid(dims=LATENT))
@@ -3005,11 +3231,17 @@ def main():
                 k3_build_facts()
                 phase_k3()
             elif name == "trainer":
-                _, fused_ms = phase_trainer(card)
+                _, fused_ms, trainer = phase_trainer(card)
+            elif name == "export":
+                if trainer is None:
+                    parser.error("export runs on the checkpoint of trainer: list trainer first")
+                phase_export(card, trainer)
             elif name == "trainer-split":
                 phase_trainer_split(card, fused_ms)
             elif name == "serve-device":
                 phase_serve_device(card)
+            elif name == "serve-buckets":
+                phase_serve_buckets(card)
             elif name == "nf":
                 phase_nf(card)
             elif name == "trainer-nf":
@@ -3028,6 +3260,7 @@ def main():
     k5, k5b, k5_bf16, k5b_bf16 = phase_k5()
     serve = phase_serve()
     serve_device = phase_serve_device(card)
+    serve_buckets = phase_serve_buckets(card)
     k4 = phase_k4()
     k1d, k2, replay_launches = phase_attention_train()
     k3 = phase_k3()
@@ -3035,7 +3268,9 @@ def main():
     torch.cuda.empty_cache()
     nf = phase_nf(card)
     torch.cuda.empty_cache()
-    fit, fused_ms = phase_trainer(card)
+    fit, fused_ms, trainer = phase_trainer(card)
+    export = phase_export(card, trainer)
+    del trainer
     split = phase_trainer_split(card, fused_ms)
     fit_nf = phase_trainer_nf(card)
     shutil.rmtree(TRAINER_DIR, ignore_errors=True)
@@ -3044,14 +3279,14 @@ def main():
     del flat_input
     t1 = phase_t1()
     pallas = "gaot3d_tpu/ops/pallas_attention.py"
-    k5_phases = (serve, serve_device, train, nf, fit, fit_nf)
+    k5_phases = (serve, serve_device, serve_buckets, train, nf, fit, export, fit_nf)
     k5b_phases = (train, nf, fit, fit_nf)
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:394",
          # serving, and the eval forwards of [nf] and of the trainers
-         "launches": serve["k1"] + serve_device["k1"] + nf["k1_eval"] + fit["k1"] - fit["k2"]
-         + fit_nf["k1"] - fit_nf["k2"], **k1},
+         "launches": serve["k1"] + serve_device["k1"] + serve_buckets["k1"] + export["k1"]
+         + nf["k1_eval"] + fit["k1"] - fit["k2"] + fit_nf["k1"] - fit_nf["k2"], **k1},
         {"name": "flash_attn_fwd_dropout", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:144",
          # one train forward a fused backward

@@ -21,13 +21,14 @@ two calls; nothing else here needs it.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.gaot3d import GAOT3D
-from ..weights import load_numpy_state_dict, numpy_state_dict
+from ..weights import (HEAD_KEY, LIFTING_KEY, io_channels, load_numpy_state_dict,
+                       numpy_state_dict)
 
 _NDARRAY_EXT = 1  # flax.serialization's msgpack extension types
 _NPSCALAR_EXT = 3
@@ -51,10 +52,11 @@ def load_params_only(path: str, map_location="cpu") -> Dict[str, torch.Tensor]:
     return state["params"] if "params" in state else state
 
 
-def tree_path(key: str, model: GAOT3D) -> Tuple[str, ...]:
+def tree_path(key: str, model: Optional[GAOT3D] = None) -> Tuple[str, ...]:
     """The path in the JAX parameter tree of the port's state-dict entry `key`.
     flax numbers sibling modules of one class in construction order, which is
-    what the counters below reproduce."""
+    what the counters below reproduce; `model` is read for the processor's
+    keys only."""
     parts = key.split(".")
     leaf = parts[-1]  # 'weight' | 'bias'
     dense = ("Dense_0", "kernel" if leaf == "weight" else "bias")
@@ -150,10 +152,8 @@ def state_dict_from_tree(variables: Dict[str, Any], model: GAOT3D) -> Dict[str, 
     return out
 
 
-def load_msgpack_params(path: str, model: GAOT3D) -> GAOT3D:
-    """Load the parameters of a JAX trainer's `.msgpack` checkpoint (or of a
-    bare msgpack variables dict) into `model`. Optimizer state and step count
-    in the file are not read."""
+def read_msgpack(path: str) -> Dict[str, Any]:
+    """The nested dict of numpy arrays a JAX `.msgpack` checkpoint holds."""
     import msgpack
 
     def ext_hook(code, data):
@@ -164,8 +164,41 @@ def load_msgpack_params(path: str, model: GAOT3D) -> GAOT3D:
         return msgpack.ExtType(code, data)
 
     with open(path, "rb") as f:
-        state = msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
-    return load_numpy_state_dict(model, state_dict_from_tree(state, model))
+        return msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
+
+
+def load_msgpack_params(path: str, model: GAOT3D) -> GAOT3D:
+    """Load the parameters of a JAX trainer's `.msgpack` checkpoint (or of a
+    bare msgpack variables dict) into `model`. Optimizer state and step count
+    in the file are not read."""
+    return load_numpy_state_dict(model, state_dict_from_tree(read_msgpack(path), model))
+
+
+def load_trained_params(path: str, model: GAOT3D, map_location="cpu") -> GAOT3D:
+    """Load a trained run's parameters into `model` (strict): from a JAX
+    `.msgpack` checkpoint, or from the port's checkpoint or state dict."""
+    if path.endswith(".msgpack"):
+        return load_msgpack_params(path, model)
+    model.load_state_dict(load_params_only(path, map_location))
+    return model
+
+
+def checkpoint_channels(path: str) -> Tuple[int, int]:
+    """(input_size, output_size) of the model whose parameters `path` holds
+    (a JAX `.msgpack` checkpoint, or the port's): the lifting's input width
+    and the head's output width."""
+    if not path.endswith(".msgpack"):
+        return io_channels(load_params_only(path))
+    node = read_msgpack(path)
+    while "params" in node and "encoder" not in node:
+        node = node["params"]
+    width = []
+    for key, axis in ((LIFTING_KEY, 0), (HEAD_KEY, 1)):  # [in, out] in the JAX tree
+        leaf = node
+        for name in tree_path(key):
+            leaf = leaf[name]
+        width.append(int(np.shape(leaf)[axis]))
+    return width[0], width[1]
 
 
 def save_msgpack_params(path: str, model: GAOT3D) -> None:

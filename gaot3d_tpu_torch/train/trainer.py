@@ -65,7 +65,7 @@ from ..models import init_model
 from ..models.magno import parse_edge_layout, parse_neighbor_strategy
 from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots
 from ..utils.rand import manual_seed
-from .checkpoint import load_checkpoint, load_msgpack_params, load_params_only, save_checkpoint
+from .checkpoint import load_checkpoint, load_trained_params, save_checkpoint
 from .metrics import compute_drivaernet_metric, compute_general_metrics, compute_poseidon_metric
 from .schedule import make_optimizer
 from .step import NeuralField, TrainBatch, eval_step, train_step
@@ -254,13 +254,11 @@ class TrainerBase:
         state and step count too. A `.msgpack` path is a JAX trainer's
         checkpoint: its parameters load, its optimizer state cannot."""
         path = path or self.path_config.ckpt_path
-        if path.endswith(".msgpack"):
-            if not params_only:
-                raise ValueError("a JAX .msgpack checkpoint carries no optimizer state "
-                                 "this package can read: load it with params_only=True")
-            load_msgpack_params(path, self.model)
-        elif params_only:
-            self.model.load_state_dict(load_params_only(path, self.device))
+        if path.endswith(".msgpack") and not params_only:
+            raise ValueError("a JAX .msgpack checkpoint carries no optimizer state "
+                             "this package can read: load it with params_only=True")
+        if params_only:
+            load_trained_params(path, self.model, self.device)
         else:
             state = load_checkpoint(path, self.device)
             self.model.load_state_dict(state["params"])
