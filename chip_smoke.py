@@ -5,9 +5,9 @@
 `--flat-seed` (31) seeds the cloud of phases 13 and 14, for a second reading
 of their limits. `--only` runs just the named phases (k1, attention-train,
 k3, k5, serve-device, serve-buckets, nf, trainer, export (after trainer),
-trainer-split, trainer-nf, t1, k7, k6, k8, flat; the last four share one
-cloud), builds each kernel at its first use and prints no record: for work
-on one phase.
+trainer-split, trainer-nf, variants, trainer-variants, t1, k7, k6, k8, flat;
+the last four share one cloud), builds each kernel at its first use and
+prints no record: for work on one phase.
 
 Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
@@ -158,6 +158,29 @@ Phases, each of which raises (exit code 1) on failure:
      RERUN_BOUND of the trainer's model's own eval forward (K1 10, K5 1);
      then `tools/export_torch_ckpt.py` and `tools/import_torch_ckpt.py` take
      the checkpoint to the reference's layout and back, the same bits.
+ 21. [variants] (run after [trainer-nf]) twelve MAGNO variants of the recipe
+     (`kernel_dtype: bfloat16`) over uniform slots built on the card from one
+     524,288-point cloud, each one change: (a) the unfused encoder under
+     'sort' and 'scatter', (b) nonlinear and nonlinear_kernelonly GNOs with
+     cosine attention (at `kernel_dtype: float32`: its kernel MLPs take the
+     latent features, whose bf16 rounding would flip where K1 and its plain
+     version differ), (c) dot-product attention, (d) the PointNet geoembed
+     on both sides, max and mean pooling, (e) the decoder's statistical
+     geoembed (FusedDecoderScale), (f) two scales with scale weights at the
+     slot budget of twice the radius (printed), (g) 'ratio' 0.5 and
+     'max_neighbors' 3 sampling and the radius cap 4, (h) `use_gno: false`.
+     Each: an eval forward, finite and within E2E_BOUND of the plain
+     versions, timed warm by CUDA events with its peak; one AdamW step
+     (dropout, edge sampling from a generator on the card), finite, every
+     parameter moved, timed with its peak; K1, K2, K5 and K5b launches as
+     the configuration gives them (K5 once a scale on the fused linear
+     encoder under 'scatter', K5b once a node chunk a scale), K7 only and
+     at least once under 'sort';
+ 22. [trainer-variants] (run after [variants], on [trainer]'s data) the
+     trainer through the CLI's entry point on h100_500k.toml with (f), (d)
+     and (b) combined and 'ratio' sampling, host-built slots of both scales
+     through the loader, one epoch of 2 samples, validation and test on 1:
+     its losses, step times, loader stall, peak; K1 10 and K2 10 a step.
 Yardsticks off the main path (`library_ms`): torch's
 scaled_dot_product_attention forward and backward at the recipe shape,
 `torch.cumsum` and `index_add_`.
@@ -2798,6 +2821,8 @@ class TrainerSpy:
             # in the forward, are one section (of the sampled input nodes by
             # neural field)
             slots = batch.enc_slots
+            if isinstance(slots, list):  # one structure a scale: count the first scale's
+                slots = slots[0]
             if hasattr(slots, "sections"):
                 sizes = [int(sec.lat_idx.shape[1]) for sec in slots.sections]
             elif slots is not None:
@@ -3175,6 +3200,244 @@ def phase_trainer_nf(card):
     return total
 
 
+# -- the MAGNO variants ---------------------------------------------------------------
+
+# (label, MAGNOConfig overrides of the recipe over uniform slots built on the card);
+# "budget2" is replaced by the max degree at twice the radius
+VARIANTS = (
+    ("a unfused sort", dict(fused_encoder=False, fused_decoder=False, segment_impl="sort")),
+    ("a unfused scatter", dict(fused_encoder=False, fused_decoder=False,
+                               segment_impl="scatter")),
+    # at float32: these kernel MLPs take the latent features, whose bf16 rounding flips
+    # where K1 and its plain version differ in the last bits (2.1e-3 relative L2 apart)
+    ("b nonlinear cosine", dict(in_gno_transform_type="nonlinear",
+                                out_gno_transform_type="nonlinear_kernelonly", use_attn=True,
+                                attention_type="cosine", kernel_dtype="float32")),
+    ("c dot product", dict(use_attn=True, attention_type="dot_product")),
+    ("d pointnet max", dict(embedding_method="pointnet", use_geoembed=[True, True],
+                            pooling="max")),
+    ("d pointnet mean", dict(embedding_method="pointnet", use_geoembed=[True, True],
+                             pooling="mean")),
+    ("e decoder geoembed", dict(use_geoembed=[True, True])),
+    ("f multiscale", dict(scales=[1.0, 2.0], use_scale_weights=True, slot_budget="budget2")),
+    ("g ratio", dict(sampling_strategy="ratio", sample_ratio=0.5)),
+    ("g max_neighbors", dict(sampling_strategy="max_neighbors", max_neighbors=3)),
+    ("g radius cap", dict(max_radius_neighbors=4)),
+    ("h no gno", dict(use_gno=False)),
+)
+
+
+def variant_counters():
+    from gaot3d_tpu_torch.kernels import prefix_sum as k7
+
+    return {**attention_counters(), "k7": k7.prefix_sum}
+
+
+def variant_expect(over, step):
+    """The launches of one eval forward (step False) or one train step of a
+    variant of the recipe over uniform slots: K1 once a layer (K2 too in a
+    step); K5 once a scale where the fused encoder runs a linear GNO under
+    'scatter', K5b in a step once a scale (f32) or once a node chunk a scale
+    (bf16); K7 only under 'sort' (checked apart: at least once)."""
+    scales = len(over.get("scales", [1.0]))
+    fused = (over.get("fused_encoder", True) and not over.get("use_attn")
+             and over.get("embedding_method", "statistical") == "statistical")
+    k5 = scales if (fused and over.get("use_gno", True)
+                    and over.get("in_gno_transform_type", "linear") == "linear"
+                    and over.get("segment_impl", "scatter") == "scatter") else 0
+    payload = payload_launches(k5, k5 * (N_POINTS // CHUNK),
+                               over.get("kernel_dtype", "bfloat16"))
+    if not step:
+        payload.update(k5b=0, k5b_bf16=0)
+    return {"k1": 10, "k2": 10 if step else 0, "k3_dq": 0, "k3_dkv": 0, **payload}
+
+
+def phase_variants(card):
+    """[variants]: each MAGNO variant of the recipe on one 524,288-point cloud,
+    its slots built on the card: an eval forward against the plain versions,
+    one train step, their times, peaks and launches."""
+    import torch
+
+    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid, build_edge_slots, max_slot_degree
+    from gaot3d_tpu_torch.train import OptimizerargsConfig, TrainBatch, make_optimizer
+    from gaot3d_tpu_torch.train import train_step
+
+    grid = LatentGrid(dims=LATENT)
+    pos, feats, target, mask, *_ = cloud(81, N_POINTS)
+    degrees = [max_slot_degree(build_edge_slots(pos[0], grid, s * RADIUS, 1, "bidirectional"))
+               for s in (1.0, 2.0)]
+    budget2 = degrees[1]
+    print(f"[variants] {card}: one cloud of {N_POINTS} points; max degree {degrees[0]} at the "
+          f"radius, {budget2} at twice it: the slot budget of (f), the one the trainer's "
+          f"budget check asks for at scale 2.0")
+    counters = variant_counters()
+    batch = TrainBatch(pos, feats, target, mask, None, None)
+    totals = {"k1_eval": 0, "k1": 0, "k2": 0, "k5": 0, "k5_bf16": 0, "k5b": 0, "k5b_bf16": 0,
+              "k7": 0}
+    rows = []
+    for label, over in VARIANTS:
+        over = {k: (budget2 if v == "budget2" else v) for k, v in over.items()}
+        tag = f"variants {label}"
+        model = recipe_model(edge_layout="slots", **over)
+        for fn in counters.values():
+            fn.launches = 0
+        model.eval()
+        with torch.no_grad():
+            out = model(pos, feats, mask)
+            torch.cuda.synchronize()
+            fwd = {n: fn.launches for n, fn in counters.items()}
+            torch.cuda.reset_peak_memory_stats()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            again = model(pos, feats, mask)
+            end.record()
+            end.synchronize()
+        fwd_ms = start.elapsed_time(end)
+        fwd_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        ok = (tuple(out.shape) == (1, N_POINTS, 1) and bool(torch.isfinite(out).all())
+              and bool(torch.isfinite(again).all()))
+        want = variant_expect(over, step=False)
+        got = {n: fwd[n] for n in want}
+        print(f"[{tag}] {card}: eval forward {fwd_ms:.1f} ms (CUDA events, warm), peak "
+              f"{fwd_peak:.1f} MiB; out {tuple(out.shape)} finite={ok}; launches {got}, "
+              f"K7 {fwd['k7']}")
+        if not ok:
+            raise RuntimeError(f"[{tag}] bad output")
+        if got != want or (fwd["k7"] > 0) != (over.get("segment_impl") == "sort"):
+            raise RuntimeError(f"[{tag}] forward launches {got}, K7 {fwd['k7']}, expected "
+                               f"{want}, and K7 only under 'sort'")
+        against_plain(tag, f"the eval forward on {N_POINTS} points",
+                      lambda: (model(pos, feats, mask),), (out,))
+        del out, again
+
+        # one train step: AdamW, dropout, edge sampling from a generator on the card
+        optimizer = make_optimizer("adamw", model.parameters(),
+                                   OptimizerargsConfig(scheduler="mix"), steps_per_epoch=1)
+        before = [p.detach().clone() for p in model.parameters()]
+        generator = torch.Generator(device="cuda").manual_seed(5)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss, grad_norm = train_step(model, optimizer, batch, generator)
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end)
+        step_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        step = {n: fn.launches for n, fn in counters.items()}
+        finite = bool(torch.isfinite(loss)) and all(
+            p.grad is not None and bool(torch.isfinite(p.grad).all())
+            for p in model.parameters())
+        still = [n for (n, p), b in zip(model.named_parameters(), before) if torch.equal(p, b)]
+        want = variant_expect(over, step=True)
+        got = {n: step[n] for n in want}
+        print(f"[{tag}] {card}: train step {step_ms:.1f} ms (CUDA events, the first), peak "
+              f"{step_peak:.1f} MiB; loss {loss.item():.6f} grad_norm {grad_norm.item():.6f}; "
+              f"finite={finite}, parameters not moved {still}; launches {got}, K7 "
+              f"{step['k7']}")
+        if not finite or still:
+            raise RuntimeError(f"[{tag}] step: non-finite loss or gradient, or unmoved "
+                               f"parameters {still}")
+        if got != want or (step["k7"] > 0) != (over.get("segment_impl") == "sort"):
+            raise RuntimeError(f"[{tag}] step launches {got}, K7 {step['k7']}, expected {want}")
+        for name in ("k5", "k5_bf16", "k7"):
+            totals[name] += fwd[name] + step[name]
+        for name in ("k2", "k5b", "k5b_bf16"):
+            totals[name] += step[name]
+        totals["k1_eval"] += fwd["k1"]
+        totals["k1"] += step["k1"]
+        rows.append((label, fwd_ms, step_ms, fwd_peak, step_peak))
+        del model, optimizer, before, loss
+        torch.cuda.empty_cache()
+    print(f"[variants] {card}: label, eval forward ms, train step ms, peak MiB forward, step")
+    for label, f_ms, s_ms, f_mib, s_mib in rows:
+        print(f"[variants]   {label:20s} {f_ms:9.1f} {s_ms:9.1f} {f_mib:10.1f} {s_mib:10.1f}")
+    return totals, budget2
+
+
+VARIANT_TRAINER = dict(  # (f), (d) and (b) combined, with 'ratio' sampling
+    scales=[1.0, 2.0], use_scale_weights=True, embedding_method="pointnet",
+    use_geoembed=[True, True], pooling="max", in_gno_transform_type="nonlinear",
+    out_gno_transform_type="nonlinear_kernelonly", use_attn=True, attention_type="cosine",
+    sampling_strategy="ratio", sample_ratio=0.5, edge_layout="slots",
+    asynchronous_graph_building=True)
+
+
+def phase_trainer_variants(card, budget2):
+    """[trainer-variants]: the recipe's config through the CLI's entry point
+    with VARIANT_TRAINER, host-built multiscale slots through the loader, one
+    epoch of 2 samples, 1 validation and 1 test sample."""
+    import torch
+
+    from gaot3d_tpu_torch import cli
+
+    root = TRAINER_DIR
+    overrides = trainer_overrides(root, epoch=1, eval_every_eps=1)
+    overrides["dataset"].update(train_size=2, val_size=1, test_size=1,
+                                update_pt_files_with_edges=False)
+    out = overrides["path"] = {
+        k: v.replace(os.sep + "out" + os.sep, os.sep + "out_variants" + os.sep)
+        for k, v in overrides["path"].items()}
+    counters = variant_counters()
+
+    def run(budget):
+        overrides["model"] = {"args": {"magno": {**VARIANT_TRAINER, "slot_budget": budget}}}
+        for fn in counters.values():
+            fn.launches = 0
+        return cli.run_config_file(TRAINER_CONFIG, overrides, return_trainer=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TrainerSpy(counters) as spy:
+        try:
+            row, trainer = run(budget2)
+        except ValueError as err:  # the budget check on the set's test sample 0
+            need = re.search(r"Raise slot_budget to at least (\d+)", str(err))
+            if need is None:
+                raise
+            print(f"[trainer-variants] the trainer's budget check asks for {need.group(1)} "
+                  f"(the cloud of [variants] gave {budget2})")
+            budget2 = int(need.group(1))
+            row, trainer = run(budget2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = {n: fn.launches for n, fn in counters.items()}
+    if trainer.slot_mode != "async":
+        raise RuntimeError(f"[trainer-variants] slot mode {trainer.slot_mode}, expected async")
+    if len(spy.steps) != 2:
+        raise RuntimeError(f"[trainer-variants] {len(spy.steps)} steps, expected 2")
+    for i, step in enumerate(spy.steps):
+        got = {n: step[n] for n in ("k1", "k2", "k5", "k5b")}
+        if got != {"k1": 10, "k2": 10, "k5": 0, "k5b": 0}:
+            raise RuntimeError(f"[trainer-variants] step {i}: launches {got}")
+    losses = np.load(out["loss_path"].rsplit(".", 1)[0] + ".npz")
+    if not (np.isfinite(losses["train_loss"]).all() and np.isfinite(losses["val_loss"]).all()):
+        raise RuntimeError("[trainer-variants] non-finite loss")
+    still = [n for (n, p), b in zip(trainer.model.named_parameters(), spy.before)
+             if torch.equal(p, b)]
+    if still:
+        raise RuntimeError(f"[trainer-variants] parameters that did not move: {still}")
+    pred = np.load(out["result_path"].rsplit(".", 1)[0] + ".npz")["prd"]
+    if not np.isfinite(pred).all():
+        raise RuntimeError("[trainer-variants] non-finite prediction")
+    stats = trainer.last_loader_stats
+    ms = [a.elapsed_time(b) for a, b in spy.events]
+    print(f"[trainer-variants] {card}: slot budget {budget2}; 1 epoch of 2 steps, validation "
+          f"and test of 1 sample each, host-built slots of 2 scales through the loader, in "
+          f"{wall:.1f} s; train loss {losses['train_loss'].tolist()}, val loss "
+          f"{losses['val_loss'].tolist()}, MSE (x10^-2) {float(row['MSE (x10^-2)']):.4f}")
+    print(f"[trainer-variants] {card}: steps {[round(t, 1) for t in ms]} ms (CUDA events); "
+          f"epoch wall {1e3 * stats['epoch_wall_s'] / stats['steps']:.1f} ms a step, loader "
+          f"stall {trainer.last_loader_stall_s:.3f} s (first wait "
+          f"{trainer.last_loader_first_wait_s:.3f} s), host_load_s "
+          f"{stats.get('host_load_s', 0.0):.3f}; peak memory {peak:.2f} GiB; launches in all "
+          f"{total}")
+    del trainer
+    return total
+
+
 def body_launches(phases, name, kernel_dtype):
     """Launches of K5's or K5b's body for `kernel_dtype` over the main path's
     phases (each counts all its launches under `name` and the bf16 body's
@@ -3193,7 +3456,8 @@ def main():
     parser.add_argument("--only", default="",
                         help="comma-separated subset of k1, attention-train, k3, k5, "
                              "serve-device, serve-buckets, nf, trainer, export (after trainer), "
-                             "trainer-split, trainer-nf, t1, k7, k6, k8, flat: run just these "
+                             "trainer-split, trainer-nf, variants, trainer-variants, t1, k7, k6, "
+                             "k8, flat: run just these "
                              "phases (kernels build at first use; the last four share one "
                              "cloud) and print no record")
     args = parser.parse_args()
@@ -3213,6 +3477,7 @@ def main():
     if args.only:
         fused_ms = float("nan")
         flat_input = trainer = None
+        budget2 = BUDGET  # [variants] finds (f)'s; the trainer's check asks for its own
         for name in args.only.split(","):
             if name in FLAT_PHASES and flat_input is None:  # one cloud for all four
                 flat_input = flat_cloud(args.flat_seed, N_POINTS, LatentGrid(dims=LATENT))
@@ -3246,6 +3511,10 @@ def main():
                 phase_nf(card)
             elif name == "trainer-nf":
                 phase_trainer_nf(card)
+            elif name == "variants":
+                _, budget2 = phase_variants(card)
+            elif name == "trainer-variants":
+                phase_trainer_variants(card, budget2)
             elif name in FLAT_PHASES:
                 FLAT_PHASES[name](flat_input)
             else:
@@ -3273,27 +3542,34 @@ def main():
     del trainer
     split = phase_trainer_split(card, fused_ms)
     fit_nf = phase_trainer_nf(card)
+    torch.cuda.empty_cache()
+    variants, budget2 = phase_variants(card)
+    fit_variants = phase_trainer_variants(card, budget2)
     shutil.rmtree(TRAINER_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     flat = phase_flat(flat_input)
     del flat_input
     t1 = phase_t1()
     pallas = "gaot3d_tpu/ops/pallas_attention.py"
-    k5_phases = (serve, serve_device, serve_buckets, train, nf, fit, export, fit_nf)
-    k5b_phases = (train, nf, fit, fit_nf)
+    k5_phases = (serve, serve_device, serve_buckets, train, nf, fit, export, fit_nf, variants,
+                 fit_variants)
+    k5b_phases = (train, nf, fit, fit_nf, variants, fit_variants)
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:394",
          # serving, and the eval forwards of [nf] and of the trainers
          "launches": serve["k1"] + serve_device["k1"] + serve_buckets["k1"] + export["k1"]
-         + nf["k1_eval"] + fit["k1"] - fit["k2"] + fit_nf["k1"] - fit_nf["k2"], **k1},
+         + nf["k1_eval"] + fit["k1"] - fit["k2"] + fit_nf["k1"] - fit_nf["k2"]
+         + variants["k1_eval"] + fit_variants["k1"] - fit_variants["k2"], **k1},
         {"name": "flash_attn_fwd_dropout", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:144",
          # one train forward a fused backward
-         "launches": train["k1"] + nf["k2"] + fit["k2"] + fit_nf["k2"], **k1d},
+         "launches": train["k1"] + nf["k2"] + fit["k2"] + fit_nf["k2"] + variants["k1"]
+         + fit_variants["k2"], **k1d},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_bwd.cu", "replaces": f"{pallas}:502",
-         "launches": train["k2"] + nf["k2"] + fit["k2"] + fit_nf["k2"], **k2},
+         "launches": train["k2"] + nf["k2"] + fit["k2"] + fit_nf["k2"] + variants["k2"]
+         + fit_variants["k2"], **k2},
         # the two kernels of the pair launch together: `launches` is the dq kernel's count,
         # held equal to the dk/dv kernel's by [trainer-split]; the dk/dv kernel's body is
         # K2's, in flash_bwd_wgmma.cuh
@@ -3328,7 +3604,8 @@ def main():
          "replaces": "gaot3d_tpu/ops/pallas_segment.py:103", "launches": flat["k6"], **k6},
         {"name": "prefix_sum", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/prefix_sum.cu",
-         "replaces": "gaot3d_tpu/ops/pallas_kernels.py:49", "launches": flat["k7"], **k7},
+         "replaces": "gaot3d_tpu/ops/pallas_kernels.py:49",
+         "launches": flat["k7"] + variants["k7"] + fit_variants["k7"], **k7},
         {"name": "tile_segment_sum", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/tile_segment_sum.cu",
          "replaces": "gaot3d_tpu/ops/pallas_kernels.py:138", "launches": flat["k8"], **k8},

@@ -137,11 +137,17 @@ def payload_rows(pt: torch.Tensor, fe: torch.Tensor, idx: torch.Tensor,
     tensor code under autograd: the unfused encoder (sorted reductions, flat
     edge lists) computes its rows here."""
     cell = grid.positions_from_idx(idx, dtype=pt.dtype)
+    x = kernel_mlp(torch.cat([pt, cell], dim=-1), weights, biases, kernel_dtype)
+    return torch.cat([x * fe, moment_rows(pt, cell)], dim=-1)
+
+
+def moment_rows(pt: torch.Tensor, cell: torch.Tensor) -> torch.Tensor:
+    """The payload's 11 geometry columns [1 | d | y | yy^T sym] of points pt
+    [..., 3] and their cell centres [..., 3]: [..., 11]."""
     y = pt - cell
     d = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
-    x = kernel_mlp(torch.cat([pt, cell], dim=-1), weights, biases, kernel_dtype)
     y0, y1, y2 = y[..., 0:1], y[..., 1:2], y[..., 2:3]
-    return torch.cat([x * fe, torch.ones_like(d), d, y,
+    return torch.cat([torch.ones_like(d), d, y,
                       y0 * y0, y0 * y1, y0 * y2, y1 * y1, y1 * y2, y2 * y2], dim=-1)
 
 

@@ -1,16 +1,22 @@
 """Fused encoder scale: GNO kernel transform + statistical geometric
 embedding over one moment accumulator (port of
 gaot3d_tpu/models/fused_encoder.py `FusedEncoderScale`: slotted, sectioned
-and flat edge layouts, and the `scatter`, `sort` and `tile` reductions).
+and flat edge layouts, the `scatter`, `sort` and `tile` reductions, the three
+transform types and `use_gno: false`).
 
 Every valid edge adds one payload row
-[ gno values (C) | 1 | d | y (3) | yy^T sym (6) ] into acc[b, cell]. Which
-code adds them follows the layout and `segment_impl`, as in the JAX package:
+[ gno values (C) | 1 | d | y (3) | yy^T sym (6) ] into acc[b, cell]; with
+`use_gno: false` (no `gno` module) the row is the 11 geometry columns alone.
+Which code adds them follows the layout, `segment_impl` and the config, as
+in the JAX package:
 
-- slots or sections with `segment_impl: scatter`: the encoder-payload kernel
-  K5 (kernels/encoder_payload.py) computes and scatters the rows in one pass
-  with float atomics, and under autograd its backward K5b returns the
-  gradients of the lifted features and of the kernel MLP;
+- slots or sections with `segment_impl: scatter` and a 'linear' GNO: the
+  encoder-payload kernel K5 (kernels/encoder_payload.py) computes and
+  scatters the rows in one pass with float atomics, and under autograd its
+  backward K5b returns the gradients of the lifted features and of the
+  kernel MLP; with another transform type, or without a GNO, the rows are
+  plain tensor code and `segment_sum` adds them (K5 covers the linear GNO
+  only, as JAX's payload kernel does);
 - slots or sections with `segment_impl: sort` or `tile`: the rows are plain
   tensor code (`payload_rows`) and `_reduce` sorts a chunk's edges by cell
   and sums them through K7 (`fold_sum`) or K8 (`fold_sum_tile_lite`);
@@ -37,32 +43,26 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-from torch import nn
 
-from ..kernels.encoder_payload import accumulate, encoder_payload_reference, payload_rows
+from ..kernels.encoder_payload import accumulate, moment_rows, payload_rows
 from ..ops.eigh3 import eigvalsh3x3_desc
 from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots
 from ..ops.segment import (fold_sum, fold_sum_sorted, fold_sum_tile_lite, make_segment_fold,
                            make_segment_fold_presorted, make_tile_fold,
                            pallas_segment_sum_presorted, segment_sum)
+from .geoembed import StatisticalGeoEmbedding, znorm_mlp
 from .integral_transform import IntegralTransform, effective_chunk
 
-
-class StatisticalGeoEmbedding(nn.Module):
-    """Feature MLP of the statistical geometric embedding (keys mlp.0, mlp.2)."""
-
-    def __init__(self, coord_dim: int, out_channels: int):
-        super().__init__()
-        self.mlp = nn.Sequential(nn.Linear(3 + 2 * coord_dim, 64), nn.ReLU(),
-                                 nn.Linear(64, out_channels))
+__all__ = ["FusedEncoderScale", "StatisticalGeoEmbedding"]
 
 
 class FusedEncoderScale:
     """One encoder scale over precomputed edges. Holds no parameters of its
-    own: it runs the kernel MLP of `gno` and the feature MLP of `geoembed`,
-    which the owning encoder registers under the reference key names."""
+    own: it runs the kernel MLP of `gno` (None under `use_gno: false`) and
+    the feature MLP of `geoembed`, which the owning encoder registers under
+    the reference key names."""
 
-    def __init__(self, gno: IntegralTransform, geoembed: StatisticalGeoEmbedding,
+    def __init__(self, gno: Optional[IntegralTransform], geoembed: StatisticalGeoEmbedding,
                  grid: LatentGrid, lifting_channels: int,
                  edge_chunk_size: Optional[int] = None, segment_impl: str = "scatter",
                  flat_dst_sorted: bool = False, flat_reduce_impl: str = "fold",
@@ -77,13 +77,18 @@ class FusedEncoderScale:
         self.flat_reduce_impl = flat_reduce_impl
         self.kernel_dtype = kernel_dtype
 
+    @property
+    def width(self) -> int:
+        """Value columns of the payload: C, or 0 without a GNO."""
+        return self.lifting_channels if self.gno is not None else 0
+
     def __call__(self, slots, point_pos: torch.Tensor,
-                 lifted_feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """point_pos [B, N, 3], lifted_feats [B, N, C] -> (gno_out [B, M, C],
-        geo_out [B, M, C])."""
+                 lifted_feats: Optional[torch.Tensor]
+                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        """point_pos [B, N, 3], lifted_feats [B, N, C] (None without a GNO)
+        -> (gno_out [B, M, C] or None, geo_out [B, M, C])."""
         B, N = point_pos.shape[:2]
-        C = self.lifting_channels
-        acc = torch.zeros((B, self.grid.num_tokens, C + 11), dtype=torch.float32,
+        acc = torch.zeros((B, self.grid.num_tokens, self.width + 11), dtype=torch.float32,
                           device=point_pos.device)
         if isinstance(slots, FlatEdgeChunks):
             nc = slots.num_chunks
@@ -93,7 +98,7 @@ class FusedEncoderScale:
             for c in range(nc):
                 rows = slice(c * chunk, (c + 1) * chunk)
                 acc = acc + self._pass_chunk_flat(
-                    lifted_feats[:, rows], point_pos[:, rows], slots.src[:, c],
+                    _node_rows(lifted_feats, rows), point_pos[:, rows], slots.src[:, c],
                     slots.dst[:, c], slots.mask[:, c])
         elif isinstance(slots, SectionedEdgeSlots):
             # one accumulator threaded through the sections in node order
@@ -104,7 +109,7 @@ class FusedEncoderScale:
             for sec in slots.sections:
                 ns = int(sec.lat_idx.shape[-2])
                 acc = self._run_slotted(sec, point_pos[:, off:off + ns],
-                                        lifted_feats[:, off:off + ns], acc)
+                                        _node_rows(lifted_feats, slice(off, off + ns)), acc)
                 off += ns
         elif isinstance(slots, EdgeSlots):
             acc = self._run_slotted(slots, point_pos, lifted_feats, acc)
@@ -118,20 +123,38 @@ class FusedEncoderScale:
         fcs = self.gno.channel_mlp.fcs
         return [fc.weight for fc in fcs], [fc.bias for fc in fcs]
 
+    def _launches_k5(self) -> bool:
+        """Whether a slotted pass runs through K5: a 'linear' GNO reduced by
+        'scatter'."""
+        return (self.segment_impl == "scatter" and self.gno is not None
+                and self.gno.transform_type == "linear")
+
+    def _rows(self, pt: torch.Tensor, fe: Optional[torch.Tensor],
+              idx: torch.Tensor) -> torch.Tensor:
+        """The payload of one edge per row: points pt [..., 3], lifted
+        features fe [..., C] and cells idx [...] -> [..., width + 11]."""
+        if self.gno is None:
+            return moment_rows(pt, self.grid.positions_from_idx(idx, dtype=pt.dtype))
+        if self.gno.transform_type == "linear":
+            weights, biases = self._kernel_mlp()
+            return payload_rows(pt, fe, idx, weights, biases, self.grid, self.kernel_dtype)
+        cell = self.grid.positions_from_idx(idx, dtype=pt.dtype)
+        return torch.cat([self.gno.edge_values(pt, cell, fe), moment_rows(pt, cell)], dim=-1)
+
     def _run_slotted(self, slots: EdgeSlots, point_pos: torch.Tensor,
                      lifted_feats: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
         """Add the payload of one [B, n, K] slot tensor into acc."""
         n = point_pos.shape[1]
         chunk = effective_chunk(n, self.edge_chunk_size)
-        weights, biases = self._kernel_mlp()
-        if self.segment_impl == "scatter":
+        if self._launches_k5():
+            weights, biases = self._kernel_mlp()
             return accumulate(
                 point_pos.contiguous(), lifted_feats.contiguous(),
                 slots.lat_idx.contiguous(), slots.mask.contiguous(),
                 weights, biases, self.grid, acc, chunk=chunk, kernel_dtype=self.kernel_dtype)
         for c0 in range(0, n, chunk):
             rows = slice(c0, c0 + chunk)
-            acc = acc + self._pass_chunk(lifted_feats[:, rows], point_pos[:, rows],
+            acc = acc + self._pass_chunk(_node_rows(lifted_feats, rows), point_pos[:, rows],
                                          slots.lat_idx[:, rows], slots.mask[:, rows])
         return acc
 
@@ -155,9 +178,9 @@ class FusedEncoderScale:
         """The payload of every slot of one node chunk, masked slots included
         (the reduction drops them), reduced onto the grid: [B, M, C+11]."""
         B, n, K = mask_c.shape
-        weights, biases = self._kernel_mlp()
-        payload = encoder_payload_reference(pos_c, feats_c, lat_idx_c, weights, biases,
-                                            self.grid, self.kernel_dtype)
+        pt = pos_c[:, :, None, :].expand(B, n, K, 3)
+        fe = None if feats_c is None else feats_c[:, :, None, :].expand(B, n, K, feats_c.shape[-1])
+        payload = self._rows(pt, fe, lat_idx_c).reshape(B, n * K, -1)
         return self._reduce(payload, lat_idx_c.reshape(B, n * K), mask_c.reshape(B, n * K))
 
     def _pass_chunk_flat(self, feats_c: torch.Tensor, pos_c: torch.Tensor,
@@ -169,9 +192,9 @@ class FusedEncoderScale:
         M = self.grid.num_tokens
         idx = src_e.long()[..., None]
         pt = torch.gather(pos_c, 1, idx.expand(B, E, pos_c.shape[-1]))
-        fe = torch.gather(feats_c, 1, idx.expand(B, E, feats_c.shape[-1]))
-        weights, biases = self._kernel_mlp()
-        payload = payload_rows(pt, fe, dst_e, weights, biases, self.grid, self.kernel_dtype)
+        fe = (None if feats_c is None
+              else torch.gather(feats_c, 1, idx.expand(B, E, feats_c.shape[-1])))
+        payload = self._rows(pt, fe, dst_e)
         if not self.flat_dst_sorted:
             return self._reduce(payload, dst_e, emask_e)
         if self.flat_reduce_impl == "pallas":
@@ -182,7 +205,7 @@ class FusedEncoderScale:
     def _finalize(self, acc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Moment accumulator [B, M, C+11] -> (gno_out, geo_out)."""
         B, M, _ = acc.shape
-        C = self.lifting_channels
+        C = self.width
         # The 11 moment columns are functions of the positions alone, and
         # positions take no gradient (the JAX VJP returns none either), so
         # they are cut from the graph. Differentiating them would also put
@@ -196,7 +219,7 @@ class FusedEncoderScale:
         y_sum = moments[..., 2:5]
         yy = moments[..., 5:]  # sym moments 00, 01, 02, 11, 12, 22
         n_safe = cnt.clamp_min(1.0)
-        gno_out = acc[..., :C] / n_safe[..., None]
+        gno_out = acc[..., :C] / n_safe[..., None] if self.gno is not None else None
 
         ybar = y_sum / n_safe[..., None]
         d_avg = d_sum / n_safe
@@ -214,9 +237,8 @@ class FusedEncoderScale:
         feats = torch.cat([cnt[..., None], d_avg[..., None], d_var[..., None], ybar, pca],
                           dim=-1)
         feats = torch.where((cnt > 0)[..., None], feats, zero)
-        flat = feats.reshape(-1, feats.shape[-1])
-        mean = flat.mean(dim=0, keepdim=True)
-        std = flat.std(dim=0, keepdim=True, correction=1)
-        std = torch.where(std < 1e-6, torch.ones((), dtype=std.dtype, device=std.device), std)
-        normed = ((flat - mean) / std).reshape(feats.shape)
-        return gno_out, self.geoembed.mlp(normed)
+        return gno_out, znorm_mlp(feats, self.geoembed.mlp)
+
+
+def _node_rows(feats: Optional[torch.Tensor], rows: slice) -> Optional[torch.Tensor]:
+    return None if feats is None else feats[:, rows]

@@ -1,12 +1,12 @@
 """GAOT3D: MAGNO encoder -> U-ViT processor -> MAGNO decoder (port of
 gaot3d_tpu/models/gaot3d.py).
 
-The forward pass takes precomputed edges for either side (uniform slots,
-degree sections or flat edge lists, each side its own), or builds uniform
-slots for a side it is given none for, where its points lie (the card or the
-CPU), as the JAX model does. In training the forward takes a
-`torch.Generator`, from which the processor draws its attention-dropout
-seeds. Patchify and unpatchify
+The forward pass takes precomputed edges for either side, one structure a
+scale (uniform slots, degree sections or flat edge lists, each side its
+own), or builds uniform slots for a side it is given none for, where its
+points lie (the card or the CPU), as the JAX model does. In training the
+forward takes a `torch.Generator`, from which the processor draws its
+attention-dropout seeds and the MAGNO sides their edge sampling. Patchify and unpatchify
 are the reference's exact reshapes and transposes. Both sides' GNO kernel
 MLPs run at `magno_config.kernel_dtype` (float32 | bfloat16).
 """
@@ -161,41 +161,53 @@ class GAOT3D(nn.Module):
                 query_mask: Optional[torch.Tensor] = None, condition=None,
                 encoder_slots: Optional[List] = None,
                 decoder_slots: Optional[List] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                edge_draws: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         """[B, N, 3] points with [B, N, C_in] features -> [B, Q, out] on the
         query points: the input points and their mask by default; given
         query_pos without query_mask, every query is valid.
 
-        A side without precomputed edges builds its slots from its points
-        and mask (a false row holds no edge); slots built so are valid by
-        construction and are not checked, so the forward makes no host sync
-        for them. When both sides build the same slots from the same points,
-        they are built once. Precomputed edges carry their own masks.
-        `generator` seeds the attention dropout of a training forward."""
+        Each side takes one edge structure a scale. A side without
+        precomputed edges builds its slots from its points and mask (a false
+        row holds no edge); slots built so are valid by construction and are
+        not checked, so the forward makes no host sync for them. When both
+        sides build the same slots from the same points, they are built once.
+        Precomputed edges carry their own masks. `generator` seeds the
+        attention dropout of a training forward and draws its edge sampling
+        ('ratio', 'max_neighbors'); `edge_draws`, when given, are the
+        sampling's draws instead (keep masks or priority keys, see
+        ops/sampling.py), one a scale, the encoder's scales first."""
         if condition is not None:
-            raise NotImplementedError("conditioned models are not ported yet")
+            raise NotImplementedError("conditioned models are not ported yet (ROADMAP item 6b)")
         if query_pos is None:
             query_pos, query_mask = point_pos, point_mask
+        n_scales = len(self.magno_config.scales)
         for side in (encoder_slots, decoder_slots):
-            if side is not None and len(side) != 1:
-                raise NotImplementedError("one scale only: pass one slot structure per side")
-        enc = encoder_slots[0] if encoder_slots is not None else None
-        dec = decoder_slots[0] if decoder_slots is not None else None
+            if side is not None and len(side) != n_scales:
+                raise ValueError(f"expected one edge structure a scale ({n_scales}), "
+                                 f"got {len(side)}")
+        enc = list(encoder_slots) if encoder_slots is not None else None
+        dec = list(decoder_slots) if decoder_slots is not None else None
         if enc is not None:
             # the encoder folds by cell when its lists come sorted so; the
             # decoder always folds by node, so one flat list cannot serve both
-            enc_order = "dst" if self.encoder.fused.flat_dst_sorted else None
-            check_slots(enc, point_pos.shape[0], point_pos.shape[1], self.grid.num_tokens,
-                        enc_order)
-        if dec is not None and (dec is not enc or isinstance(dec, FlatEdgeChunks)):
-            check_slots(dec, query_pos.shape[0], query_pos.shape[1], self.grid.num_tokens, "src")
+            enc_order = "dst" if self.encoder.flat_dst_sorted else None
+            for e in enc:
+                check_slots(e, point_pos.shape[0], point_pos.shape[1], self.grid.num_tokens,
+                            enc_order)
+        if dec is not None:
+            for s, d in enumerate(dec):
+                if enc is None or d is not enc[s] or isinstance(d, FlatEdgeChunks):
+                    check_slots(d, query_pos.shape[0], query_pos.shape[1],
+                                self.grid.num_tokens, "src")
         if enc is None:
-            enc = self.encoder.build_slots(point_pos, point_mask)
-            if dec is None and query_pos is point_pos and query_mask is point_mask \
-                    and self.decoder.build_slots.same_edges(self.encoder.build_slots):
-                dec = enc
+            enc = [build(point_pos, point_mask) for build in self.encoder.builds]
+            if dec is None and query_pos is point_pos and query_mask is point_mask:
+                dec = [e if db.same_edges(eb) else db(query_pos, query_mask)
+                       for e, eb, db in zip(enc, self.encoder.builds, self.decoder.builds)]
         if dec is None:
-            dec = self.decoder.build_slots(query_pos, query_mask)
-        rndata = self.encoder(point_pos, point_feats, enc)
+            dec = [build(query_pos, query_mask) for build in self.decoder.builds]
+        rng = iter(edge_draws) if edge_draws is not None else generator
+        rndata = self.encoder(point_pos, point_feats, enc, rng=rng)
         rndata = self.process(rndata, generator)
-        return self.decoder(rndata, query_pos, dec)
+        return self.decoder(rndata, query_pos, dec, query_mask=query_mask, rng=rng)

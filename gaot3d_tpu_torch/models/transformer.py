@@ -88,11 +88,11 @@ class GroupQueryAttention(nn.Module):
     def __init__(self, output_size: int, cfg: AttentionConfig):
         super().__init__()
         if cfg.use_conditional_norm:
-            raise NotImplementedError("use_conditional_norm is not ported yet")
+            raise NotImplementedError("use_conditional_norm is not ported yet (ROADMAP item 6b)")
         if cfg.positional_embedding not in ("absolute", "rope"):
             raise NotImplementedError(
                 f"positional_embedding {cfg.positional_embedding!r} is not ported "
-                "(supported: 'absolute', 'rope')")
+                "(supported: 'absolute', 'rope'; rope3d is ROADMAP item 6b)")
         if cfg.attention_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown attention_dtype {cfg.attention_dtype!r}")
         if cfg.hidden_size % cfg.num_heads or cfg.num_heads % cfg.num_kv_heads:
@@ -141,7 +141,7 @@ class FFN(nn.Module):
     def __init__(self, output_size: int, cfg: FFNConfig):
         super().__init__()
         if cfg.use_conditional_norm:
-            raise NotImplementedError("use_conditional_norm is not ported yet")
+            raise NotImplementedError("use_conditional_norm is not ported yet (ROADMAP item 6b)")
         self.w1 = nn.Linear(output_size, cfg.hidden_size, bias=False)
         self.w3 = nn.Linear(output_size, cfg.hidden_size, bias=False)
         self.w2 = nn.Linear(cfg.hidden_size, output_size, bias=False)

@@ -1,11 +1,12 @@
-"""Masked segment reductions (port of gaot3d_tpu/ops/segment.py
-`segment_sum` and the sorted folds).
+"""Masked segment reductions (port of gaot3d_tpu/ops/segment.py: every
+reduction it holds).
 
 `segment_sum` is the plain PyTorch form of the scatter that the
 encoder-payload kernel (kernels/encoder_payload.py) fuses with the payload
-computation. The sorted folds below it reduce through the kernels K6, K7 and
-K8. `fold_max`, `segment_max`, `segment_softmax` and `gather_table`'s fold
-backward are not ported.
+computation; `segment_max`, `gather_table` and `segment_softmax` are plain
+PyTorch too, as they are XLA in the JAX package. The sorted folds below
+them reduce through the kernels K6, K7 and K8; `fold_max` is a plain segment
+max over the sorted rows (JAX's segmented cummax gives the same values).
 """
 from __future__ import annotations
 
@@ -36,6 +37,80 @@ def segment_sum(
                       dtype=data.dtype, device=data.device)
     out.index_add_(0, ids, data)
     return out[:num_segments]
+
+
+def _segment_amax(data: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Max of data [E, ...] over ids [E] in [0, num_segments], -inf where a
+    segment is empty; the last segment is the one masked rows go to. Its
+    gradient is shared evenly between tied rows, as jax.ops.segment_max's."""
+    idx = ids.reshape(ids.shape + (1,) * (data.ndim - 1)).expand(data.shape)
+    out = torch.full((num_segments + 1,) + tuple(data.shape[1:]), float("-inf"),
+                     dtype=data.dtype, device=data.device)
+    return out.scatter_reduce(0, idx, data, "amax", include_self=True)
+
+
+def segment_max(
+    data: torch.Tensor,  # [E, ...]
+    segment_ids: torch.Tensor,  # [E] integer
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,  # [E] bool
+    empty_value: float = 0.0,
+) -> torch.Tensor:
+    """Max per segment; empty segments give `empty_value`, masked rows
+    nothing."""
+    ids = segment_ids.long()
+    if mask is not None:
+        ids = torch.where(mask, ids, torch.full_like(ids, num_segments))
+    out = _segment_amax(data, ids, num_segments)[:num_segments]
+    return torch.where(out == float("-inf"), torch.full_like(out, empty_value), out)
+
+
+class _GatherTable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx, mask):
+        S = table.shape[0]
+        ctx.save_for_backward(idx, mask)
+        ctx.num_rows = S
+        return table[idx.long().clamp(0, S - 1)] * mask[:, None].to(table.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, mask = ctx.saved_tensors
+        S = ctx.num_rows
+        # the masked segment sum at the unclipped index: a row whose index
+        # lies outside the table gives it nothing, as jax.ops.segment_sum
+        # drops it (autograd's backward of the clipped gather would not)
+        keep = mask & (idx >= 0) & (idx < S)
+        return segment_sum(ct, idx, S, keep), None, None
+
+
+def gather_table(table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked row gather: table [S, C], idx [E], mask [E] -> [E, C], the
+    index clipped into the table and masked rows 0. Its backward is the
+    masked segment sum of the cotangent at the unclipped index, as the JAX
+    function's custom backward."""
+    return _GatherTable.apply(table, idx, mask)
+
+
+def segment_softmax(
+    scores: torch.Tensor,  # [E]
+    segment_ids: torch.Tensor,  # [E] integer
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,  # [E] bool
+) -> torch.Tensor:
+    """Softmax of the scores within each segment: a weight per edge, 0 for
+    masked edges; the denominator is floored at the dtype's smallest normal
+    number, as in the JAX function."""
+    smax = segment_max(scores, segment_ids, num_segments, mask=mask, empty_value=0.0)
+    ids = segment_ids.long()
+    exp = torch.exp(scores - smax[ids])
+    zero = torch.zeros((), dtype=scores.dtype, device=scores.device)
+    if mask is not None:
+        exp = torch.where(mask, exp, zero)
+    denom = segment_sum(exp, segment_ids, num_segments, mask=mask)
+    denom = denom.clamp_min(torch.finfo(scores.dtype).tiny)
+    w = exp / denom[ids]
+    return torch.where(mask, w, zero) if mask is not None else w
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +215,26 @@ def fold_sum(ctx: SegmentFoldCtx, data: torch.Tensor) -> torch.Tensor:
     return _FoldSum.apply(data, ctx.perm, ctx.starts, ctx.valid, ctx.key)
 
 
+def fold_sum_centred(ctx: SegmentFoldCtx, data: torch.Tensor,
+                     base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`fold_sum`, taken as the fold of each row's deviation from its
+    segment's baseline plus the baseline times the segment's count: the same
+    sums, but the prefix that K7 runs, whose rounding grows with its size,
+    is that of the deviations. base [S(, C)]: a baseline a segment (the cell
+    centre for coordinates); by default every segment's is the mean of the
+    valid rows. The fold of raw positive values (distances, softmax weights)
+    or coordinates ordered with the cells would lose digits a cell in f32."""
+    S = ctx.starts.shape[0] - 1
+    tail = (1,) * (data.ndim - 1)
+    if base is None:
+        valid = (ctx.key < S).reshape(ctx.key.shape + tail).to(data.dtype)
+        mean = (data * valid).sum(0) / valid.sum().clamp_min(1.0)
+        base = mean.expand((S,) + tuple(data.shape[1:]))
+    rows = base[ctx.key.long().clamp(0, S - 1)]
+    cnt = fold_count(ctx, data.dtype).reshape((S,) + tail)
+    return fold_sum(ctx, data - rows) + cnt * base
+
+
 def fold_sum_sorted(ctx: SegmentFoldCtx, data: torch.Tensor) -> torch.Tensor:
     """`fold_sum` for a presorted ctx: no permutation gather."""
     return _FoldSum.apply(data, None, ctx.starts, ctx.valid, ctx.key)
@@ -153,6 +248,18 @@ def fold_mean(ctx: SegmentFoldCtx, data: torch.Tensor) -> torch.Tensor:
     total = fold_sum(ctx, data)
     cnt = fold_count(ctx, total.dtype).clamp_min(1.0)
     return total / cnt.reshape(cnt.shape + (1,) * (total.ndim - 1))
+
+
+def fold_max(ctx: SegmentFoldCtx, data: torch.Tensor, empty_value: float = 0.0) -> torch.Tensor:
+    """data [E] or [E, C] in unsorted edge order -> [S(, C)] segment max of
+    the sorted rows; empty segments give `empty_value`."""
+    num_segments = ctx.starts.shape[0] - 1
+    rows = data[ctx.perm.long()]
+    out = _segment_amax(rows, ctx.sorted_seg.long(), num_segments)[:num_segments]
+    nonempty = ctx.starts[1:] > ctx.starts[:-1]
+    if out.ndim > 1:
+        nonempty = nonempty[:, None]
+    return torch.where(nonempty, out, torch.full_like(out, empty_value))
 
 
 class TileFold(NamedTuple):

@@ -25,9 +25,12 @@ input points by default):
 `load_inference(path, edges=...)` overrides the stored mode; an artifact
 without one (written before the mode was stored) serves with "args".
 
-The exported config holds what the build needs: grid, radius, k, strategies,
-slot budget and node chunk; and `kernel_dtype`, so a bf16 model is served
-at bf16.
+The exported config holds what the build needs: grid, radius, scales, k,
+strategies, slot budget and node chunk; `kernel_dtype`, so a bf16 model is
+served at bf16; and the MAGNO variant (transform types, attention, geoembed,
+scale weights, caps). A model of S scales takes 2·S edge structures with
+`edges="args"` (the encoder's S, then the decoder's) and builds S a side
+with `edges="device"`.
 
 Each side takes any edge structure the model runs: `EdgeSlots`,
 `SectionedEdgeSlots` or `FlatEdgeChunks` (the encoder's built in the order
@@ -121,9 +124,12 @@ def _load_model(blob: dict, device) -> GAOT3D:
     return model.to(device).eval()
 
 
-def make_edge_arg_model(model: GAOT3D, num_scales: int = 1) -> Callable:
+def make_edge_arg_model(model: GAOT3D, num_scales: Optional[int] = None) -> Callable:
     """The eval forward with edge structures as call-time arguments:
-    `infer(pos, feats, mask, enc_s0..enc_s{S-1}, dec_s0..dec_s{S-1})`."""
+    `infer(pos, feats, mask, enc_s0..enc_s{S-1}, dec_s0..dec_s{S-1})`, S the
+    model's number of scales unless `num_scales` says otherwise."""
+    if num_scales is None:
+        num_scales = len(model.magno_config.scales)
 
     def infer(pos, feats, mask, *edges):
         if len(edges) != 2 * num_scales:

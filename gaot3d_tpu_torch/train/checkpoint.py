@@ -21,13 +21,13 @@ two calls; nothing else here needs it.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..models.gaot3d import GAOT3D
-from ..weights import (HEAD_KEY, LIFTING_KEY, io_channels, load_numpy_state_dict,
+from ..weights import (io_channels, load_numpy_state_dict,
                        numpy_state_dict)
 
 _NDARRAY_EXT = 1  # flax.serialization's msgpack extension types
@@ -52,31 +52,63 @@ def load_params_only(path: str, map_location="cpu") -> Dict[str, torch.Tensor]:
     return state["params"] if "params" in state else state
 
 
-def tree_path(key: str, model: Optional[GAOT3D] = None) -> Tuple[str, ...]:
+def _magno_path(key: str, parts, model: GAOT3D) -> Tuple[str, ...]:
+    """`tree_path` of an encoder or decoder key: the inverse of
+    gaot3d_tpu/torch_export.py `state_dict_from_params` for the model's
+    MAGNO config (fused or modular sides, geoembed method, dot-product
+    attention, scale weights)."""
+    leaf = parts[-1]
+    dense = ("Dense_0", "kernel" if leaf == "weight" else "bias")
+    top, mod = parts[0], parts[1]
+    side = model.encoder if top == "encoder" else model.decoder
+    fused = side.use_fused
+    scale = f"{'Encoder' if top == 'encoder' else 'Decoder'}Scale_0"
+    # flax numbers a side's TorchLinear modules in construction order
+    order = []
+    if top == "encoder":
+        order += ["lifting"] if side.lifting is not None else []
+        order += ["recovery"] if side.recovery is not None else []
+    else:
+        order += ["recovery"] if side.recovery is not None else []
+    if getattr(side, "scale_weighting", None) is not None:
+        order += ["scale_weighting.2", "scale_weighting.0"]
+    if top == "decoder":
+        order += ["projection.0", "projection.1"]
+    if mod == "gno":
+        owner = f"Fused{scale}" if fused else "IntegralTransform_0"
+        if parts[2] == "channel_mlp":  # gno.channel_mlp.fcs.{i}
+            return (top, owner, f"kernel_{leaf[0]}{parts[4]}")
+        proj = {"query_proj": "q", "key_proj": "k"}[parts[2]]
+        return (top, owner, f"{proj}_{leaf[0]}")
+    if mod == "geoembed":
+        if fused:  # geoembed.mlp.{0,2}
+            return (top, f"Fused{scale}", f"geo_{leaf[0]}{int(parts[3]) // 2}")
+        if parts[2] == "mlp":
+            return (top, "GeometricEmbedding_0", f"mlp_{leaf[0]}{int(parts[3]) // 2}")
+        if parts[2] == "pointnet_mlp":
+            return (top, "GeometricEmbedding_0", f"pn_{leaf[0]}{int(parts[3]) // 2}")
+        return (top, "GeometricEmbedding_0", f"fc_{leaf[0]}")  # geoembed.fc.0
+    name = {"lifting": "lifting", "recovery": "recovery",
+            "scale_weighting": f"scale_weighting.{parts[2]}",
+            "projection": f"projection.{parts[3] if len(parts) > 3 else ''}"}.get(mod)
+    if name in order:
+        return (top, f"TorchLinear_{order.index(name)}") + dense
+    raise KeyError(f"no JAX counterpart known for {key}")
+
+
+def tree_path(key: str, model: GAOT3D) -> Tuple[str, ...]:
     """The path in the JAX parameter tree of the port's state-dict entry `key`.
     flax numbers sibling modules of one class in construction order, which is
-    what the counters below reproduce; `model` is read for the processor's
-    keys only."""
+    what the counters reproduce; `model` gives the config that decides
+    which modules exist."""
     parts = key.split(".")
     leaf = parts[-1]  # 'weight' | 'bias'
     dense = ("Dense_0", "kernel" if leaf == "weight" else "bias")
     top = parts[0]
     if top == "patch_linear":
         return ("patch_linear",) + dense
-    if top == "encoder":
-        if parts[1] == "lifting":
-            return ("encoder", "TorchLinear_0") + dense
-        if parts[1] == "recovery":
-            return ("encoder", "TorchLinear_1") + dense
-        if parts[1] == "gno":  # encoder.gno.channel_mlp.fcs.{i}
-            return ("encoder", "FusedEncoderScale_0", f"kernel_{leaf[0]}{parts[4]}")
-        if parts[1] == "geoembed":  # encoder.geoembed.mlp.{0,2}
-            return ("encoder", "FusedEncoderScale_0", f"geo_{leaf[0]}{int(parts[3]) // 2}")
-    if top == "decoder":
-        if parts[1] == "gno":
-            return ("decoder", "IntegralTransform_0", f"kernel_{leaf[0]}{parts[4]}")
-        if parts[1] == "projection":  # decoder.projection.fcs.{0,1}
-            return ("decoder", f"TorchLinear_{parts[3]}") + dense
+    if top in ("encoder", "decoder"):
+        return _magno_path(key, parts, model)
     if top == "processor":
         proc = model.processor
         if parts[1] == "input_proj":
@@ -192,13 +224,13 @@ def checkpoint_channels(path: str) -> Tuple[int, int]:
     node = read_msgpack(path)
     while "params" in node and "encoder" not in node:
         node = node["params"]
-    width = []
-    for key, axis in ((LIFTING_KEY, 0), (HEAD_KEY, 1)):  # [in, out] in the JAX tree
-        leaf = node
-        for name in tree_path(key):
-            leaf = leaf[name]
-        width.append(int(np.shape(leaf)[axis]))
-    return width[0], width[1]
+    # the encoder's first TorchLinear is the lifting, the decoder's last the
+    # head's second layer; kernels are [in, out] in the JAX tree
+    dec = node["decoder"]
+    last = max(int(k.rsplit("_", 1)[1]) for k in dec if k.startswith("TorchLinear_"))
+    lifting = node["encoder"]["TorchLinear_0"]["Dense_0"]["kernel"]
+    head = dec[f"TorchLinear_{last}"]["Dense_0"]["kernel"]
+    return int(np.shape(lifting)[0]), int(np.shape(head)[1])
 
 
 def save_msgpack_params(path: str, model: GAOT3D) -> None:

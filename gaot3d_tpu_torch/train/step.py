@@ -4,9 +4,10 @@ gaot3d_tpu/train/trainer.py `masked_mse`, `sample_nodes_without_replacement`,
 
 A step runs where its batch lies: on the card for CUDA tensors, through the
 kernels' plain versions for CPU tensors. The model must be on the same
-device. Attention dropout takes its seeds from the `torch.Generator` handed
-to `train_step`, the neural-field node sampler from the generator of its
-`NeuralField`; nothing reads a global random state.
+device. Attention dropout and the edge sampling ('ratio', 'max_neighbors')
+take their draws from the `torch.Generator` handed to `train_step`, the
+neural-field node sampler from the generator of its `NeuralField`; nothing
+reads a global random state.
 
 Training strategies, as in the JAX trainer:
   - full grid (`neural_field=None`): every node is an input and a query;
@@ -38,8 +39,8 @@ class TrainBatch:
     feats: torch.Tensor  # [B, N, C_in]
     target: torch.Tensor  # [B, N, C_out]
     node_mask: torch.Tensor  # [B, N] bool
-    enc_slots: Any  # EdgeSlots, SectionedEdgeSlots, FlatEdgeChunks or None
-    dec_slots: Any
+    enc_slots: Any  # EdgeSlots, SectionedEdgeSlots, FlatEdgeChunks, a list of them
+    dec_slots: Any  # (one a scale) or None
 
 
 @dataclass
@@ -109,7 +110,9 @@ def _check_devices(model: GAOT3D, batch: TrainBatch) -> None:
 
 def _forward(model: GAOT3D, batch: TrainBatch,
              generator: Optional[torch.Generator]) -> torch.Tensor:
-    as_list = lambda edges: None if edges is None else [edges]  # noqa: E731
+    def as_list(edges):  # one structure (one scale) or a list of them
+        return None if edges is None else (edges if isinstance(edges, list) else [edges])
+
     return model(batch.pos, batch.feats, batch.node_mask,
                  encoder_slots=as_list(batch.enc_slots), decoder_slots=as_list(batch.dec_slots),
                  generator=generator)

@@ -20,7 +20,8 @@ the config says `cpu`. Batches are assembled on the host by `data/pipeline.py`
 and uploaded through pinned memory by a prefetch thread; a step is
 `train/step.py` `train_step`, so the kernels of `kernels/` run on CUDA tensors
 and their plain versions on CPU tensors. One `torch.Generator` on the device,
-seeded from `setup.seed`, feeds attention dropout, and a second one, seeded
+seeded from `setup.seed`, feeds attention dropout and the edge sampling of
+`magno.sampling_strategy`, and a second one, seeded
 from `setup.seed` + 1, the neural-field node sampler, so that a step's dropout
 seeds do not depend on the strategy.
 
@@ -511,10 +512,10 @@ class StaticTrainer3D(TrainerBase):
         put = lambda a: pinned_to_device(a, self.device, memo)  # noqa: E731
         edges = [None, None]  # slot mode 'device': the model builds them
         if batch.enc_slots is not None:
-            if len(batch.enc_slots) != 1:
-                raise NotImplementedError("multiscale batches are not ported")
-            edges = [_edges_to_device(side[0], self.device, memo)
+            # one structure for one scale, a list of them for several
+            edges = [[_edges_to_device(s, self.device, memo) for s in side]
                      for side in (batch.enc_slots, batch.dec_slots)]
+            edges = [e[0] if len(e) == 1 else e for e in edges]
         return TrainBatch(
             pos=put(batch.pos), feats=put(batch.feats), target=put(batch.target),
             node_mask=put(batch.node_mask), enc_slots=edges[0], dec_slots=edges[1])

@@ -20,6 +20,7 @@ from .models.gaot3d import GAOT3D
 LIFTING_KEY = "encoder.lifting.fcs.0.weight"  # [C, in] (or [C, in, 1])
 HEAD_KEY = "decoder.projection.fcs.1.weight"  # [out, projection] (or [out, projection, 1])
 _DEAD_SKIP = re.compile(r"processor\.decoder_layers\.\d+\.skip_proj\.(weight|bias)")
+_DEAD_RECOVERY = re.compile(r"encoder\.recovery\.fcs\.0\.(weight|bias)")
 
 
 def _check_latent_tokens(model: GAOT3D, tokens) -> None:
@@ -77,7 +78,8 @@ def state_dict_from_reference(sd: Mapping[str, object], model: GAOT3D) -> Dict[s
     Its `latent_tokens` buffer is checked against the model's grid and
     dropped. So are the keys gaot3d_tpu/torch_import.py drops because the
     reference builds those modules and never applies them: with
-    `use_long_range_skip: false`, every decoder block's `skip_proj`. Any
+    `use_long_range_skip: false`, every decoder block's `skip_proj`; with
+    `use_gno: false`, the encoder's `recovery`. Any
     other key the model lacks, and any key of the model the dict lacks, is a
     ValueError. Conv1d weights [out, in, 1] (`mlp_type: channel`) are kept as
     they are: the port's ChannelMLP holds that layout."""
@@ -89,6 +91,8 @@ def state_dict_from_reference(sd: Mapping[str, object], model: GAOT3D) -> Dict[s
         _check_latent_tokens(model, tokens)
     if not model.attn_config.use_long_range_skip:
         out = {k: v for k, v in out.items() if not _DEAD_SKIP.fullmatch(k)}
+    if not model.magno_config.use_gno:
+        out = {k: v for k, v in out.items() if not _DEAD_RECOVERY.fullmatch(k)}
     want = set(model.state_dict())
     extra, missing = sorted(set(out) - want), sorted(want - set(out))
     if extra or missing:

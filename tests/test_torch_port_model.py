@@ -198,16 +198,18 @@ def test_init_model_is_seeded_by_its_generator():
 
 @pytest.mark.parametrize("magno_kw,attn_kw,match,error", [
     (dict(kernel_dtype="float16"), {}, "kernel_dtype", ValueError),  # float32 | bfloat16 run
-    (dict(use_attn=True), {}, "use_attn", NotImplementedError),
-    (dict(scales=[1.0, 2.0]), {}, "multiscale", NotImplementedError),
-    (dict(use_geoembed=[True, True]), {}, "decoder geoembed", NotImplementedError),
-    (dict(in_gno_transform_type="nonlinear"), {}, "transform", NotImplementedError),
     ({}, dict(positional_embedding="rope3d"), "rope3d", NotImplementedError),
-], ids=[f"magno_kw{i}-attn_kw{i}-{m}" for i, m in enumerate(
-    ["kernel_dtype", "use_attn", "multiscale", "decoder geoembed", "transform", "rope3d"])])
+    ({}, dict(attn_config=AttentionConfig(hidden_size=32, num_heads=4, num_kv_heads=2,
+                                          use_conditional_norm=True)),
+     "use_conditional_norm", NotImplementedError),
+    (dict(gno_coord_dim=2), {}, "gno_coord_dim", NotImplementedError),
+], ids=["magno_kw0-attn_kw0-kernel_dtype", "magno_kw5-attn_kw5-rope3d",
+        "use_conditional_norm", "gno_coord_dim"])
 def test_unsupported_configs_raise(magno_kw, attn_kw, match, error):
     """Values the port does not run raise NotImplementedError, unknown ones
-    ValueError."""
+    ValueError. The MAGNO variants run (tests/test_torch_port_variants*.py);
+    the processor's conditional norm and rope3d are ROADMAP item 6b, and
+    gno_coord_dim 2 runs in neither package."""
     magno, attn = _port_configs(_flagship_model())
     magno = dataclasses.replace(magno, **magno_kw)
     attn = dataclasses.replace(attn, **attn_kw)
