@@ -5,9 +5,11 @@
 `--flat-seed` (31) seeds the cloud of phases 13 and 14, for a second reading
 of their limits. `--only` runs just the named phases (k1, attention-train,
 k3, k5, serve-device, serve-buckets, nf, trainer, export (after trainer),
-trainer-split, trainer-nf, variants, trainer-variants, t1, k7, k6, k8, flat;
-the last four share one cloud), builds each kernel at its first use and
-prints no record: for work on one phase.
+trainer-split, trainer-nf, variants, trainer-variants, processor, dist (its
+part (a) after trainer), t1, k7, k6, k8, flat; the last four share one
+cloud), builds each kernel at its first use and prints no record: for work
+on one phase. `--dist-worker` is one rank of [dist], which the script starts
+itself.
 
 Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
@@ -53,6 +55,10 @@ Phases, each of which raises (exit code 1) on failure:
      the same bits, at the recipe shape and at ragged S=1000, Skv=130;
   9. [replay] the seeded forward and backward reproduce, from the bits the
      exporter writes for their seed, the same results (the path K4 serves);
+     then [offset]: K4, K1, K2 and K3's dk/dv kernel drawing at a batch
+     offset (bh_offset, a rank's rows of a larger batch) against their plain
+     versions at that offset and against the same rows of one launch over
+     the whole batch;
  10. [k3] the split backward (its dk/dv kernel, then its dq kernel on the
      keep mask the first writes) at rates 0 and 0.1 at the recipe shape, and
      at six small shapes (f32, bf16, every head dim, S and Skv no tile
@@ -181,6 +187,26 @@ Phases, each of which raises (exit code 1) on failure:
      and (b) combined and 'ratio' sampling, host-built slots of both scales
      through the loader, one epoch of 2 samples, validation and test on 1:
      its losses, step times, loader stall, peak; K1 10 and K2 10 a step.
+ 23. [rope3d] and [cond] (run after [trainer-variants]) the recipe at full
+     width over 5 degree sections with the processor's `positional_embedding:
+     rope3d`, then also a ConditionedNorm in every block's attention and FFN
+     under c = [[0.7]]: an eval forward against the plain versions
+     (E2E_BOUND), timed warm, K1 10; two AdamW steps, K1 10, K2 10, K5 a
+     section and K5b a node chunk (bf16 bodies), every parameter moving (the
+     ConditionedNorm maps' moves printed); two steps on a 32x32x16 grid with
+     the kernels and with the plain versions, losses and the second step's
+     gradient to E2E_BOUND.
+ 24. [dist] (a) the trainer on [trainer]'s data (2 steps) with
+     `distributed: true` in one process over NCCL against the undistributed
+     trainer, the step losses to DIST_LOSS_BOUND; (b) node_shards 2 on one
+     synthetic cloud of 1,048,576 points and (c) data_parallel 2 on two of
+     524,288, the model of configs/examples/drivaerml/pressure.yaml at full
+     width (slot budget 8, slots built on the card), two ranks on the one
+     card over gloo (this script with --dist-worker): two steps and an eval,
+     against one process on the same global batch: losses to
+     DIST_LOSS_BOUND, the second step's gradient and the gathered eval output
+     to DIST_BOUND relative L2; each rank's step ms, the all-reduces' ms and
+     its peak printed.
 Yardsticks off the main path (`library_ms`): torch's
 scaled_dot_product_attention forward and backward at the recipe shape,
 `torch.cumsum` and `index_add_`.
@@ -1016,11 +1042,13 @@ def bf16_bodies(label, sections, ws, bs, g, grid, counts, f32_ms=None):
 
 
 def recipe_model(latent=LATENT, radius=RADIUS, budget=BUDGET, kernel_dtype="bfloat16",
-                 **magno_overrides):
+                 positional_embedding="rope", conditional_norm=False, **magno_overrides):
     """The DrivAerNet++ pressure recipe at full width and depth, on the card,
     with random weights from seed 0, its GNO kernel MLPs at `kernel_dtype`
     (bfloat16, as tpu_500k.yaml sets it); `magno_overrides` replace fields of
-    its MAGNOConfig (the edge layout and the reductions)."""
+    its MAGNOConfig (the edge layout and the reductions); the processor's
+    `positional_embedding` and, with `conditional_norm`, a ConditionedNorm in
+    every block's attention and FFN."""
     import torch
 
     from gaot3d_tpu_torch.models import (AttentionConfig, FFNConfig, MAGNOConfig,
@@ -1033,10 +1061,11 @@ def recipe_model(latent=LATENT, radius=RADIUS, budget=BUDGET, kernel_dtype="bflo
         mlp_type="linear", edge_chunk_size=CHUNK, slot_budget=budget,
         kernel_dtype=kernel_dtype, edge_layout="sectioned"), **magno_overrides})
     attn = TransformerConfig(
-        patch_size=2, hidden_size=256, num_layers=10, positional_embedding="rope",
+        patch_size=2, hidden_size=256, num_layers=10, positional_embedding=positional_embedding,
         attn_config=AttentionConfig(hidden_size=256, num_heads=8, num_kv_heads=8,
-                                    atten_dropout=RATE, attention_dtype="bfloat16"),
-        ffn_config=FFNConfig(hidden_size=1024))
+                                    atten_dropout=RATE, attention_dtype="bfloat16",
+                                    use_conditional_norm=conditional_norm),
+        ffn_config=FFNConfig(hidden_size=1024, use_conditional_norm=conditional_norm))
     return init_model(3, 1, "gaot_3d", magno, attn, latent_tokens=latent,
                       generator=torch.Generator().manual_seed(0))
 
@@ -1338,7 +1367,65 @@ def phase_attention_train():
           f"launches {replay_launches}")
     if replay_launches < 1:
         raise RuntimeError("the replay path did not launch K4")
+    dropout_offset(rng, seed)
     return rec_k1d, rec_k2, replay_launches
+
+
+def dropout_offset(rng, seed, offset=1):
+    """[offset]: a rank that holds batch rows `offset`.. of a larger batch
+    passes bh_offset = offset * H and draws those rows' keep bits. K4, K1,
+    K2 and K3's dk/dv kernel at a non-zero offset against their plain
+    versions fed the plain Philox's bits at that offset, and against row 1
+    of a launch over the whole batch of 2: K4, K1's out and lse, K2's and
+    K3's dk and dv bit for bit, K2's dq to one bf16 step of its max-abs (its
+    float atomics), K3's keep mask the plain packing of the offset bits."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import dropout_bits as k4
+    from gaot3d_tpu_torch.kernels import flash_attention as k1
+
+    H, S, Skv, D = 8, 1000, 130, 32
+    q2, k2, v2 = qkv(rng, (2, H, S, D), skv=Skv)
+    do2 = qkv(rng, (2, H, S, D))[0]
+    q, k, v, do = (t[1:].contiguous() for t in (q2, k2, v2, do2))
+    off = offset * H
+    bits = k4.export_dropout_bits(seed, H, S, Skv, bh_offset=off)
+    plain_bits = k4.dropout_bits_reference(seed, H, S, Skv, device="cuda", bh_offset=off)
+    whole = k4.export_dropout_bits(seed, 2 * H, S, Skv)
+    for name, a, b in (("plain", bits, plain_bits), ("whole batch", bits, whole[off:])):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise RuntimeError(f"[offset] K4 at bh_offset {off} differs from the {name} bits")
+    out, lse = k1.flash_attention(q, k, v, RATE, seed=seed, bh_offset=off)
+    out2, lse2 = k1.flash_attention(q2, k2, v2, RATE, seed=seed)
+    ref, ref_lse = k1.flash_attention_reference(q, k, v, RATE, plain_bits)
+    err = (out.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+    if not (torch.equal(out, out2[1:]) and torch.equal(lse, lse2[1:])) or err > K1_BOUND \
+            or (lse - ref_lse).abs().max().item() > 1e-3:
+        raise RuntimeError(f"[offset] K1 at bh_offset {off}: {err} against its plain version")
+    got = k1.flash_attention_backward(q, k, v, out, lse, do, RATE, seed=seed, bh_offset=off)
+    got2 = k1.flash_attention_backward(q2, k2, v2, out2, lse2, do2, RATE, seed=seed)
+    want = k1.flash_attention_backward_reference(q, k, v, out, lse, do, RATE, plain_bits)
+    errs = []
+    for name, a, a2, b in zip(("dq", "dk", "dv"), got, got2, want):
+        rel = (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+        errs.append(rel)
+        same = torch.equal(a, a2[1:]) if name != "dq" else \
+            (a.float() - a2[1:].float()).abs().max().item() <= 2.0 ** -7 * a.float().abs().max()
+        if rel > K2_BOUND or not same:
+            raise RuntimeError(f"[offset] K2 at bh_offset {off}: {name} {rel}, whole batch {same}")
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dk, dv, mask = k1.flash_attention_backward_dkv(q, k, v, lse, do, delta, RATE, seed=seed,
+                                                   bh_offset=off)
+    want_mask = k1.pack_keep_mask_reference(plain_bits, RATE)
+    if not (torch.equal(dk, got[1]) and torch.equal(dv, got[2])
+            and torch.equal(mask.view(torch.int32), want_mask.view(torch.int32))):
+        raise RuntimeError(f"[offset] K3's dk/dv kernel at bh_offset {off} differs from K2 or "
+                           "from the plain keep mask")
+    print(f"[offset] batch row {offset} of 2 (bh_offset {off}), S={S} Skv={Skv}: K4 the plain "
+          f"and the whole batch's bits; K1 out and lse the whole batch's row bit for bit, "
+          f"{err:.3e} of the plain max-abs; K2 dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
+          f"{errs[2]:.3e} of the plain max-abs, dk and dv the whole batch's bits; K3 dk/dv "
+          f"K2's bits, its keep mask the plain packing")
 
 
 def phase_k3():
@@ -2837,10 +2924,10 @@ class TrainerSpy:
                                "kernel_dtype": cfg.kernel_dtype})
             return out
 
-        def spy_eval(trainer, batch):
+        def spy_eval(trainer, batch, *args, **kwargs):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            out = eval_step(trainer, batch)
+            out = eval_step(trainer, batch, *args, **kwargs)
             end.record()
             self.eval_events.append((start, end))
             return out
@@ -3438,6 +3525,371 @@ def phase_trainer_variants(card, budget2):
     return total
 
 
+# -- the processor's variants ------------------------------------------------------------
+
+# (tag, recipe_model keywords, the condition c): rope3d alone, then rope3d with a
+# ConditionedNorm in every block's attention and FFN
+PROCESSOR_VARIANTS = (
+    ("rope3d", dict(positional_embedding="rope3d"), None),
+    ("cond", dict(positional_embedding="rope3d", conditional_norm=True), 0.7),
+)
+
+
+def cond_norm_moves(model, before):
+    """The largest relative change of each ConditionedNorm map's weight."""
+    import torch
+
+    out = []
+    for (name, p), b in zip(model.named_parameters(), before):
+        if ".cond_norm." in name and name.endswith("weight"):
+            out.append(((p - b).norm() / b.norm()).item())
+    return out
+
+
+def phase_processor_variants(card):
+    """[rope3d] and [cond]: the recipe at full width (524,288 points in 5
+    degree sections, a 64x64x32 grid, 10 blocks of 8 heads, bf16), with
+    rope3d, then with ConditionedNorm in attention and FFN under c =
+    [[0.7]]: an eval forward (K1 10) against the plain versions to E2E_BOUND
+    relative L2 and timed warm, two AdamW steps (K1 10, K2 10, K5 a section,
+    K5b a node chunk; every parameter moves, each ConditionedNorm map
+    printed); then two steps of the same model on a 32x32x16 grid with 65,536
+    points, with the kernels and with their plain versions from the same
+    weights and seeds: each step's loss to E2E_BOUND relative, the second
+    step's gradient to E2E_BOUND relative L2."""
+    import torch
+
+    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
+    from gaot3d_tpu_torch.train import (OptimizerargsConfig, TrainBatch, make_optimizer,
+                                        train_step)
+
+    grid = LatentGrid(dims=LATENT)
+    pos, feats, target, mask, slots, nsec, _ = cloud(41, N_POINTS, grid)
+    chunks = node_chunks([int(sec.lat_idx.shape[1]) for sec in slots.sections])
+    small = LatentGrid(dims=(32, 32, 16))
+    radius = 2 * RADIUS
+    budget = max_degree(np.random.default_rng(42).uniform(-1, 1, (65_536, 3)).astype(np.float32),
+                        small, radius)
+    spos, sfeats, starget, smask, sslots, snsec, _ = cloud(42, 65_536, small, radius, budget)
+    counters = attention_counters()
+    totals = {}
+    for tag, kw, c in PROCESSOR_VARIANTS:
+        cond = None if c is None else torch.tensor([[c]], device="cuda")
+        model = recipe_model(**kw).eval()
+        for fn in counters.values():
+            fn.launches = 0
+
+        def forward():
+            with torch.no_grad():
+                return model(pos, feats, mask, encoder_slots=[slots], decoder_slots=[slots],
+                             condition=cond)
+        out = forward()
+        torch.cuda.synchronize()
+        k1_eval = counters["k1"].launches
+        ms = cuda_ms(forward, reps=3)
+        if k1_eval != 10 or not torch.isfinite(out).all():
+            raise RuntimeError(f"[{tag}] eval forward: K1 launches {k1_eval}, or non-finite")
+        print(f"[{tag}] {card}: eval forward, {nsec} sections: {ms:.1f} ms warm (CUDA events, "
+              f"median of 3), K1 launches {k1_eval}; out finite {tuple(out.shape)}")
+        against_plain(tag, "the eval forward", lambda: (forward(),), (out,))
+        before = [p.detach().clone() for p in model.parameters()]
+        batch = TrainBatch(pos, feats, target, mask, slots, slots, condition=cond)
+        total, _, _ = train_steps(tag, card, model, batch,
+                                  {"k1": 10, "k2": 10,
+                                   **payload_launches(nsec, chunks, "bfloat16")})
+        moves = cond_norm_moves(model, before)
+        if moves:
+            print(f"[{tag}] each of the {len(moves)} ConditionedNorm weights moved by "
+                  f"{min(moves):.3e} to {max(moves):.3e} of its norm in 2 steps")
+        totals[tag] = {"k1_eval": k1_eval, **total}
+        del model, batch, out
+
+        # two steps against the plain versions on the small grid
+        sbatch = TrainBatch(spos, sfeats, starget, smask, sslots, sslots, condition=cond)
+
+        def two_steps():
+            m = recipe_model(small.dims, radius, budget, **kw)
+            opt = make_optimizer("adamw", m.parameters(), OptimizerargsConfig(scheduler="mix"),
+                                 steps_per_epoch=1)
+            gen = torch.Generator().manual_seed(9)
+            losses = [train_step(m, opt, sbatch, gen)[0].item() for _ in range(2)]
+            return (grad_vector(m), *losses)
+        against_plain(tag, f"two steps on a 32x32x16 grid, 65,536 points, {snsec} sections "
+                      f"(budget {budget}), rate {RATE}: the second step's gradient",
+                      two_steps, two_steps())
+        torch.cuda.empty_cache()
+    return totals
+
+
+# -- distribution ------------------------------------------------------------------------
+
+DIST_POINTS = 2 * N_POINTS  # node_shards 2 times pressure.yaml's pad_multiple, 524,288
+DIST_LOSS_BOUND = 1e-4  # relative: the sharded run's losses against one process's (K5's
+#                         float atomics and the all-reduce add in other orders)
+DIST_BOUND = 1e-3  # relative L2: gradients and eval outputs, sharded against one process
+DIST_TIMEOUT = 600  # seconds the two ranks of one [dist] run may take
+
+
+def dist_model():
+    """The model of configs/examples/drivaerml/pressure.yaml (its model
+    section) at full width: the recipe with slot budget 8 and slots built on
+    the card, kernel_dtype float32 (the file sets none), weights from seed
+    0."""
+    return recipe_model(budget=8, kernel_dtype="float32", edge_layout="slots")
+
+
+def dist_batch(mode):
+    """The global batch of a [dist] run: 'node', one synthetic cloud of
+    DIST_POINTS; 'data', two clouds of N_POINTS. No edges: the model builds
+    each rank's slots on the card."""
+    import torch
+
+    from gaot3d_tpu_torch.train import TrainBatch
+
+    seeds = [(51, DIST_POINTS)] if mode == "node" else [(52, N_POINTS), (53, N_POINTS)]
+    parts = [cloud(seed, n)[:4] for seed, n in seeds]
+    return TrainBatch(*(torch.cat([p[i] for p in parts]) for i in range(4)), None, None)
+
+
+def dist_run(tag, batch, mesh=None, shard_nodes=False):
+    """Two AdamW steps (mix schedule, dropout from one generator) then an
+    eval of dist_model() on `batch`, in one process or sharded over `mesh`:
+    per step the global loss and ms by CUDA events, the launches, the
+    gradient after step 2, the eval output (gathered over the ranks) and
+    the peak MiB."""
+    import torch
+
+    from gaot3d_tpu_torch.parallel import make_sharded_eval_step, make_sharded_train_step
+    from gaot3d_tpu_torch.train import (OptimizerargsConfig, eval_step, make_optimizer,
+                                        train_step)
+
+    model = dist_model()
+    counters = attention_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    optimizer = make_optimizer("adamw", model.parameters(), OptimizerargsConfig(scheduler="mix"),
+                               steps_per_epoch=1)
+    generator = torch.Generator().manual_seed(5)
+    step = train_step if mesh is None else make_sharded_train_step(train_step, mesh, shard_nodes)
+    evaluate = eval_step if mesh is None else make_sharded_eval_step(
+        eval_step, mesh, shard_nodes, replicate_outputs=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss, _ = step(model, optimizer, batch, generator)
+        end.record()
+        end.synchronize()
+        losses.append(loss.item())
+        ms.append(start.elapsed_time(end))
+    grads = grad_vector(model)
+    pred, val = evaluate(model, batch)
+    torch.cuda.synchronize()
+    finite = all(np.isfinite(losses)) and bool(torch.isfinite(grads).all()) \
+        and bool(torch.isfinite(pred).all())
+    if not finite:
+        raise RuntimeError(f"[dist] {tag}: non-finite loss, gradient or output")
+    return {"losses": np.asarray(losses), "ms": np.asarray(ms), "grads": grads,
+            "pred": pred, "eval_loss": val.item(),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "launches": {n: fn.launches for n, fn in counters.items()}}
+
+
+def dist_worker(mode, rank, port, out_path):
+    """One of the two ranks of a [dist] run on the one card, over gloo (NCCL
+    refuses two ranks on one device): `mode` 'node' (node_shards 2) or
+    'data' (data_parallel 2). Prints its step ms, the all-reduces' ms and
+    its peak; rank 0 writes its losses, gradient and gathered output."""
+    import torch
+    import torch.distributed as dist
+
+    from gaot3d_tpu_torch.parallel import make_mesh
+    from gaot3d_tpu_torch.parallel.sharding import all_reduce_gradients, all_reduce_sum
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    mesh = make_mesh(1, 2) if mode == "node" else make_mesh(2, 1)
+    sums = all_reduce_sum.calls
+    res = dist_run(mode, dist_batch(mode), mesh, mode == "node")
+    # the collectives of a step alone: the encoder's accumulator [1, 131,072, 43] (node) and
+    # the gradient, each on the host clock until the card is done (gloo stages CUDA tensors
+    # through the host), median of 3
+    acc = torch.ones((1, 64 * 64 * 32, 43), device="cuda")
+    flat = torch.ones(res["grads"].numel(), device="cuda")
+
+    def host_ms(fn):
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[1:]))
+    acc_ms = host_ms(lambda: dist.all_reduce(acc))
+    grad_ms = host_ms(lambda: dist.all_reduce(flat))
+    print(f"[dist] {mode} rank {rank}: steps {res['ms'].round(1).tolist()} ms (CUDA events), "
+          f"losses {res['losses'].tolist()}; all-reduce over gloo on the host clock: the "
+          f"accumulator "
+          f"{acc_ms:.2f} ms, the gradient ({flat.numel()} floats) {grad_ms:.2f} ms; "
+          f"{all_reduce_sum.calls - sums} accumulator sums, {all_reduce_gradients.calls} "
+          f"gradient all-reduces; peak {res['peak_mib']:.0f} MiB; launches {res['launches']}",
+          flush=True)
+    if rank == 0:
+        np.savez(out_path, losses=res["losses"], ms=res["ms"], grads=res["grads"].cpu().numpy(),
+                 pred=res["pred"].cpu().numpy(), eval_loss=res["eval_loss"],
+                 peak_mib=res["peak_mib"], acc_ms=acc_ms, grad_ms=grad_ms,
+                 **{f"launch_{n}": v for n, v in res["launches"].items()})
+    dist.destroy_process_group()
+
+
+def spawn_ranks(mode, tmp):
+    """Run the two ranks of a [dist] run as processes of this script; raise
+    with their output unless both end with 0. Every process is ended."""
+    port = _free_port()
+    out = os.path.join(tmp, f"dist_{mode}.npz")
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    logs = [open(os.path.join(tmp, f"dist_{mode}_{r}.log"), "w+") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker",
+                               mode, str(r), str(port), out], cwd=HERE, env=env,
+                              stdout=log, stderr=subprocess.STDOUT, text=True)
+             for r, log in enumerate(logs)]
+    deadline = time.monotonic() + DIST_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    for text in outs:
+        for line in text.splitlines():
+            if line.startswith("[dist]"):
+                print(line)
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError(f"[dist] {mode}: a rank failed:\n" + "\n".join(o[-4000:] for o in outs))
+    with np.load(out) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class LossSpy:
+    """Context that records the loss of every train step the trainer takes."""
+
+    def __enter__(self):
+        from gaot3d_tpu_torch.train import trainer as trainer_module
+
+        step = trainer_module.train_step
+        self.losses = []
+
+        def spy(*args, **kwargs):
+            out = step(*args, **kwargs)
+            self.losses.append(out[0].item())
+            return out
+        self.patch = mock.patch.object(trainer_module, "train_step", spy)
+        self.patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.patch.stop()
+
+
+def phase_dist(card):
+    """[dist]: (a) the trainer with `distributed: true` in one process over
+    NCCL (a group of one) on [trainer]'s data, two steps, against the
+    undistributed trainer; (b) node_shards 2 and (c) data_parallel 2, two
+    processes on the one card over gloo, against one process on the same
+    global batch. Returns the launches of (b) and (c)'s rank 0 and of (a)."""
+    import torch
+    import torch.distributed as dist
+
+    from gaot3d_tpu_torch import cli
+
+    # (a)
+    root = TRAINER_DIR
+    counters = attention_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    runs = {}
+    for label, setup in (("undistributed", {}), ("distributed", {"distributed": True})):
+        overrides = trainer_overrides(root, epoch=1, eval_every_eps=1)
+        overrides["dataset"].update(train_size=2, val_size=2, test_size=2)
+        overrides["setup"] = {"test": False, **setup}
+        overrides["path"] = {k: v.replace(os.sep + "out" + os.sep, os.sep + f"out_{label}" + os.sep)
+                             for k, v in overrides["path"].items()}
+        with LossSpy() as spy:
+            row, trainer = cli.run_config_file(TRAINER_CONFIG, overrides, return_trainer=True)
+        backend = dist.get_backend() if dist.is_initialized() else None
+        world = dist.get_world_size() if dist.is_initialized() else None
+        if label == "distributed":
+            if trainer.mesh is None or backend != "nccl" or world != 1:
+                raise RuntimeError(f"[dist] (a): mesh {trainer.mesh}, backend {backend}, world "
+                                   f"{world}")
+            dist.destroy_process_group()
+        runs[label] = spy.losses
+        del trainer
+        torch.cuda.empty_cache()
+    a, b = np.asarray(runs["distributed"]), np.asarray(runs["undistributed"])
+    rel = np.abs(a - b) / np.abs(b)
+    print(f"[dist] (a) {card}: distributed: true, world 1 over NCCL, through the trainer: step "
+          f"losses {a.tolist()} against {b.tolist()} undistributed, relative {rel.max():.2e} "
+          f"(limit {DIST_LOSS_BOUND})")
+    if len(a) != 2 or len(b) != 2 or not (rel <= DIST_LOSS_BOUND).all():
+        raise RuntimeError("[dist] (a) the distributed trainer's losses differ")
+    launches = {n: fn.launches for n, fn in counters.items()}
+
+    # (b) and (c)
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, what in (("node", f"node_shards 2, one cloud of {DIST_POINTS} points"),
+                           ("data", f"data_parallel 2, two clouds of {N_POINTS} points")):
+            ref = dist_run(mode, dist_batch(mode))
+            ref = {k: (v.cpu() if hasattr(v, "cpu") else v) for k, v in ref.items()}
+            torch.cuda.empty_cache()
+            got = spawn_ranks(mode, tmp)
+            for name in launches:
+                launches[name] += int(got[f"launch_{name}"])
+            loss_rel = np.abs(got["losses"] - ref["losses"]) / np.abs(ref["losses"])
+            grad_rel = rel_l2(torch.from_numpy(got["grads"]), ref["grads"])
+            pred_rel = rel_l2(torch.from_numpy(got["pred"]), ref["pred"])
+            print(f"[dist] ({'b' if mode == 'node' else 'c'}) {card}: {what}, the "
+                  f"pressure.yaml model (slot budget 8, slots built on the card), 2 ranks on "
+                  f"one card over gloo against one process: losses {got['losses'].tolist()} "
+                  f"against {ref['losses'].tolist()} (relative {loss_rel.max():.2e}, limit "
+                  f"{DIST_LOSS_BOUND}); the second step's gradient {grad_rel:.2e} and the eval "
+                  f"output {pred_rel:.2e} relative L2 (limit {DIST_BOUND}); one process: steps "
+                  f"{ref['ms'].round(1).tolist()} ms, peak {ref['peak_mib']:.0f} MiB; rank 0: "
+                  f"steps {got['ms'].round(1).tolist()} ms, peak {float(got['peak_mib']):.0f} "
+                  f"MiB, all-reduce over gloo of the accumulator {float(got['acc_ms']):.2f} ms "
+                  f"and of the gradient {float(got['grad_ms']):.2f} ms (host clock)")
+            if not ((loss_rel <= DIST_LOSS_BOUND).all() and grad_rel <= DIST_BOUND
+                    and pred_rel <= DIST_BOUND):
+                raise RuntimeError(f"[dist] {mode}: the sharded run differs from one process")
+            want = {"k1": 30, "k2": 20}  # two steps and an eval of 10 layers
+            if any(int(got[f"launch_{n}"]) != v for n, v in want.items()):
+                raise RuntimeError(f"[dist] {mode}: rank 0 launched "
+                                   f"{ {n: int(got[f'launch_{n}']) for n in want} }")
+    return launches
+
+
 def body_launches(phases, name, kernel_dtype):
     """Launches of K5's or K5b's body for `kernel_dtype` over the main path's
     phases (each counts all its launches under `name` and the bf16 body's
@@ -3456,10 +3908,13 @@ def main():
     parser.add_argument("--only", default="",
                         help="comma-separated subset of k1, attention-train, k3, k5, "
                              "serve-device, serve-buckets, nf, trainer, export (after trainer), "
-                             "trainer-split, trainer-nf, variants, trainer-variants, t1, k7, k6, "
+                             "trainer-split, trainer-nf, variants, trainer-variants, "
+                             "processor, dist (its part (a) on trainer's data), t1, k7, k6, "
                              "k8, flat: run just these "
                              "phases (kernels build at first use; the last four share one "
                              "cloud) and print no record")
+    parser.add_argument("--dist-worker", nargs=4, metavar=("MODE", "RANK", "PORT", "OUT"),
+                        help="run one rank of a [dist] run (the script starts them itself)")
     args = parser.parse_args()
     import torch
 
@@ -3469,6 +3924,11 @@ def main():
         return 1
     import gaot3d_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
+
+    if args.dist_worker:
+        mode, rank, port, out = args.dist_worker
+        dist_worker(mode, int(rank), int(port), out)
+        return 0
 
     card = card_name_and_power()
     print(f"[device] {card}")
@@ -3515,6 +3975,10 @@ def main():
                 _, budget2 = phase_variants(card)
             elif name == "trainer-variants":
                 phase_trainer_variants(card, budget2)
+            elif name == "processor":
+                phase_processor_variants(card)
+            elif name == "dist":
+                phase_dist(card)
             elif name in FLAT_PHASES:
                 FLAT_PHASES[name](flat_input)
             else:
@@ -3545,31 +4009,37 @@ def main():
     torch.cuda.empty_cache()
     variants, budget2 = phase_variants(card)
     fit_variants = phase_trainer_variants(card, budget2)
+    torch.cuda.empty_cache()
+    proc = phase_processor_variants(card)
+    torch.cuda.empty_cache()
+    dist_ = phase_dist(card)  # (a) on [trainer]'s data
     shutil.rmtree(TRAINER_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     flat = phase_flat(flat_input)
     del flat_input
     t1 = phase_t1()
     pallas = "gaot3d_tpu/ops/pallas_attention.py"
+    rope3d, cond = proc["rope3d"], proc["cond"]
     k5_phases = (serve, serve_device, serve_buckets, train, nf, fit, export, fit_nf, variants,
-                 fit_variants)
-    k5b_phases = (train, nf, fit, fit_nf, variants, fit_variants)
+                 fit_variants, rope3d, cond, dist_)
+    k5b_phases = (train, nf, fit, fit_nf, variants, fit_variants, rope3d, cond, dist_)
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:394",
          # serving, and the eval forwards of [nf] and of the trainers
          "launches": serve["k1"] + serve_device["k1"] + serve_buckets["k1"] + export["k1"]
          + nf["k1_eval"] + fit["k1"] - fit["k2"] + fit_nf["k1"] - fit_nf["k2"]
-         + variants["k1_eval"] + fit_variants["k1"] - fit_variants["k2"], **k1},
+         + variants["k1_eval"] + fit_variants["k1"] - fit_variants["k2"] + rope3d["k1_eval"]
+         + cond["k1_eval"] + dist_["k1"] - dist_["k2"], **k1},
         {"name": "flash_attn_fwd_dropout", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_fwd.cu", "replaces": f"{pallas}:144",
          # one train forward a fused backward
          "launches": train["k1"] + nf["k2"] + fit["k2"] + fit_nf["k2"] + variants["k1"]
-         + fit_variants["k2"], **k1d},
+         + fit_variants["k2"] + rope3d["k1"] + cond["k1"] + dist_["k2"], **k1d},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/flash_attn_bwd.cu", "replaces": f"{pallas}:502",
          "launches": train["k2"] + nf["k2"] + fit["k2"] + fit_nf["k2"] + variants["k2"]
-         + fit_variants["k2"], **k2},
+         + fit_variants["k2"] + rope3d["k2"] + cond["k2"] + dist_["k2"], **k2},
         # the two kernels of the pair launch together: `launches` is the dq kernel's count,
         # held equal to the dk/dv kernel's by [trainer-split]; the dk/dv kernel's body is
         # K2's, in flash_bwd_wgmma.cuh

@@ -16,6 +16,12 @@
 One CSV row a run is appended to `path.database_path`. The job runs on
 `setup.device`: the card unless the config says `cpu` or `--device` says
 otherwise.
+
+A config with `setup.distributed: true` runs one rank a process: under
+torchrun (`torchrun --nproc_per_node 2 -m gaot3d_tpu_torch --config FILE`,
+each rank on the card of its LOCAL_RANK), or started once a rank with
+`setup.world_size`, `setup.rank` and `setup.coordinator_address`. Rank 0
+writes the CSV row.
 """
 from __future__ import annotations
 
@@ -130,7 +136,8 @@ def run_config_file(path: str, overrides: Optional[dict] = None, return_trainer:
     elif cfg.setup.test:
         trainer.test()
 
-    append_csv_row(cfg.path.database_path, trainer.datarow)
+    if trainer.is_main:  # one row a run, from rank 0 of a distributed one
+        append_csv_row(cfg.path.database_path, trainer.datarow)
     return (trainer.datarow, trainer) if return_trainer else trainer.datarow
 
 
@@ -147,6 +154,10 @@ def main(argv=None) -> None:
         for f in args.arg_files:
             log.info("Running config %s", f)
             run_config_file(f, overrides)
+        import torch.distributed as dist
+
+        if dist.is_initialized():  # a distributed run (torchrun or world_size) ends here
+            dist.destroy_process_group()
         return
 
     # folder mode: a subprocess a job, so that one failed job does not end the

@@ -42,9 +42,11 @@ class SetUpConfig:
     # base.py:413 variance_test() is an abstract stub nothing calls, yet the
     # shipped config/examples/drivaernet/pressure.yaml sets the key
     use_variance_test: bool = False
-    # distributed runs and node sharding are not ported: the trainer refuses
-    # `distributed: true` and `node_shards > 1`; the other fields are kept so
-    # that the JAX package's files load
+    # `distributed: true` runs one process a rank over torch.distributed
+    # (parallel/mesh.py): world_size, rank and coordinator_address ("host:port"
+    # of rank 0) or torchrun's variables; backend 'nccl' | 'gloo' (anything
+    # else, JAX's 'jax' included, picks NCCL on cards and gloo on the CPU);
+    # data_parallel x node_shards ranks. local_rank is the card without torchrun
     distributed: bool = False
     world_size: int = 1
     rank: int = 0

@@ -22,14 +22,15 @@ constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(THREADS)
     dropout_bits_kernel(uint32_t* __restrict__ out, int sq, int skv, uint32_t seed_lo,
-                        uint32_t seed_hi) {
+                        uint32_t seed_hi, uint32_t bh0) {
   const int bh = blockIdx.z;
   const int cb = blockIdx.x * blockDim.x + threadIdx.x;  // column pair
   const int rb = blockIdx.y;                             // row pair
   const int col = 2 * cb, row = 2 * rb;
   if (col >= skv) return;
   uint32_t w[4];
-  gaot::philox4x32_10((uint32_t)cb, (uint32_t)rb, (uint32_t)bh, 0u, seed_lo, seed_hi, w);
+  gaot::philox4x32_10((uint32_t)cb, (uint32_t)rb, bh0 + (uint32_t)bh, 0u, seed_lo, seed_hi,
+                      w);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = row + (i >> 1), c = col + (i & 1);
@@ -41,14 +42,15 @@ __global__ void __launch_bounds__(THREADS)
 
 extern "C" {
 
-// out [bh, sq, skv] uint32, contiguous. Returns the launch's cudaError_t.
+// out [bh, sq, skv] uint32, contiguous: the words of batch*heads bh0 ..
+// bh0 + bh - 1. Returns the launch's cudaError_t.
 int gaot_dropout_bits(void* out, int bh, int sq, int skv, unsigned int seed_lo,
-                      unsigned int seed_hi, void* stream) {
+                      unsigned int seed_hi, unsigned int bh0, void* stream) {
   if (bh <= 0 || bh > 65535 || sq <= 0 || skv <= 0 || (sq + 1) / 2 > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(((skv + 1) / 2 + THREADS - 1) / THREADS, (sq + 1) / 2, bh);
   dropout_bits_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(out), sq, skv, seed_lo, seed_hi);
+      static_cast<uint32_t*>(out), sq, skv, seed_lo, seed_hi, bh0);
   return (int)cudaGetLastError();
 }
 

@@ -249,13 +249,14 @@ int gaot_flash_attn_bwd(const void* q, const void* k, const void* v, const void*
                         const void* lse, const void* delta, void* dq, void* dk, void* dv,
                         int bh, int sq, int skv, int d, int dtype, float scale, int drop,
                         const void* bits, unsigned int seed_lo, unsigned int seed_hi,
-                        unsigned int thresh, float inv_keep, void* stream) {
+                        unsigned int thresh, float inv_keep, unsigned int bh0,
+                        void* stream) {
   if (bh <= 0 || bh > 65535 || sq <= 0 || skv <= 0) return (int)cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
                   static_cast<const float*>(delta), static_cast<float*>(dq), dk, dv,
                   sq, skv, scale};
   const DropoutParams dp{static_cast<const uint32_t*>(bits), seed_lo, seed_hi, thresh,
-                         inv_keep};
+                         inv_keep, bh0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_d<float>(a, bh, d, drop != 0, dp, s);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(a, bh, d, drop != 0, dp, s);

@@ -635,13 +635,13 @@ int gaot_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const v
                             void* keep_mask, int bh, int sq, int skv, int d, int dtype,
                             float scale, int drop, const void* bits, unsigned int seed_lo,
                             unsigned int seed_hi, unsigned int thresh, float inv_keep,
-                            void* stream) {
+                            unsigned int bh0, void* stream) {
   if (!valid_sizes(bh, sq, skv) || (drop != 0 && keep_mask == nullptr))
     return (int)cudaErrorInvalidValue;
   const SplitArgs a{q, k, v, dout, static_cast<const float*>(lse),
                     static_cast<const float*>(delta), nullptr, dk, dv, sq, skv, scale};
   const DropoutParams dp{static_cast<const uint32_t*>(bits), seed_lo, seed_hi, thresh,
-                         inv_keep};
+                         inv_keep, bh0};
   uint32_t* m = static_cast<uint32_t*>(keep_mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dr = drop != 0;

@@ -529,18 +529,19 @@ extern "C" {
 // (dtype 0: float32, 1: bfloat16), lse [bh, sq] float32; all contiguous.
 // drop != 0 applies probability dropout: keep iff bits >= thresh, kept
 // probabilities times inv_keep; the bits are `bits` [bh, sq, skv] uint32 when
-// given, else drawn from (seed_lo, seed_hi). Returns the launch's cudaError_t
+// given, else drawn from (seed_lo, seed_hi) with the launch's bh 0 taken as
+// batch*head bh0 of the stream (philox.cuh). Returns the launch's cudaError_t
 // (0 on success).
 int gaot_flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
                         void* lse, int bh, int sq, int skv, int d, int dtype,
                         float scale, int drop, const void* bits, unsigned int seed_lo,
                         unsigned int seed_hi, unsigned int thresh, float inv_keep,
-                        void* stream) {
+                        unsigned int bh0, void* stream) {
   if (bh <= 0 || bh > 65535 || sq <= 0 || skv <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const DropoutParams dp{static_cast<const uint32_t*>(bits), seed_lo, seed_hi, thresh,
-                         inv_keep};
+                         inv_keep, bh0};
   const bool dr = drop != 0;
   if (dtype == 0)
     return dispatch_d<float>(q, k, v, out, l, bh, sq, skv, d, scale, dr, dp, s);

@@ -3,7 +3,7 @@
 //
 // The stream is a pure function of (seed, batch*head, q row, key column): the
 // 2x2 block of the probability matrix that holds (row, col) takes the counter
-//     (col >> 1, row >> 1, batch*head, 0)
+//     (col >> 1, row >> 1, bh0 + batch*head, 0)
 // under the key (seed low word, seed high word), and the element reads word
 //     (row & 1) * 2 + (col & 1)
 // of the four that one Philox call yields. No tile shape enters, so the
@@ -14,6 +14,11 @@
 // Keep rule (gaot3d_tpu/ops/pallas_attention.py `_bits_to_keep`): an element
 // is kept iff bits >= uint32(rate * (2^32 - 1)); the wrapper passes the
 // threshold, and 1/(1-rate) (0 when rate >= 1, which drops everything).
+//
+// bh0 is the global batch*head index of the launch's first (batch, head):
+// a rank that holds rows b0.. of a larger batch passes b0 * heads, so a row
+// draws the bits it would draw in one launch over the whole batch. Explicit
+// bits are indexed by the launch's own bh and ignore it.
 #pragma once
 #include <stdint.h>
 
@@ -24,6 +29,7 @@ struct DropoutParams {
   uint32_t seed_lo, seed_hi;
   uint32_t thresh;
   float inv_keep;
+  uint32_t bh0;  // global batch*head of the launch's bh 0 (the seeded stream only)
 };
 
 __host__ __device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,
@@ -58,8 +64,8 @@ __device__ __forceinline__ void dropout_block_bits(const DropoutParams& p, int b
                                                    int row, int col, int sq, int skv,
                                                    uint32_t w[4]) {
   if (p.bits == nullptr) {
-    philox4x32_10((uint32_t)col >> 1, (uint32_t)row >> 1, (uint32_t)bh, 0u, p.seed_lo,
-                  p.seed_hi, w);
+    philox4x32_10((uint32_t)col >> 1, (uint32_t)row >> 1, p.bh0 + (uint32_t)bh, 0u,
+                  p.seed_lo, p.seed_hi, w);
     return;
   }
   const int r0 = row & ~1, c0 = col & ~1;

@@ -91,8 +91,14 @@ def unpack_slot_mask(packed: np.ndarray, K: int) -> np.ndarray:
 
 def update_sample_files_with_edges(dataset_config, magno_config, grid, metadata) -> None:
     """Offline precompute sweep over all split files (reference:
-    stat.py:126-224 _update_pt_files_with_edges). Per-file failures are
-    logged and skipped, writes are atomic."""
+    stat.py:126-224 _update_pt_files_with_edges). Runs on rank 0 of a
+    running torch.distributed group only (the trainer's other ranks wait at
+    a barrier); per-file failures are logged and skipped, writes are
+    atomic."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
     from .dataset import MeshDataset, load_sample, save_sample
     from .host_graph import _graph_library
 

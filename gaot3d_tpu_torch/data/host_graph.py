@@ -156,16 +156,17 @@ def section_slots_shared(pairs: Sequence[Tuple[np.ndarray, np.ndarray]], chunk: 
       observed degrees or the call raises, since edges would be dropped.
     - Pairs that are the same two objects give the same SectionedEdgeSlots
       object, so aliased directions stay one set of tensors downstream.
-    - The shard-aligned layout (shards > 1) belongs to node sharding, which
-      is not ported."""
-    if shards != 1:
-        raise NotImplementedError(
-            "shard-aligned sections (shards > 1) are not ported: node sharding is "
-            "ROADMAP item 7")
+    - shards=S > 1 builds the shard-aligned layout of node sharding (see
+      `SectionedEdgeSlots`): the degree-sorted nodes are dealt round-robin to
+      S equal shard ranges (sorted position j to shard j % S, local row
+      j // S), the per-chunk K profile (one K per chunk of a shard, N/S/chunk
+      of them) is the max over the shards, and each section comes out
+      shard-major, [B, S * ns_i, K_i]."""
     B, N, _ = pairs[0][1].shape
-    if N % chunk != 0:
+    if N % (chunk * shards) != 0:
         raise ValueError(f"chunk {chunk} x shards {shards} must divide N {N}")
-    nc = N // chunk
+    n_local = N // shards
+    nc = n_local // chunk
     uniq: List[Tuple[np.ndarray, np.ndarray]] = []  # pairs without repeats (by identity)
     pair_slot = []
     for lat, msk in pairs:
@@ -179,11 +180,15 @@ def section_slots_shared(pairs: Sequence[Tuple[np.ndarray, np.ndarray]], chunk: 
     deg_all = sum(msk.sum(axis=2) for _, msk in uniq)
     kmax_all = sum(msk.shape[-1] for _, msk in uniq)
     key = deg_all if node_mask is None else np.where(node_mask, deg_all, kmax_all + 1)
-    perms = np.argsort(key, axis=1, kind="stable").astype(np.int64)
+    order = np.argsort(key, axis=1, kind="stable").astype(np.int64)
+    # perm[b, s * n_local + l] = order[b, l * shards + s]: every shard gets the
+    # same slice of the degree distribution and of the padded tail
+    perms = np.ascontiguousarray(
+        order.reshape(B, n_local, shards).transpose(0, 2, 1)).reshape(B, N)
     rows = np.arange(B)[:, None]
     permuted = [(lat[rows, perms], msk[rows, perms]) for lat, msk in uniq]
     ks_need = np.maximum.reduce([
-        np.maximum(m.sum(axis=2).reshape(B, nc, chunk).max(axis=(0, 2)), 1)
+        np.maximum(m.sum(axis=2).reshape(B, shards, nc, chunk).max(axis=(0, 1, 3)), 1)
         for _, m in permuted])
     if profile is not None:
         ks = np.asarray(profile, np.int64)
@@ -198,7 +203,11 @@ def section_slots_shared(pairs: Sequence[Tuple[np.ndarray, np.ndarray]], chunk: 
 
     outs = []
     for lat_p, msk_p in permuted:
+        # shard-major view [B, S, n_local, K]: a local row range is taken from
+        # every shard (S = 1: the plain [B, N, K] slice)
         kp = lat_p.shape[-1]
+        lat_v = lat_p.reshape(B, shards, n_local, kp)
+        msk_v = msk_p.reshape(B, shards, n_local, kp)
         sections = []
         i = 0
         while i < nc:
@@ -208,16 +217,18 @@ def section_slots_shared(pairs: Sequence[Tuple[np.ndarray, np.ndarray]], chunk: 
             ksec = int(ks[i])
             lo, hi = i * chunk, j * chunk
             kw = min(ksec, kp)
-            if bool(msk_p[:, lo:hi, kw:].any()):
+            if bool(msk_v[:, :, lo:hi, kw:].any()):
                 raise ValueError("slots are not valid-first packed: a row has a valid slot "
                                  f"beyond its section width K={ksec} (compact first)")
-            li, mi = lat_p[:, lo:hi, :kw], msk_p[:, lo:hi, :kw]
+            rows_s = shards * (hi - lo)
+            li = np.ascontiguousarray(lat_v[:, :, lo:hi, :kw]).reshape(B, rows_s, kw)
+            mi = np.ascontiguousarray(msk_v[:, :, lo:hi, :kw]).reshape(B, rows_s, kw)
             if kw < ksec:  # pinned profile wider than this pair's K: pad
                 padw = ((0, 0), (0, 0), (0, ksec - kw))
                 li, mi = np.pad(li, padw), np.pad(mi, padw)
             sections.append((li, mi))
             i = j
-        outs.append(SectionedEdgeSlots.from_numpy(sections, device=device))
+        outs.append(SectionedEdgeSlots.from_numpy(sections, device=device, shards=shards))
     return perms, [outs[u] for u in pair_slot]
 
 

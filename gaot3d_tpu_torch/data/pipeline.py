@@ -124,7 +124,7 @@ class BatchLoader:
         flat_order: str = "src",  # encoder flat ordering (MAGNOConfig.flat_order)
         flat_edges_per_chunk: int = 0,  # pinned E (MAGNOConfig.flat_edges_per_chunk)
         sectioned_profile=None,  # pinned per-chunk K list for 'sectioned'
-        section_shards: int = 1,  # shard-aligned sectioning (node sharding): 1 only
+        section_shards: int = 1,  # shard-aligned sectioning (node sharding): node_shards
         device_cache: bool = False,  # keep built batches resident across epochs
         cache_put=None,  # callable(PointBatch) applied before caching: the trainer's
         # upload, so cached entries live in device memory

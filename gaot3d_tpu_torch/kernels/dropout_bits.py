@@ -8,8 +8,11 @@ geometry. The port draws from Philox4x32-10 keyed on (seed, batch*head, q row,
 key column) (`csrc/philox.cuh`): the bits depend on no tile shape, and the
 flash forward, the flash backward and this exporter regenerate them
 identically. The 2x2 block of the probability matrix that holds (row, col)
-takes the counter (col >> 1, row >> 1, batch*head, 0) under the key (seed low
-word, seed high word); the element reads word (row & 1) * 2 + (col & 1).
+takes the counter (col >> 1, row >> 1, bh_offset + batch*head, 0) under the
+key (seed low word, seed high word); the element reads word
+(row & 1) * 2 + (col & 1). `bh_offset` (0 by default) is the global
+batch*head of a call's first (batch, head), so that a rank holding rows of
+a larger batch draws those rows' bits.
 
 Keep rule (`_bits_to_keep` of the JAX file): keep iff
 bits >= uint32(rate * (2^32 - 1)); a rate of 1 or more drops everything.
@@ -37,7 +40,7 @@ def _library() -> ctypes.CDLL:
     lib = load_cuda_library("dropout_bits", "dropout_bits.cu", headers=["philox.cuh"])
     lib.gaot_dropout_bits.restype = ctypes.c_int
     lib.gaot_dropout_bits.argtypes = (
-        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2 + [ctypes.c_void_p])
+        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_void_p])
     return lib
 
 
@@ -94,8 +97,9 @@ def philox4x32_10(counter, key) -> Tuple[torch.Tensor, ...]:
 
 
 def dropout_bits_reference(seed: int, batch_heads: int, S: int, Skv: int,
-                           device="cpu") -> torch.Tensor:
-    """Plain version of the exporter: uint32 [batch_heads, S, Skv]."""
+                           device="cpu", bh_offset: int = 0) -> torch.Tensor:
+    """Plain version of the exporter: uint32 [batch_heads, S, Skv], the
+    words of batch*heads bh_offset .. bh_offset + batch_heads - 1."""
     k0, k1 = seed_words(seed)
     out = torch.empty((batch_heads, S, Skv), dtype=torch.uint32, device=device)
     rows = torch.arange((S + 1) // 2, dtype=torch.int64, device=device)[:, None]
@@ -103,7 +107,7 @@ def dropout_bits_reference(seed: int, batch_heads: int, S: int, Skv: int,
     c0, c1 = torch.broadcast_tensors(cols, rows)
     zero = torch.zeros_like(c0)
     for bh in range(batch_heads):
-        w = philox4x32_10((c0, c1, zero + bh, zero), (k0, k1))
+        w = philox4x32_10((c0, c1, zero + ((bh_offset + bh) & _MASK32), zero), (k0, k1))
         block = torch.stack([torch.stack([w[0], w[1]], dim=-1),
                              torch.stack([w[2], w[3]], dim=-1)], dim=1)  # [R, 2, C, 2]
         full = block.reshape(2 * c0.shape[0], 2 * c0.shape[1])[:S, :Skv]
@@ -112,13 +116,13 @@ def dropout_bits_reference(seed: int, batch_heads: int, S: int, Skv: int,
 
 
 def export_dropout_bits(seed: int, batch_heads: int, S: int, Skv: int,
-                        device="cuda") -> torch.Tensor:
-    """The uint32 bits that the attention kernels draw under `seed`, row-major
-    [batch_heads, S, Skv]: the kernel on a CUDA device, the plain version on
-    the CPU."""
+                        device="cuda", bh_offset: int = 0) -> torch.Tensor:
+    """The uint32 bits that the attention kernels draw under `seed` from
+    batch*head `bh_offset` on, row-major [batch_heads, S, Skv]: the kernel
+    on a CUDA device, the plain version on the CPU."""
     device = torch.device(device)
     if device.type == "cpu":
-        return dropout_bits_reference(seed, batch_heads, S, Skv)
+        return dropout_bits_reference(seed, batch_heads, S, Skv, bh_offset=bh_offset)
     if device.type != "cuda":
         raise ValueError(f"export_dropout_bits: no kernel for device {device}")
     if not (0 < batch_heads <= 65535 and S > 0 and Skv > 0 and (S + 1) // 2 <= 65535):
@@ -127,7 +131,7 @@ def export_dropout_bits(seed: int, batch_heads: int, S: int, Skv: int,
     lo, hi = seed_words(seed)
     with torch.cuda.device(device):
         err = _library().gaot_dropout_bits(out.data_ptr(), batch_heads, S, Skv, lo, hi,
-                                           torch.cuda.current_stream().cuda_stream)
+                                           bh_offset, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout_bits launch failed: cudaError {err}")
     export_dropout_bits.launches += 1

@@ -19,7 +19,10 @@ f32 and is rounded once.
 
 The mask comes from a 64-bit `seed` (the kernels draw the bits of
 kernels/dropout_bits.py in place) or from explicit `dropout_bits`
-[B*H, S, Skv] uint32; a rate above 0 with neither raises.
+[B*H, S, Skv] uint32; a rate above 0 with neither raises. A seeded call
+takes `bh_offset`, the global batch*head index of its first (batch, head):
+a rank that holds rows b0.. of a larger batch passes b0 * H and draws the
+bits those rows draw in one call over the whole batch.
 
 The fused backward adds each tile's f32 dq partial into one buffer with a bulk
 reduce-add (atomic in the memory system, in no fixed order), so dq's last bits
@@ -61,7 +64,8 @@ from .dropout_bits import (bits_as_int64, dropout_bits_reference, keep_multiplie
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64)
-_DROPOUT_ARGTYPES = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_uint] * 3 + [ctypes.c_float]
+_DROPOUT_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_uint] * 3 + [ctypes.c_float]
+                     + [ctypes.c_uint])
 
 
 def _library() -> ctypes.CDLL:
@@ -225,12 +229,14 @@ def unpack_keep_mask_reference(mask: torch.Tensor, S: int, Skv: int) -> torch.Te
 
 
 def _bits_for(q: torch.Tensor, k: torch.Tensor, rate: float, seed: Optional[int],
-              bits: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """The bits the plain versions need: the given ones, or those of `seed`."""
+              bits: Optional[torch.Tensor], bh_offset: int = 0) -> Optional[torch.Tensor]:
+    """The bits the plain versions need: the given ones, or those of `seed`
+    from batch*head `bh_offset` on."""
     if rate <= 0.0 or bits is not None:
         return bits
     B, H, S, _ = q.shape
-    return dropout_bits_reference(seed, B * H, S, k.shape[2], device=q.device)
+    return dropout_bits_reference(seed, B * H, S, k.shape[2], device=q.device,
+                                  bh_offset=bh_offset)
 
 
 def _check_dropout(q: torch.Tensor, k: torch.Tensor, rate: float, seed: Optional[int],
@@ -248,20 +254,21 @@ def _check_dropout(q: torch.Tensor, k: torch.Tensor, rate: float, seed: Optional
             raise ValueError("dropout_bits must be contiguous and on q's device")
 
 
-def flash_attention_plain(q, k, v, dropout_rate=0.0, seed=None, dropout_bits=None):
+def flash_attention_plain(q, k, v, dropout_rate=0.0, seed=None, dropout_bits=None,
+                          bh_offset=0):
     """`flash_attention` through the plain versions only, on any device."""
     _check_dropout(q, k, dropout_rate, seed, dropout_bits)
     return flash_attention_reference(q, k, v, dropout_rate,
-                                     _bits_for(q, k, dropout_rate, seed, dropout_bits))
+                                     _bits_for(q, k, dropout_rate, seed, dropout_bits, bh_offset))
 
 
 def flash_attention_backward_plain(q, k, v, out, lse, dout, dropout_rate=0.0, seed=None,
-                                   dropout_bits=None):
+                                   dropout_bits=None, bh_offset=0):
     """`flash_attention_backward` through the plain versions only."""
     _check_dropout(q, k, dropout_rate, seed, dropout_bits)
     return flash_attention_backward_reference(
         q, k, v, out, lse, dout, dropout_rate,
-        _bits_for(q, k, dropout_rate, seed, dropout_bits))
+        _bits_for(q, k, dropout_rate, seed, dropout_bits, bh_offset))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -285,23 +292,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"unsupported sizes B*H={B * H}, S={S}, Skv={k.shape[2]}")
 
 
-def _dropout_args(rate: float, seed: Optional[int], bits: Optional[torch.Tensor]):
-    """The kernels' (drop, bits, seed_lo, seed_hi, thresh, inv_keep)."""
+def _dropout_args(rate: float, seed: Optional[int], bits: Optional[torch.Tensor],
+                  bh_offset: int = 0):
+    """The kernels' (drop, bits, seed_lo, seed_hi, thresh, inv_keep, bh0)."""
     if rate <= 0.0:
-        return 0, None, 0, 0, 0, 1.0
+        return 0, None, 0, 0, 0, 1.0, 0
+    if not 0 <= bh_offset < 2 ** 32:
+        raise ValueError(f"bh_offset {bh_offset} outside the 32-bit counter")
     lo, hi = seed_words(seed) if bits is None else (0, 0)
     return (1, None if bits is None else bits.data_ptr(), lo, hi, keep_threshold(rate),
-            keep_scale(rate))
+            keep_scale(rate), bh_offset)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dropout_rate: float = 0.0, seed: Optional[int] = None,
-                    dropout_bits: Optional[torch.Tensor] = None
+                    dropout_bits: Optional[torch.Tensor] = None, bh_offset: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Non-causal softmax(q k^T / sqrt(D)) v with probability dropout.
     q [B,H,S,D], k, v [B,H,Skv,D] -> (out [B,H,S,D], lse [B,H,S] f32)."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, dropout_rate, seed, dropout_bits)
+        return flash_attention_plain(q, k, v, dropout_rate, seed, dropout_bits, bh_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _check(q, k, v)
@@ -314,7 +324,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _library().gaot_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             B * H, S, k.shape[2], D, _DTYPES[q.dtype], 1.0 / D ** 0.5,
-            *_dropout_args(dropout_rate, seed, dropout_bits), stream)
+            *_dropout_args(dropout_rate, seed, dropout_bits, bh_offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
     flash_attention.launches += 1
@@ -342,13 +352,14 @@ def _check_backward(q, k, v, out, lse, dout, dropout_rate, seed, dropout_bits) -
 def flash_attention_backward(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
         lse: torch.Tensor, dout: torch.Tensor, dropout_rate: float = 0.0,
-        seed: Optional[int] = None, dropout_bits: Optional[torch.Tensor] = None
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        seed: Optional[int] = None, dropout_bits: Optional[torch.Tensor] = None,
+        bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of `flash_attention` given its inputs, its outputs (out,
-    lse), the cotangent dout [B,H,S,D] and the same rate and seed or bits."""
+    lse), the cotangent dout [B,H,S,D] and the same rate, seed or bits, and
+    offset."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, out, lse, dout, dropout_rate, seed,
-                                              dropout_bits)
+                                              dropout_bits, bh_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward: no kernel for device {q.device}")
     _check_backward(q, k, v, out, lse, dout, dropout_rate, seed, dropout_bits)
@@ -362,7 +373,7 @@ def flash_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B * H, S, k.shape[2], D, _DTYPES[q.dtype], 1.0 / D ** 0.5,
-            *_dropout_args(dropout_rate, seed, dropout_bits), stream)
+            *_dropout_args(dropout_rate, seed, dropout_bits, bh_offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd launch failed: cudaError {err}")
     flash_attention_backward.launches += 1
@@ -384,7 +395,7 @@ def _launch_split(name: str, pointers, q, k, *dropout) -> None:
 
 
 def flash_attention_backward_dkv(q, k, v, lse, dout, delta, dropout_rate=0.0, seed=None,
-                                 dropout_bits=None
+                                 dropout_bits=None, bh_offset=0
                                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The dk/dv kernel of the split backward, which runs first: (dk, dv, keep
     mask), the mask (`keep_mask_shape`, uint32) only at a rate above 0, else
@@ -393,7 +404,7 @@ def flash_attention_backward_dkv(q, k, v, lse, dout, delta, dropout_rate=0.0, se
     B, H, S, _ = q.shape
     if q.device.type == "cpu":
         _check_dropout(q, k, dropout_rate, seed, dropout_bits)
-        bits = _bits_for(q, k, dropout_rate, seed, dropout_bits)
+        bits = _bits_for(q, k, dropout_rate, seed, dropout_bits, bh_offset)
         _, dk, dv = _backward_from_multiplier(
             q, k, v, lse, dout, delta, lambda bh: _head_multiplier(bits, dropout_rate, bh))
         mask = pack_keep_mask_reference(bits, dropout_rate) if dropout_rate > 0.0 else None
@@ -408,7 +419,7 @@ def flash_attention_backward_dkv(q, k, v, lse, dout, delta, dropout_rate=0.0, se
     _launch_split("gaot_flash_attn_bwd_dkv",
                   [t.data_ptr() for t in (q, k, v, dout, lse, delta, dk, dv)]
                   + [None if mask is None else mask.data_ptr()], q, k,
-                  *_dropout_args(dropout_rate, seed, dropout_bits))
+                  *_dropout_args(dropout_rate, seed, dropout_bits, bh_offset))
     flash_attention_backward_dkv.launches += 1
     return dk, dv, mask
 
@@ -465,21 +476,21 @@ flash_attention_backward_dq.launches = 0
 def flash_attention_backward_split(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
         lse: torch.Tensor, dout: torch.Tensor, dropout_rate: float = 0.0,
-        seed: Optional[int] = None, dropout_bits: Optional[torch.Tensor] = None
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        seed: Optional[int] = None, dropout_bits: Optional[torch.Tensor] = None,
+        bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`flash_attention_backward` in two kernels without a shared accumulator:
     the same (dq, dk, dv), bit for bit equal between launches. The dk/dv
     kernel runs first and hands its keep mask to the dq kernel; the mask is
     freed when this returns. Each kernel counts its own launches."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, out, lse, dout, dropout_rate, seed,
-                                              dropout_bits)
+                                              dropout_bits, bh_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward_split: no kernel for device {q.device}")
     _check_backward(q, k, v, out, lse, dout, dropout_rate, seed, dropout_bits)
     delta = (dout.float() * out.float()).sum(dim=-1)
     dk, dv, mask = flash_attention_backward_dkv(q, k, v, lse, dout, delta, dropout_rate, seed,
-                                                dropout_bits)
+                                                dropout_bits, bh_offset)
     dq = flash_attention_backward_dq(q, k, v, lse, dout, delta, dropout_rate, mask)
     return dq, dk, dv
 
@@ -495,26 +506,28 @@ class _FlashAttention(torch.autograd.Function):
     plain version by device."""
 
     @staticmethod
-    def forward(ctx, q, k, v, dropout_rate, seed, dropout_bits):
-        out, lse = flash_attention(q, k, v, dropout_rate, seed, dropout_bits)
+    def forward(ctx, q, k, v, dropout_rate, seed, dropout_bits, bh_offset):
+        out, lse = flash_attention(q, k, v, dropout_rate, seed, dropout_bits, bh_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.dropout = (dropout_rate, seed, dropout_bits)
+        ctx.dropout = (dropout_rate, seed, dropout_bits, bh_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        rate, seed, bits = ctx.dropout
+        rate, seed, bits, bh_offset = ctx.dropout
         backward = flash_attention_backward_split if backward_is_split() \
             else flash_attention_backward
-        dq, dk, dv = backward(q, k, v, out, lse, dout.contiguous(), rate, seed, bits)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = backward(q, k, v, out, lse, dout.contiguous(), rate, seed, bits, bh_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dropout_rate: float = 0.0,
-              seed: Optional[int] = None,
-              dropout_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
+              seed: Optional[int] = None, dropout_bits: Optional[torch.Tensor] = None,
+              bh_offset: int = 0) -> torch.Tensor:
     """Differentiable flash attention: out [B,H,S,D] for contiguous q
-    [B,H,S,D] and k, v [B,H,Skv,D]."""
-    return _FlashAttention.apply(q, k, v, float(dropout_rate), seed, dropout_bits)
+    [B,H,S,D] and k, v [B,H,Skv,D]; a seeded mask from batch*head
+    `bh_offset` of its stream on."""
+    return _FlashAttention.apply(q, k, v, float(dropout_rate), seed, dropout_bits,
+                                 int(bh_offset))
 

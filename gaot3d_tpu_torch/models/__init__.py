@@ -8,7 +8,7 @@ import torch
 from ..ops.grid_graph import LatentGrid
 from .gaot3d import GAOT3D
 from .magno import MAGNOConfig, MAGNODecoder, MAGNOEncoder, parse_edge_layout
-from .mlp import reset_linear_
+from .mlp import ConditionedNorm, reset_linear_
 from .transformer import AttentionConfig, FFNConfig, TransformerConfig
 
 SUPPORTED_MODELS = ["gaot_3d"]
@@ -32,8 +32,9 @@ def init_model(input_size: int, output_size: int, model: str = "gaot_3d",
                generator: Optional[torch.Generator] = None,
                device="cuda") -> GAOT3D:
     """Build a GAOT3D with torch.nn.Linear-style random weights drawn from
-    `generator` (a CPU torch.Generator), then move it to `device`: the card
-    unless the caller asks for the CPU."""
+    `generator` (a CPU torch.Generator), the ConditionedNorm maps N(0, 0.01)
+    with zero biases, then move it to `device`: the card unless the caller
+    asks for the CPU."""
     if model.lower() != "gaot_3d":
         raise ValueError(f"model {model} not supported currently! supported: {SUPPORTED_MODELS}")
     require_device(device)
@@ -41,6 +42,9 @@ def init_model(input_size: int, output_size: int, model: str = "gaot_3d",
     for m in net.modules():
         if isinstance(m, (torch.nn.Linear, torch.nn.Conv1d)):
             reset_linear_(m, generator)
+    for m in net.modules():  # after the Linear draws: its own init overrides theirs
+        if isinstance(m, ConditionedNorm):
+            m.reset_parameters_(generator)
     return net.to(device)
 
 

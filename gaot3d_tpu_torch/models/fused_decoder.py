@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.grid_graph import EdgeSlots
+from ..parallel.sharding import world_group
 from .geoembed import GeometricEmbedding, znorm_mlp
 from .integral_transform import IntegralTransform, effective_chunk, run_chunk
 
@@ -46,4 +47,5 @@ class FusedDecoderScale:
                          for p in parts], dim=1)
         with torch.no_grad():
             feats = torch.cat([self.geoembed.decoder_features(*p) for p in parts], dim=1)
-        return gno, znorm_mlp(feats, self.geoembed.mlp, query_mask)
+        # the queries are split over every rank of a sharded step
+        return gno, znorm_mlp(feats, self.geoembed.mlp, query_mask, world_group())

@@ -37,6 +37,14 @@ have a body for each, and the plain rows of the other paths get it from
 features: count, mean distance, distance variance, centroid offset and PCA
 eigenvalues of the local covariance, z-normalised over the whole batch
 (ddof 1) and fed through the geoembed MLP.
+
+Shard-aligned sections (`SectionedEdgeSlots.shards` S > 1) are read through
+the [B, S, N/S, ...] view of the point arrays: section i's rows are
+s * N/S + [off_i, off_i + ns_i) of every shard s. Inside a node-sharded step
+each rank adds its own rows' payload (K5 on the rank's rows), and the raw
+accumulator, value columns and moments alike, is summed over the node group
+before `_finalize`, so the eigenvalues and the z-norm see the whole cloud;
+the sum's backward sums the cotangent over the group, so K5b gets all of it.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdg
 from ..ops.segment import (fold_sum, fold_sum_sorted, fold_sum_tile_lite, make_segment_fold,
                            make_segment_fold_presorted, make_tile_fold,
                            pallas_segment_sum_presorted, segment_sum)
+from ..parallel.sharding import all_reduce_sum, data_group, node_group
 from .geoembed import StatisticalGeoEmbedding, znorm_mlp
 from .integral_transform import IntegralTransform, effective_chunk
 
@@ -105,11 +114,17 @@ class FusedEncoderScale:
             if slots.num_nodes != N:
                 raise ValueError(f"sectioned slots cover {slots.num_nodes} nodes, "
                                  f"points have {N}")
+            S = slots.shards
+            pos_v = point_pos.reshape(B, S, N // S, -1)
+            feats_v = (None if lifted_feats is None
+                       else lifted_feats.reshape(B, S, N // S, lifted_feats.shape[-1]))
             off = 0
             for sec in slots.sections:
-                ns = int(sec.lat_idx.shape[-2])
-                acc = self._run_slotted(sec, point_pos[:, off:off + ns],
-                                        _node_rows(lifted_feats, slice(off, off + ns)), acc)
+                ns = int(sec.lat_idx.shape[-2]) // S  # a shard's rows of the section
+                pts = pos_v[:, :, off:off + ns].reshape(B, S * ns, -1)
+                fe = (None if feats_v is None
+                      else feats_v[:, :, off:off + ns].reshape(B, S * ns, -1))
+                acc = self._run_slotted(sec, pts, fe, acc)
                 off += ns
         elif isinstance(slots, EdgeSlots):
             acc = self._run_slotted(slots, point_pos, lifted_feats, acc)
@@ -117,7 +132,7 @@ class FusedEncoderScale:
             raise NotImplementedError(
                 f"edge layout {type(slots).__name__} is not ported "
                 "(supported: EdgeSlots, SectionedEdgeSlots, FlatEdgeChunks)")
-        return self._finalize(acc)
+        return self._finalize(all_reduce_sum(acc, node_group()))
 
     def _kernel_mlp(self):
         fcs = self.gno.channel_mlp.fcs
@@ -237,7 +252,8 @@ class FusedEncoderScale:
         feats = torch.cat([cnt[..., None], d_avg[..., None], d_var[..., None], ybar, pca],
                           dim=-1)
         feats = torch.where((cnt > 0)[..., None], feats, zero)
-        return gno_out, znorm_mlp(feats, self.geoembed.mlp)
+        # the grid is replicated over a node group; the batch is split over data ranks
+        return gno_out, znorm_mlp(feats, self.geoembed.mlp, group=data_group())
 
 
 def _node_rows(feats: Optional[torch.Tensor], rows: slice) -> Optional[torch.Tensor]:

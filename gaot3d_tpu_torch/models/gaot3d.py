@@ -8,7 +8,14 @@ points lie (the card or the CPU), as the JAX model does. In training the
 forward takes a `torch.Generator`, from which the processor draws its
 attention-dropout seeds and the MAGNO sides their edge sampling. Patchify and unpatchify
 are the reference's exact reshapes and transposes. Both sides' GNO kernel
-MLPs run at `magno_config.kernel_dtype` (float32 | bfloat16).
+MLPs run at `magno_config.kernel_dtype` (float32 | bfloat16). A conditioned
+model (`use_conditional_norm` in the processor's attention or FFN config)
+takes `condition` c [B, 1] (a 0-d c is [1, 1]) and hands it to every block.
+
+Inside a sharded step (`parallel.sharding.placed`) the forward is this
+rank's part of the global batch: the encoder sums its accumulator over the
+node group, the processor draws dropout at the rows' global batch index, and
+the decoder answers the rank's own query rows.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 from torch import nn
 
 from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots
+from ..parallel.sharding import active_placement
 from .magno import MAGNOConfig, MAGNODecoder, MAGNOEncoder
 from .transformer import TransformerConfig, UViTProcessor
 
@@ -137,9 +145,10 @@ class GAOT3D(nn.Module):
         self.register_buffer("pos_emb", torch.from_numpy(absolute_sincos_embedding(ppos, width))
                              if self.absolute else None, persistent=False)
 
-    def process(self, rndata: torch.Tensor,
+    def process(self, rndata: torch.Tensor, condition=None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Patchify -> transformer -> unpatchify: [B, M, C] -> [B, M, C]."""
+        """Patchify -> transformer -> unpatchify: [B, M, C] -> [B, M, C];
+        `condition` c [B, 1] for a conditioned processor."""
         D, H, W = self.grid.dims
         P = self.attn_config.patch_size
         B, M, C = rndata.shape
@@ -152,7 +161,9 @@ class GAOT3D(nn.Module):
             x = x + self.pos_emb
         else:
             rel = self.patch_pos
-        x = self.processor(x, relative_positions=rel, generator=generator)
+        place = active_placement()
+        x = self.processor(x, relative_positions=rel, generator=generator, condition=condition,
+                           batch_offset=0 if place is None else place.batch_offset)
         x = x.reshape(B, nd, nh, nw, P, P, P, C)
         return x.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, D * H * W, C)
 
@@ -176,9 +187,8 @@ class GAOT3D(nn.Module):
         attention dropout of a training forward and draws its edge sampling
         ('ratio', 'max_neighbors'); `edge_draws`, when given, are the
         sampling's draws instead (keep masks or priority keys, see
-        ops/sampling.py), one a scale, the encoder's scales first."""
-        if condition is not None:
-            raise NotImplementedError("conditioned models are not ported yet (ROADMAP item 6b)")
+        ops/sampling.py), one a scale, the encoder's scales first.
+        `condition` c [B, 1] feeds the processor's ConditionedNorms."""
         if query_pos is None:
             query_pos, query_mask = point_pos, point_mask
         n_scales = len(self.magno_config.scales)
@@ -209,5 +219,5 @@ class GAOT3D(nn.Module):
             dec = [build(query_pos, query_mask) for build in self.decoder.builds]
         rng = iter(edge_draws) if edge_draws is not None else generator
         rndata = self.encoder(point_pos, point_feats, enc, rng=rng)
-        rndata = self.process(rndata, generator)
+        rndata = self.process(rndata, condition, generator)
         return self.decoder(rndata, query_pos, dec, query_mask=query_mask, rng=rng)

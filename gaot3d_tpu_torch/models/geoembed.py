@@ -25,24 +25,31 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops.eigh3 import eigvalsh3x3_desc
 from ..ops.grid_graph import EdgeSlots, LatentGrid
 from ..ops.segment import (fold_count, fold_max, fold_sum_centred, make_segment_fold,
                            segment_max, segment_sum)
+from ..parallel.sharding import (all_reduce_max, all_reduce_sum, data_group, node_group,
+                                 world_group)
 from .integral_transform import effective_chunk, run_chunk
 
 POINTNET_WIDTH = 32
 
 
 def znorm_mlp(feats: torch.Tensor, mlp: nn.Module,
-              query_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              query_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """Statistical features [B, Q, F] z-normalised over all B*Q queries
     (those of query_mask [B, Q] when given; unbiased std, 1 where below
-    1e-6), then the embedding MLP."""
+    1e-6), then the embedding MLP. With a process `group` the queries are
+    those of every rank of it (the sums taken over the group); the features
+    take no gradient, so neither do the statistics."""
     flat = feats.reshape(-1, feats.shape[-1])
-    if query_mask is not None:
+    if group is not None:
+        mean, std = _group_mean_std(flat, query_mask, group)
+    elif query_mask is not None:
         qm = query_mask.reshape(-1, 1).to(flat.dtype)
         count = qm.sum().clamp_min(1.0)
         mean = (flat * qm).sum(0, keepdim=True) / count
@@ -53,6 +60,23 @@ def znorm_mlp(feats: torch.Tensor, mlp: nn.Module,
         std = flat.std(dim=0, keepdim=True, correction=1)
     std = torch.where(std < 1e-6, torch.ones((), dtype=std.dtype, device=std.device), std)
     return mlp(((flat - mean) / std).reshape(feats.shape))
+
+
+def _group_mean_std(flat: torch.Tensor, query_mask: Optional[torch.Tensor], group):
+    """Mean and unbiased std [1, F] of the rows of `flat` (those of
+    query_mask) over every rank of `group`: two passes, as the one-rank
+    statistics."""
+    flat = flat.detach()
+    qm = (torch.ones((flat.shape[0], 1), dtype=flat.dtype, device=flat.device)
+          if query_mask is None else query_mask.reshape(-1, 1).to(flat.dtype))
+    sums = torch.cat([qm.sum(0), (flat * qm).sum(0)])
+    dist.all_reduce(sums, group=group)
+    count = sums[:1].clamp_min(1.0)
+    mean = (sums[1:] / count)[None]
+    dev = torch.where(qm > 0, flat - mean, 0.0)
+    sq = (dev * dev).sum(0)
+    dist.all_reduce(sq, group=group)
+    return mean, torch.sqrt(sq / (count - 1.0).clamp_min(1.0))[None]
 
 
 def statistical_features(cnt, d_sum, d2_sum, x_sum, cov_sum, query_pos) -> torch.Tensor:
@@ -160,6 +184,13 @@ class GeometricEmbedding(nn.Module):
             cnt = cnt + self._count(seg, msk, folds)
             d_sum, d2_sum = d_sum + sums[..., 0], d2_sum + sums[..., 1]
             x_sum = x_sum + sums[..., 2:]
+        # a node-sharded step sums each pass over the node group (parallel/sharding.py)
+        group = node_group()
+        if group is not None:
+            first = all_reduce_sum(torch.cat([cnt[..., None], d_sum[..., None],
+                                              d2_sum[..., None], x_sum], dim=-1), group)
+            cnt, d_sum, d2_sum = first[..., 0], first[..., 1], first[..., 2]
+            x_sum = first[..., 3:]
         centroid = x_sum / cnt.clamp_min(1.0)[..., None]
         cov_sum = 0.0
         for rows in chunks:
@@ -171,6 +202,7 @@ class GeometricEmbedding(nn.Module):
             cc = (c[..., :, None] * c[..., None, :]).reshape(B, -1, 9)
             seg, msk, folds = self._segments(idx, slots.mask[:, rows])
             cov_sum = cov_sum + self._sum(cc, seg, msk, folds)
+        cov_sum = all_reduce_sum(cov_sum, group)
         qpos = self.grid.positions(device=point_pos.device, dtype=point_pos.dtype)
         return statistical_features(cnt, d_sum, d2_sum, x_sum, cov_sum.reshape(B, M, 3, 3),
                                     qpos.expand(B, M, 3))
@@ -226,6 +258,10 @@ class GeometricEmbedding(nn.Module):
             for a, c in parts[1:]:
                 acc = torch.maximum(acc, a) if self.pooling == "max" else acc + a
                 cnt = cnt + c
+            # a node-sharded step pools over the node group (parallel/sharding.py)
+            group = node_group()
+            acc = (all_reduce_max if self.pooling == "max" else all_reduce_sum)(acc, group)
+            cnt = all_reduce_sum(cnt, group)
         else:
             acc = torch.cat([a for a, _ in parts], dim=1)
             cnt = torch.cat([c for _, c in parts], dim=1)
@@ -261,7 +297,10 @@ class GeometricEmbedding(nn.Module):
                                                     slots.lat_idx[:, c0:c0 + chunk],
                                                     slots.mask[:, c0:c0 + chunk])
                     for c0 in range(0, N, chunk)], dim=1)
-        return znorm_mlp(feats, self.mlp, query_mask)
+        # the encoder's grid is replicated over a node group, its batch split
+        # over the data ranks; the decoder's queries are split over every rank
+        group = data_group() if direction == "encoder" else world_group()
+        return znorm_mlp(feats, self.mlp, query_mask, group)
 
 
 class StatisticalGeoEmbedding(GeometricEmbedding):

@@ -33,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid
+from ..parallel.sharding import all_reduce_sum, node_group
 from ..ops.segment import (fold_count, fold_max, fold_sum_centred, fold_sum_sorted,
                            gather_table, make_segment_fold, make_segment_fold_presorted,
                            segment_max, segment_sum)
@@ -219,6 +220,9 @@ class IntegralTransform(nn.Module):
                              None if feats is None else feats[:, rows], point_pos[:, rows],
                              slots.lat_idx[:, rows], slots.mask[:, rows])
             total, count = total + s, count + c
+        # a node-sharded step sums the ranks' sums and counts (parallel/sharding.py)
+        group = node_group()
+        total, count = all_reduce_sum(total, group), all_reduce_sum(count, group)
         # mean; an empty cell gives 0 (torch_scatter's 'mean')
         return total / count.clamp_min(1.0)[..., None]
 
@@ -262,6 +266,16 @@ class IntegralTransform(nn.Module):
             m, l, acc = run_chunk(self.remat, self._attn_chunk, m, l, acc,
                                   None if feats is None else feats[:, rows], point_pos[:, rows],
                                   slots.lat_idx[:, rows], slots.mask[:, rows])
+        group = node_group()
+        if group is not None:
+            # a node-sharded step joins the ranks' states at the global max; that
+            # shift cancels in acc / l, so it takes no gradient, the local m does
+            top = m.detach().clone()
+            torch.distributed.all_reduce(top, op=torch.distributed.ReduceOp.MAX, group=group)
+            top = torch.where(torch.isfinite(top), top, 0.0)
+            scale = torch.exp(torch.where(torch.isfinite(m), m, top) - top)
+            l = all_reduce_sum(l * scale, group)
+            acc = all_reduce_sum(acc * scale[..., None], group)
         out = acc / l.clamp_min(torch.finfo(torch.float32).tiny)[..., None]
         # a cell with no edge gives 0, as the segment sum of weighted values
         return torch.where((l > 0)[..., None], out, 0.0).to(point_pos.dtype)

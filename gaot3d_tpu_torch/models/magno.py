@@ -36,8 +36,12 @@ pair, see `parse_edge_layout`), `flat_order` and `flat_edges_per_chunk`
 with sections or flat edge lists is refused here too, when the model is
 built from a config that names that layout and when such edges are passed.
 Still not ported, and refused with NotImplementedError: `gno_coord_dim`
-other than 3 (the JAX kernel MLP takes [point | cell] on the 3-D grid) and
-the processor's `use_conditional_norm` and `rope3d` (ROADMAP item 6b).
+other than 3 (the JAX kernel MLP takes [point | cell] on the 3-D grid).
+Inside a node-sharded step (`parallel/sharding.py`) each encoder reduces its
+rank's rows and the node ranks join the per-cell results (the fused
+accumulator, the modular GNO's sums or softmax states, the geoembed's sums
+or maxima) before any division; the decoder answers each rank's own query
+rows.
 `remat` (bool or [encoder, decoder] pair, JAX's default on) recomputes the
 node chunks of the modular GNO and PointNet geoembed, and of the decoder
 head with more scales, attention or a nonlinear kernel, in the backward
@@ -564,12 +568,19 @@ class MAGNODecoder(_Side):
             if sect.num_nodes != query_pos.shape[1]:
                 raise ValueError(f"sectioned slots cover {sect.num_nodes} nodes, "
                                  f"queries have {query_pos.shape[1]}")
+            # shard-aligned sections (shards S > 1): a section's query rows
+            # come through the [B, S, N/S, 3] view, and the outputs go back
+            # shard by shard into the permuted global node order
+            B, N = query_pos.shape[:2]
+            S = sect.shards
+            qpos_v = query_pos.reshape(B, S, N // S, -1)
             outs, off = [], 0
             for sec in sect.sections:
-                ns = int(sec.lat_idx.shape[-2])
-                outs.append(self._decode(latent_feats, query_pos[:, off:off + ns], [sec]))
+                ns = int(sec.lat_idx.shape[-2]) // S
+                qsec = qpos_v[:, :, off:off + ns].reshape(B, S * ns, -1)
+                outs.append(self._decode(latent_feats, qsec, [sec]).reshape(B, S, ns, -1))
                 off += ns
-            return torch.cat(outs, dim=1)
+            return torch.cat(outs, dim=2).reshape(B, N, -1)
         if layout == "flat":
             # packed edge lists: src must be ascending within a chunk (the
             # fold by node trusts it)

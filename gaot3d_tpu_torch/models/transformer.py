@@ -11,15 +11,26 @@ Reference behaviours kept as they are:
   - U-shape: num_layers // 2 encoder blocks push skips, an optional middle
     block, num_layers // 2 decoder blocks with skip_proj(cat[x, skip]).
 
+  - 'rope3d' rotates q and k axially: head_dim // 6 * 2 dims a patch axis,
+    by that axis's patch coordinate, the last head_dim - 3 * that dims left
+    as they are; both ropes act before q and k are cast to the attention
+    type, outside the kernels;
+  - `use_conditional_norm`: a ConditionedNorm on c [B, 1] scales and shifts
+    the attention's input before the q/k/v projections and the FFN's output
+    (`condition` threads through every block).
+
 Module names are the reference state-dict keys (`processor.encoder_layers.0
-.attn.q_proj`, ...). Attention runs through ops.attention (the K1 and K2
-kernels on CUDA).
+.attn.q_proj`, ...); a ConditionedNorm is `attn.cond_norm` or `ffn.cond_norm`
+(flax's `ConditionedNorm_0` of `GroupQueryAttention_0` and of `FFN_0`).
+Attention runs through ops.attention (the K1 and K2 kernels on CUDA).
 
 Attention-probability dropout (training): the JAX code draws one key per
 attention layer through `make_rng("dropout")`. Here the processor draws one
 64-bit seed per block, in block order, from the `torch.Generator` its forward
 is handed, and each attention layer passes its seed to the kernels. There is
-no global random state: a training forward without a generator raises.
+no global random state: a training forward without a generator raises. A
+rank that holds rows b0.. of a larger batch passes `batch_offset` b0, and
+its rows draw the keep bits they draw in the whole batch.
 """
 from __future__ import annotations
 
@@ -32,6 +43,9 @@ from torch import nn
 
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.rope import apply_rope
+from .mlp import ConditionedNorm
+
+POSITIONAL_EMBEDDINGS = ("absolute", "rope", "rope3d")
 
 
 @dataclass
@@ -42,7 +56,7 @@ class AttentionConfig:
     use_conditional_norm: bool = False
     cond_norm_hidden_size: int = 4
     atten_dropout: float = 0.1
-    positional_embedding: str = "absolute"  # ['absolute', 'rope']
+    positional_embedding: str = "absolute"  # ['absolute', 'rope', 'rope3d']
     H: Optional[int] = None
     W: Optional[int] = None
     D: Optional[int] = None
@@ -84,15 +98,21 @@ class RMSNorm(nn.Module):
         return normed.to(x.dtype) * self.weight
 
 
+def rope3d(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Axial 3-D rope of q or k [..., S, head_dim] at patch coordinates
+    positions [S, 3]: dims [a * third, (a + 1) * third) rotated by axis a's
+    coordinate, third = head_dim // 6 * 2, the rest as they are."""
+    third = x.shape[-1] // 6 * 2
+    parts = [apply_rope(x[..., a * third:(a + 1) * third], positions[:, a]) for a in range(3)]
+    return torch.cat(parts + [x[..., 3 * third:]], dim=-1)
+
+
 class GroupQueryAttention(nn.Module):
     def __init__(self, output_size: int, cfg: AttentionConfig):
         super().__init__()
-        if cfg.use_conditional_norm:
-            raise NotImplementedError("use_conditional_norm is not ported yet (ROADMAP item 6b)")
-        if cfg.positional_embedding not in ("absolute", "rope"):
-            raise NotImplementedError(
-                f"positional_embedding {cfg.positional_embedding!r} is not ported "
-                "(supported: 'absolute', 'rope'; rope3d is ROADMAP item 6b)")
+        if cfg.positional_embedding not in POSITIONAL_EMBEDDINGS:
+            raise ValueError(f"unknown positional_embedding {cfg.positional_embedding!r} "
+                             f"(one of {POSITIONAL_EMBEDDINGS})")
         if cfg.attention_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown attention_dtype {cfg.attention_dtype!r}")
         if cfg.hidden_size % cfg.num_heads or cfg.num_heads % cfg.num_kv_heads:
@@ -100,19 +120,25 @@ class GroupQueryAttention(nn.Module):
         self.num_heads = cfg.num_heads
         self.num_kv_heads = cfg.num_kv_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
-        self.rope = cfg.positional_embedding == "rope"
+        self.positional_embedding = cfg.positional_embedding
         self.atten_dropout = cfg.atten_dropout
         self.attention_dtype = torch.bfloat16 if cfg.attention_dtype == "bfloat16" else None
         kv_hidden = self.head_dim * cfg.num_kv_heads
+        self.cond_norm = (ConditionedNorm(output_size, cfg.cond_norm_hidden_size)
+                          if cfg.use_conditional_norm else None)
         self.q_proj = nn.Linear(output_size, cfg.hidden_size, bias=False)
         self.k_proj = nn.Linear(output_size, kv_hidden, bias=False)
         self.v_proj = nn.Linear(output_size, kv_hidden, bias=False)
         self.o_proj = nn.Linear(cfg.hidden_size, output_size, bias=False)
 
     def forward(self, x: torch.Tensor, relative_positions=None,
-                seed: Optional[int] = None) -> torch.Tensor:
+                seed: Optional[int] = None, condition=None,
+                batch_offset: int = 0) -> torch.Tensor:
         """`seed` is this layer's dropout seed; it is needed only in training
-        with atten_dropout > 0."""
+        with atten_dropout > 0. `condition` [B, 1] feeds the ConditionedNorm;
+        `batch_offset` is the global batch index of x's row 0."""
+        if self.cond_norm is not None:
+            x = self.cond_norm(_required(condition), x)
         B, S, _ = x.shape
         q = self.q_proj(x).reshape(B, S, self.num_heads, self.head_dim).transpose(1, 2)
         k = self.k_proj(x).reshape(B, S, self.num_kv_heads, self.head_dim).transpose(1, 2)
@@ -121,33 +147,48 @@ class GroupQueryAttention(nn.Module):
             rep = self.num_heads // self.num_kv_heads
             k = k.repeat_interleave(rep, dim=1)
             v = v.repeat_interleave(rep, dim=1)
-        if relative_positions is not None and self.rope:
+        if relative_positions is not None and self.positional_embedding == "rope":
+            # the reference's sequence-order rotary: the coordinates are ignored
             q = apply_rope(q)
             k = apply_rope(k)
+        elif relative_positions is not None and self.positional_embedding == "rope3d":
+            q = rope3d(q, relative_positions)
+            k = rope3d(k, relative_positions)
         if self.attention_dtype is not None:
             q, k, v = (t.to(self.attention_dtype) for t in (q, k, v))
         rate = self.atten_dropout if self.training else 0.0
         if rate > 0.0 and seed is None:
             raise ValueError("attention dropout needs a seed: pass a torch.Generator to the "
                              "model's forward (or call model.eval())")
-        out = scaled_dot_product_attention(q, k, v, dropout_rate=rate, seed=seed)
+        out = scaled_dot_product_attention(q, k, v, dropout_rate=rate, seed=seed,
+                                           bh_offset=batch_offset * self.num_heads)
         out = out.transpose(1, 2).reshape(B, S, -1).to(x.dtype)
         return self.o_proj(out)
 
 
+def _required(condition):
+    if condition is None:
+        raise ValueError("use_conditional_norm needs a condition: pass condition=c [B, 1] "
+                         "to the model's forward")
+    return condition
+
+
 class FFN(nn.Module):
-    """SwiGLU: w2(silu(w1 x) * w3 x)."""
+    """SwiGLU: w2(silu(w1 x) * w3 x), then the ConditionedNorm when on."""
 
     def __init__(self, output_size: int, cfg: FFNConfig):
         super().__init__()
-        if cfg.use_conditional_norm:
-            raise NotImplementedError("use_conditional_norm is not ported yet (ROADMAP item 6b)")
         self.w1 = nn.Linear(output_size, cfg.hidden_size, bias=False)
         self.w3 = nn.Linear(output_size, cfg.hidden_size, bias=False)
         self.w2 = nn.Linear(cfg.hidden_size, output_size, bias=False)
+        self.cond_norm = (ConditionedNorm(output_size, cfg.cond_norm_hidden_size)
+                          if cfg.use_conditional_norm else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+    def forward(self, x: torch.Tensor, condition=None) -> torch.Tensor:
+        out = self.w2(F.silu(self.w1(x)) * self.w3(x))
+        if self.cond_norm is not None:
+            out = self.cond_norm(_required(condition), out)
+        return out
 
 
 class TransformerBlock(nn.Module):
@@ -161,13 +202,14 @@ class TransformerBlock(nn.Module):
         self.ffn = FFN(hidden, ffn_config)
         self.skip_proj = nn.Linear(2 * hidden, hidden) if skip_connection else None
 
-    def forward(self, x, relative_positions=None, skip=None, seed: Optional[int] = None):
+    def forward(self, x, relative_positions=None, skip=None, seed: Optional[int] = None,
+                condition=None, batch_offset: int = 0):
         if self.skip_proj is not None and skip is not None:
             x = self.skip_proj(torch.cat([x, skip], dim=-1))
         h = self.attn_norm(x) if self.attn_norm is not None else x
-        h = x + self.attn(h, relative_positions, seed)
+        h = x + self.attn(h, relative_positions, seed, condition, batch_offset)
         h = self.ffn_norm(h) if self.ffn_norm is not None else h
-        return h + self.ffn(h)
+        return h + self.ffn(h, condition)
 
 
 class UViTProcessor(nn.Module):
@@ -204,19 +246,23 @@ class UViTProcessor(nn.Module):
         return [int(s) for s in draws.tolist()]
 
     def forward(self, x: torch.Tensor, relative_positions=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, condition=None,
+                batch_offset: int = 0) -> torch.Tensor:
+        """`condition` [B, 1] reaches every block's ConditionedNorms;
+        `batch_offset` is the global batch index of x's row 0 (dropout)."""
         if self.input_proj is not None:
             x = self.input_proj(x)
         seeds = iter(self.layer_seeds(generator))
+        kw = dict(condition=condition, batch_offset=batch_offset)
         skips = []
         for blk in self.encoder_layers:
-            x = blk(x, relative_positions, seed=next(seeds))
+            x = blk(x, relative_positions, seed=next(seeds), **kw)
             skips.append(x)
         if self.middle_layer is not None:
-            x = self.middle_layer(x, relative_positions, seed=next(seeds))
+            x = self.middle_layer(x, relative_positions, seed=next(seeds), **kw)
         for blk in self.decoder_layers:
             skip = skips.pop() if self.use_long_range_skip else None
-            x = blk(x, relative_positions, skip=skip, seed=next(seeds))
+            x = blk(x, relative_positions, skip=skip, seed=next(seeds), **kw)
         if self.output_proj is not None:
             x = self.output_proj(x)
         return x

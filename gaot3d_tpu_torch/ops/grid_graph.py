@@ -298,30 +298,42 @@ class SectionedEdgeSlots:
 
     sections[i] covers nodes [sum_<i Ns, ...) of the PERMUTED point arrays;
     the permutation comes from `data.host_graph.section_slots_by_degree_np`
-    and must be applied to pos/feats (per sample). Model outputs come back in
-    that permuted node order.
+    or `section_slots_shared` and must be applied to pos/feats (per sample).
+    Model outputs come back in that permuted node order.
 
-    Only the unsharded layout (shards=1) is ported; the node-sharded
-    shard-major layout raises.
+    shards=S > 1 is the shard-aligned layout of node sharding
+    (`data.host_graph.section_slots_shared(..., shards=S)`): each section is
+    [B, S * ns_i, K_i] laid out shard-major (shard 0's ns_i rows, then shard
+    1's, ...), and the permuted point arrays give shard s the contiguous
+    range [s * N/S, (s + 1) * N/S). Section i's point rows are then
+    s * N/S + [off_i, off_i + ns_i) in every shard, which the model reads
+    through a [B, S, N/S, ...] view; `shard(s)` is shard s's own rows, an
+    unsharded layout over N/S nodes.
     """
 
     sections: Tuple[EdgeSlots, ...]
     shards: int = 1
 
     def __post_init__(self):
-        if self.shards != 1:
-            raise NotImplementedError(
-                "shard-aligned sections (shards > 1) are not ported yet; "
-                "the port runs unsharded on one device"
-            )
+        if self.shards < 1 or any(int(s.lat_idx.shape[-2]) % self.shards
+                                  for s in self.sections):
+            raise ValueError(f"shards {self.shards} must divide every section's rows")
 
     @property
     def num_nodes(self) -> int:
         return sum(int(s.lat_idx.shape[-2]) for s in self.sections)
 
+    def shard(self, s: int) -> "SectionedEdgeSlots":
+        """Shard s's rows of every section: the unsharded layout of the
+        point rows [s * N/S, (s + 1) * N/S)."""
+        def rows(t):
+            n = t.shape[-2] // self.shards
+            return t[..., s * n:(s + 1) * n, :]
+        return SectionedEdgeSlots(tuple(EdgeSlots(rows(sec.lat_idx), rows(sec.mask))
+                                        for sec in self.sections))
+
     @staticmethod
     def from_numpy(sections: Sequence[Tuple[np.ndarray, np.ndarray]],
-                   device=None) -> "SectionedEdgeSlots":
+                   device=None, shards: int = 1) -> "SectionedEdgeSlots":
         return SectionedEdgeSlots(
-            tuple(EdgeSlots.from_numpy(lat, msk, device) for lat, msk in sections)
-        )
+            tuple(EdgeSlots.from_numpy(lat, msk, device) for lat, msk in sections), shards)

@@ -9,7 +9,9 @@ read from the checkpoint. The mapping is `weights.state_dict_from_reference`
 (strict: only the reference's dead `skip_proj` weights are dropped). A `.pt`
 output is the port trainer's checkpoint layout `{"params": state_dict}`; a
 `.msgpack` output is the JAX package's `{"params": variables}`, which its
-trainer's `load_params_only` reads, as the JAX tool writes.
+trainer's `load_params_only` reads, as the JAX tool writes. For a
+conditioned config the output holds no ConditionedNorm weights, as the JAX
+tool's holds none: the reference's keys for them are not known to either.
 """
 from __future__ import annotations
 
@@ -56,8 +58,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..config import load_run_config
     from ..models import init_model
     from ..train.checkpoint import save_checkpoint, save_msgpack_params
-    from ..weights import (io_channels, load_numpy_state_dict, state_dict_from_reference,
-                           strip_ddp_prefix)
+    from ..weights import (COND_NORM_KEY, io_channels, load_numpy_state_dict,
+                           state_dict_from_reference, strip_ddp_prefix)
 
     if args.device is not None:
         print("import_torch_ckpt: --device names JAX's backend and is ignored: the "
@@ -69,12 +71,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cin, cout = io_channels(sd)
     model = init_model(cin, cout, cfg.model.name, margs.magno, margs.transformer,
                        latent_tokens=tuple(margs.latent_tokens), device="cpu")
-    load_numpy_state_dict(model, state_dict_from_reference(sd, model))
+    load_numpy_state_dict(model, state_dict_from_reference(sd, model), without_cond_norm=True)
     if args.output.endswith(".msgpack"):
-        save_msgpack_params(args.output, model)
+        save_msgpack_params(args.output, model, skip=COND_NORM_KEY)
     else:
-        save_checkpoint(args.output, {"params": model.state_dict()})
-    n = sum(p.numel() for p in model.parameters())
+        save_checkpoint(args.output, {"params": {k: v for k, v in model.state_dict().items()
+                                                 if not COND_NORM_KEY.fullmatch(k)}})
+    n = sum(p.numel() for k, p in model.named_parameters() if not COND_NORM_KEY.fullmatch(k))
     print(f"imported {args.torch_ckpt} -> {args.output} ({n:,} params)")
 
 

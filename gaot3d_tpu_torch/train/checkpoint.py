@@ -12,8 +12,10 @@ checkpoints: `load_msgpack_params` reads one that the JAX trainer wrote,
 the rules that tie the JAX parameter tree to the reference state-dict keys the
 port's modules are named by (gaot3d_tpu/torch_export.py
 `state_dict_from_params` and its inverse in gaot3d_tpu/torch_import.py), for
-the configurations the port builds: fused encoder, GNO-only decoder, one
-scale. The optimizer's state crosses in neither direction: optax and
+the configurations the port builds, a conditioned processor's
+ConditionedNorm weights included (flax's `ConditionedNorm_0` under
+`GroupQueryAttention_0` and `FFN_0`, `Dense_0` the scale map, `Dense_1` the
+bias map). The optimizer's state crosses in neither direction: optax and
 torch.optim keep different trees, so a run resumed in the other package
 starts its moments and its schedule anew. `msgpack` is imported inside the
 two calls; nothing else here needs it.
@@ -131,6 +133,10 @@ def tree_path(key: str, model: GAOT3D) -> Tuple[str, ...]:
             return base + ("RMSNorm_0", "weight")
         if rest[0] == "ffn_norm":
             return base + (f"RMSNorm_{int(bool(cfg.use_attn_norm))}", "weight")
+        if rest[0] in ("attn", "ffn") and rest[1] == "cond_norm":
+            owner = "GroupQueryAttention_0" if rest[0] == "attn" else "FFN_0"
+            mlp = ("scale_mlp", "bias_mlp").index(rest[2])
+            return base + (owner, "ConditionedNorm_0", f"Dense_{mlp}", dense[1])
         if rest[0] == "attn":
             i = ("q_proj", "k_proj", "v_proj", "o_proj").index(rest[1])
             return base + ("GroupQueryAttention_0", f"TorchLinear_{i}") + dense
@@ -148,11 +154,13 @@ def _is_matrix(key: str, path: Tuple[str, ...]) -> bool:
     return key.endswith(".weight") and path[-1] != "weight"
 
 
-def params_tree(model: GAOT3D) -> Dict[str, Any]:
+def params_tree(model: GAOT3D, skip=None) -> Dict[str, Any]:
     """The model's parameters as the JAX variables dict `{"params": tree}`
-    of numpy arrays."""
+    of numpy arrays (without the keys the compiled pattern `skip` matches)."""
     tree: Dict[str, Any] = {}
     for key, value in numpy_state_dict(model).items():
+        if skip is not None and skip.fullmatch(key):
+            continue
         path = tree_path(key, model)
         if _is_matrix(key, path):
             value = (value[..., 0] if value.ndim == 3 else value).T
@@ -233,9 +241,10 @@ def checkpoint_channels(path: str) -> Tuple[int, int]:
     return int(np.shape(lifting)[0]), int(np.shape(head)[1])
 
 
-def save_msgpack_params(path: str, model: GAOT3D) -> None:
+def save_msgpack_params(path: str, model: GAOT3D, skip=None) -> None:
     """Write `{"params": variables}` in the JAX package's msgpack format, so
-    that its `load_params_only` restores the model's parameters from it."""
+    that its `load_params_only` restores the model's parameters from it
+    (`skip`: see `params_tree`)."""
     import msgpack
 
     def default(x):
@@ -244,7 +253,8 @@ def save_msgpack_params(path: str, model: GAOT3D) -> None:
             return msgpack.ExtType(_NDARRAY_EXT, packed)
         raise TypeError(f"cannot pack {type(x)}")
 
-    blob = msgpack.packb({"params": params_tree(model)}, default=default, strict_types=True)
+    blob = msgpack.packb({"params": params_tree(model, skip)}, default=default,
+                         strict_types=True)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:

@@ -37,10 +37,27 @@ builds the edges of the sampled coordinates, so it needs that last mode.
 an explicit one alone; parameters and AdamW state stay f32, and attention is
 bf16 either way (`attention_dtype`).
 
-Not ported, refused with NotImplementedError naming its ROADMAP item:
-`setup.distributed` and `node_shards > 1` (item 7). The JAX
-trainer's layout harvest, host staging by node count and compilation cache
-answer to XLA and have no counterpart here.
+`setup.distributed` runs one process a rank over torch.distributed
+(`parallel/`): `data_parallel` ranks hold different samples, `node_shards`
+ranks the node shards of the same samples (rank = data_rank * node_shards +
+node_rank), started from torchrun's variables or from `world_size`, `rank`
+and `coordinator_address`; one process with world 1 runs as an
+undistributed trainer does. As in the JAX trainer:
+  - Python, numpy and torch's global state are seeded with seed + rank; the
+    weights and the step's randomness (dropout seeds, edge sampling,
+    neural-field draws) come from generators seeded alike on every rank;
+  - the train and val loaders are sharded by data rank (num_shards =
+    data_parallel), the test loader is not: every rank runs the whole test
+    set, its node shards gathered;
+  - sectioned slots are shard-aligned (`section_shards = node_shards`; the
+    padded node count must split over the node ranks);
+  - the precompute sweep runs on rank 0 while the others wait;
+  - the loss of a step is the global masked mean;
+  - validate over the sharded val loader sums each data rank's batch mean
+    (the reference's partitioning quirk);
+  - checkpoints, plots, npz files and the CSV row are written by rank 0.
+The JAX trainer's layout harvest, host staging by node count and compilation
+cache answer to XLA and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -65,6 +82,9 @@ from ..metadata import DATASET_METADATA
 from ..models import init_model
 from ..models.magno import parse_edge_layout, parse_neighbor_strategy
 from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots
+from ..parallel import (Placement, gather_rows, initialize_distributed, make_mesh, placed,
+                        shard_point_batch)
+from ..parallel.mesh import local_rank
 from ..utils.rand import manual_seed
 from .checkpoint import load_checkpoint, load_trained_params, save_checkpoint
 from .metrics import compute_drivaernet_metric, compute_general_metrics, compute_poseidon_metric
@@ -92,7 +112,7 @@ def _edges_to_device(edges, device, memo: dict):
     put = lambda t: pinned_to_device(t, device, memo)  # noqa: E731
     if isinstance(edges, SectionedEdgeSlots):
         out = SectionedEdgeSlots(tuple(EdgeSlots(put(s.lat_idx), put(s.mask))
-                                       for s in edges.sections))
+                                       for s in edges.sections), edges.shards)
     elif isinstance(edges, FlatEdgeChunks):
         out = FlatEdgeChunks(put(edges.src), put(edges.dst), put(edges.mask))
     else:
@@ -122,13 +142,24 @@ class TrainerBase:
         self.last_loader_stats: Dict[str, float] = {}
 
         setup = self.setup_config
-        if setup.distributed or setup.node_shards > 1 or setup.world_size > 1:
-            raise NotImplementedError(
-                "setup.distributed, world_size > 1 and node_shards > 1 are not ported: data "
-                "and node parallelism are ROADMAP item 7")
         self.device = resolve_device(setup.device)
-        manual_seed(setup.seed)
-        # weights are drawn on the CPU and moved; dropout seeds on the device
+        self.mesh = None
+        if setup.distributed:
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda", local_rank(setup))
+            initialize_distributed(setup, self.device)
+            self.mesh = make_mesh(setup.data_parallel, max(1, setup.node_shards))
+        elif setup.world_size > 1:
+            raise ValueError("setup.world_size > 1 needs setup.distributed: true")
+        self.rank = 0 if self.mesh is None else self.mesh.rank
+        self.num_processes = 1 if self.mesh is None else self.mesh.world
+        self.is_main = self.rank == 0
+        # node sharding splits every sample's points over the node ranks
+        self.shard_nodes = self.mesh is not None and self.mesh.node > 1
+        manual_seed(setup.seed + self.rank)
+        # the same on every rank: the weights, and the step's randomness (the
+        # global batch draws it once; each rank takes its rows' part).
+        # Weights are drawn on the CPU and moved; dropout seeds on the device
         self.init_generator = torch.Generator().manual_seed(setup.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(setup.seed)
         self.sample_generator = torch.Generator(device=self.device).manual_seed(setup.seed + 1)
@@ -144,8 +175,9 @@ class TrainerBase:
 
     # -- observability -----------------------------------------------------
     def _init_wandb(self):
-        """wandb is optional: imported only when the config turns it on."""
-        if not self.setup_config.wandb:
+        """wandb is optional: imported only when the config turns it on (rank
+        0 only)."""
+        if not self.setup_config.wandb or not self.is_main:
             return
         try:
             import wandb
@@ -196,7 +228,9 @@ class TrainerBase:
                                  is_best: bool = False):
         """Versioned checkpoint artifacts with 'latest' / 'best' aliases and
         loss and epoch metadata, in a directory next to the checkpoint path
-        (and to W&B when it is on)."""
+        (and to W&B when it is on); rank 0 only."""
+        if not self.is_main:
+            return
         art_dir, name, ext, meta_path = self._artifact_paths()
         os.makedirs(art_dir, exist_ok=True)
         version_path = os.path.join(art_dir, f"{name}-e{epoch}{ext}")
@@ -241,6 +275,8 @@ class TrainerBase:
 
     # -- checkpointing -------------------------------------------------------
     def save_ckpt(self, path: Optional[str] = None, extra: Optional[Dict] = None):
+        if not self.is_main:
+            return
         path = path or self.path_config.ckpt_path
         state = {"params": self.model.state_dict(),
                  "opt_state": self.optimizer.optimizer.state_dict(),
@@ -271,7 +307,8 @@ class TrainerBase:
     def fit(self):
         result = self.optimize()
         self.datarow["training time"] = result["time"]
-        self.plot_losses(result)
+        if self.is_main:
+            self.plot_losses(result)
         self.save_ckpt()
         if self._wandb is not None:
             try:
@@ -360,6 +397,17 @@ class StaticTrainer3D(TrainerBase):
             if not magno_cfg.slot_budget:
                 raise ValueError("magno.edge_layout='sectioned' requires slot_budget (sections "
                                  "truncate the valid-first compacted K columns)")
+        # node sharding needs SHARD-ALIGNED sections: the loader deals the
+        # degree-sorted nodes round-robin to node_shards equal ranges and lays
+        # every section out shard-major, so each rank's rows are one range
+        self.section_shards = 1
+        if "sectioned" in layout and self.shard_nodes:
+            self.section_shards = self.mesh.node
+            if dataset_config.pad_multiple % self.section_shards != 0:
+                raise ValueError(
+                    "sectioned + node sharding needs dataset.pad_multiple "
+                    f"({dataset_config.pad_multiple}) divisible by "
+                    f"node_shards ({self.section_shards})")
         if "flat" in layout and slot_mode == "device":
             raise ValueError("magno.edge_layout='flat' requires precomputed or async graph "
                              "building (update_pt_files_with_edges or "
@@ -401,7 +449,12 @@ class StaticTrainer3D(TrainerBase):
         if slot_mode == "precomputed":
             from ..data.graph_precompute import update_sample_files_with_edges
 
-            update_sample_files_with_edges(dataset_config, magno_cfg, self.grid, self.metadata)
+            # rank 0 sweeps (concurrent sweeps would race on the sample
+            # files); the other ranks wait for it
+            if self.is_main:
+                update_sample_files_with_edges(dataset_config, magno_cfg, self.grid,
+                                               self.metadata)
+            self._barrier()
         elif slot_mode == "async":
             grid = self.grid
             # sections need valid-first budget-compacted slots from the host;
@@ -459,20 +512,28 @@ class StaticTrainer3D(TrainerBase):
             flat_order=magno_cfg.flat_order,
             flat_edges_per_chunk=magno_cfg.flat_edges_per_chunk or 0,
             sectioned_profile=magno_cfg.sectioned_profile,
+            section_shards=self.section_shards,
         )
         dc = bool(dataset_config.device_cache)
+        # train and val are sharded by data rank (the DistributedSampler
+        # analogue): the node ranks of one data index load the same samples
+        data = 1 if self.mesh is None else self.mesh.data
+        shard_kw = dict(num_shards=data, shard_index=0 if self.mesh is None
+                        else self.mesh.data_rank)
         if self.setup_config.train:
             self.train_loader = BatchLoader(
                 train_ds, shuffle=dataset_config.shuffle, seed=self.setup_config.seed,
-                device_cache=dc, cache_put=self.put_batch, **common)
+                drop_last=data > 1, device_cache=dc, cache_put=self.put_batch, **shard_kw,
+                **common)
             self.val_loader = BatchLoader(
                 MeshDataset(dataset_config, "val"), shuffle=False, device_cache=dc,
-                cache_put=self.put_batch, **common)
+                cache_put=self.put_batch, **shard_kw, **common)
         else:
             self.train_loader = None
             self.val_loader = None
         # no device cache for the test loader: test() runs once and its timing
-        # report measures the real load and upload
+        # report measures the real load and upload. It is not sharded: every
+        # rank runs the whole set
         self.test_loader = BatchLoader(test_ds, shuffle=False, **common)
         self.num_input_channels = probe_sample["enc_feats"].shape[-1]
         self.num_output_channels = probe_sample["x"].shape[-1]
@@ -503,11 +564,32 @@ class StaticTrainer3D(TrainerBase):
         )
 
     # -- steps ------------------------------------------------------------------
-    def put_batch(self, batch) -> TrainBatch:
-        """A host PointBatch as a TrainBatch on the trainer's device, through
-        pinned memory on a card; a TrainBatch (a cached one) passes through."""
+    def _barrier(self) -> None:
+        if self.mesh is not None and self.mesh.world_group is not None:
+            torch.distributed.barrier()
+
+    def _placement(self, batch: TrainBatch, replicate_data: bool = False):
+        """The placement of this rank's rows of a sharded step (None
+        undistributed): a sharded loader's batch sits at data_rank times its
+        size; a batch every data rank holds whole is node-sharded alone."""
+        if self.mesh is None:
+            return None
+        if replicate_data:
+            return Placement(self.mesh.replicated_data(), 0)
+        return Placement(self.mesh, self.mesh.data_rank * batch.pos.shape[0])
+
+    def put_batch(self, batch, replicate_data: bool = False) -> TrainBatch:
+        """This rank's rows of a host PointBatch as a TrainBatch on the
+        trainer's device, through pinned memory on a card; a TrainBatch (a
+        cached one) passes through. Distributed, the batch is cut to the
+        rank's node shard (`shard_point_batch`): its rows are the data
+        rank's already (the sharded loaders) or, with `replicate_data`, the
+        whole batch (the test loader)."""
         if isinstance(batch, TrainBatch):
             return batch
+        if self.mesh is not None:
+            mesh = self.mesh.replicated_data() if replicate_data else self.mesh
+            batch, _ = shard_point_batch(batch, mesh, self.shard_nodes, process_local=True)
         memo: dict = {}
         put = lambda a: pinned_to_device(a, self.device, memo)  # noqa: E731
         edges = [None, None]  # slot mode 'device': the model builds them
@@ -521,13 +603,18 @@ class StaticTrainer3D(TrainerBase):
             node_mask=put(batch.node_mask), enc_slots=edges[0], dec_slots=edges[1])
 
     def train_step(self, batch) -> torch.Tensor:
-        loss, self._last_grad_norm = train_step(self.model, self.optimizer,
-                                                self.put_batch(batch), self.generator,
-                                                self.neural_field)
+        batch = self.put_batch(batch)
+        with placed(self._placement(batch)):
+            loss, self._last_grad_norm = train_step(self.model, self.optimizer, batch,
+                                                    self.generator, self.neural_field)
         return loss
 
-    def eval_step(self, batch):
-        return eval_step(self.model, self.put_batch(batch))
+    def eval_step(self, batch, replicate_data: bool = False):
+        """(this rank's prediction rows, the global masked MSE); with
+        `replicate_data`, a batch every data rank holds whole (test())."""
+        batch = self.put_batch(batch, replicate_data)
+        with placed(self._placement(batch, replicate_data)):
+            return eval_step(self.model, batch)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -636,11 +723,37 @@ class StaticTrainer3D(TrainerBase):
 
     def validate(self, loader) -> float:
         """Sum of batch-mean losses over the dataset size (the reference's
-        quirk, kept). The loss accumulates on the device and is read once."""
+        quirk, kept). The loss accumulates on the device and is read once.
+        Over a loader sharded by data rank, each step's term is the sum of
+        the data ranks' own batch means (`_rank_mean_term`), as the
+        reference's DDP validate all-reduces them."""
         total = torch.zeros((), device=self.device)
-        for batch in prefetch_to_device(iter(loader), self.put_batch):
-            total += self.eval_step(batch)[1]
+        if self.mesh is not None and loader.num_shards > 1:
+            for batch in prefetch_to_device(iter(loader), self.put_batch):
+                total += self._rank_mean_term(batch)
+        else:
+            replicate = self.mesh is not None  # an unsharded loader: the whole batch
+            for batch in prefetch_to_device(iter(loader),
+                                            lambda b: self.put_batch(b, replicate)):
+                total += self.eval_step(batch, replicate)[1]
         return float(total) / len(loader.dataset)
+
+    def _rank_mean_term(self, batch) -> torch.Tensor:
+        """One step of the sharded validate: this data rank's squared errors
+        and valid count (summed over its node group), their quotient, summed
+        over the data ranks (gaot3d_tpu/train/trainer.py
+        `_validate_multiprocess`)."""
+        batch = self.put_batch(batch)
+        pred, _ = self.eval_step(batch)
+        diff = (pred - batch.target) * batch.node_mask[..., None]
+        parts = torch.stack([(diff * diff).sum(), batch.node_mask.sum().to(pred.dtype)
+                             * pred.shape[-1]])
+        if self.mesh.node_group is not None:
+            torch.distributed.all_reduce(parts, group=self.mesh.node_group)
+        term = parts[0] / parts[1].clamp_min(1.0)
+        if self.mesh.data_group is not None:
+            torch.distributed.all_reduce(term, group=self.mesh.data_group)
+        return term
 
     def test(self) -> Dict[str, float]:
         """Timed inference and the metric suites."""
@@ -659,12 +772,14 @@ class StaticTrainer3D(TrainerBase):
                 batch_host = next(it)
             except StopIteration:
                 break
-            batch = self.put_batch(batch_host)
+            batch = self.put_batch(batch_host, replicate_data=True)
             self._sync()
             data_times.append(time.time() - t0)
 
             t1 = time.time()
-            pred, _ = self.eval_step(batch)
+            pred, _ = self.eval_step(batch, replicate_data=True)
+            if self.shard_nodes:  # every rank gathers the sample's node shards
+                pred = gather_rows(pred, self.mesh.replicated_data(), True)
             self._sync()
             inference_times.append(time.time() - t1)
             pred_np = pred.cpu().numpy()
@@ -687,7 +802,7 @@ class StaticTrainer3D(TrainerBase):
                     plot_coords, plot_gtr, plot_prd = batch_host.pos[b][m], t_den, p_den
 
         results: Dict[str, float] = {}
-        if not inference_times:
+        if not inference_times or not self.is_main:
             return results
         total_inf = sum(inference_times)
         total_data = sum(data_times)

@@ -6,6 +6,16 @@ tree exported there loads here with `strict=True` and no second mapping.
 The same keys are the reference PyTorch GAOT-3D's, so its checkpoints come
 in through `state_dict_from_reference` and go out through
 `reference_state_dict`.
+
+A conditioned processor's `ConditionedNorm` weights are the exception:
+`state_dict_from_params` emits no key for them, and the reference's names
+for them cannot be read from this repo. `conditioned_norm_state_dict` takes
+them from the flax param tree under the port's names (`...attn.cond_norm
+.scale_mlp.weight`, ...). Across the reference, the port does what the JAX
+tools do: the export leaves them out (gaot3d_tpu/torch_export.py has no
+rule for them), and the import carries none (gaot3d_tpu/torch_import.py
+reads no such key), so a conditioned model loads an imported checkpoint
+only together with its ConditionedNorm weights from elsewhere.
 """
 from __future__ import annotations
 
@@ -21,6 +31,8 @@ LIFTING_KEY = "encoder.lifting.fcs.0.weight"  # [C, in] (or [C, in, 1])
 HEAD_KEY = "decoder.projection.fcs.1.weight"  # [out, projection] (or [out, projection, 1])
 _DEAD_SKIP = re.compile(r"processor\.decoder_layers\.\d+\.skip_proj\.(weight|bias)")
 _DEAD_RECOVERY = re.compile(r"encoder\.recovery\.fcs\.0\.(weight|bias)")
+COND_NORM_KEY = re.compile(r"processor\..*\.(attn|ffn)\.cond_norm\.(scale|bias)_mlp\."
+                           r"(weight|bias)")
 
 
 def _check_latent_tokens(model: GAOT3D, tokens) -> None:
@@ -29,8 +41,11 @@ def _check_latent_tokens(model: GAOT3D, tokens) -> None:
         raise ValueError("latent_tokens buffer does not match the model's latent grid")
 
 
-def load_numpy_state_dict(model: GAOT3D, state: Mapping[str, np.ndarray]) -> GAOT3D:
-    """Copy a {reference key: np.ndarray} state dict into `model` (strict).
+def load_numpy_state_dict(model: GAOT3D, state: Mapping[str, np.ndarray],
+                          without_cond_norm: bool = False) -> GAOT3D:
+    """Copy a {reference key: np.ndarray} state dict into `model` (strict;
+    with `without_cond_norm`, strict but for the ConditionedNorm weights,
+    which the model keeps as they are).
 
     The optional `latent_tokens` buffer of the reference is checked against
     the model's latent grid and not stored: the port computes cell
@@ -39,8 +54,13 @@ def load_numpy_state_dict(model: GAOT3D, state: Mapping[str, np.ndarray]) -> GAO
     tokens = state.pop("latent_tokens", None)
     if tokens is not None:
         _check_latent_tokens(model, tokens)
-    model.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in state.items()},
-                          strict=True)
+    missing, unexpected = model.load_state_dict(
+        {k: torch.tensor(np.asarray(v)) for k, v in state.items()},
+        strict=not without_cond_norm)
+    missing = [k for k in missing if not COND_NORM_KEY.fullmatch(k)]
+    if missing or unexpected:
+        raise ValueError(f"the state dict does not fit the model: missing {missing}, "
+                         f"unexpected {unexpected}")
     return model
 
 
@@ -82,7 +102,10 @@ def state_dict_from_reference(sd: Mapping[str, object], model: GAOT3D) -> Dict[s
     `use_gno: false`, the encoder's `recovery`. Any
     other key the model lacks, and any key of the model the dict lacks, is a
     ValueError. Conv1d weights [out, in, 1] (`mlp_type: channel`) are kept as
-    they are: the port's ChannelMLP holds that layout."""
+    they are: the port's ChannelMLP holds that layout. A conditioned model's
+    ConditionedNorm weights are not among the keys the JAX import reads, so
+    the result lacks them (`load_numpy_state_dict(..., strict=False)` or
+    `conditioned_norm_state_dict` fills them)."""
     out = {}
     for key, value in strip_ddp_prefix(sd).items():
         out[key] = np.asarray(value.detach().cpu().numpy() if hasattr(value, "detach") else value)
@@ -93,11 +116,46 @@ def state_dict_from_reference(sd: Mapping[str, object], model: GAOT3D) -> Dict[s
         out = {k: v for k, v in out.items() if not _DEAD_SKIP.fullmatch(k)}
     if not model.magno_config.use_gno:
         out = {k: v for k, v in out.items() if not _DEAD_RECOVERY.fullmatch(k)}
-    want = set(model.state_dict())
+    want = {k for k in model.state_dict() if not COND_NORM_KEY.fullmatch(k)}
     extra, missing = sorted(set(out) - want), sorted(want - set(out))
     if extra or missing:
         raise ValueError(f"the checkpoint does not fit the model: keys the model lacks {extra}, "
                          f"keys the checkpoint lacks {missing}")
+    return out
+
+
+def block_names(num_layers: int):
+    """The port's names of the processor's blocks in flax's order
+    (TransformerBlock_0, _1, ...): encoder layers, the middle one, decoder
+    layers."""
+    n_enc = num_layers // 2
+    return ([f"processor.encoder_layers.{i}" for i in range(n_enc)]
+            + (["processor.middle_layer"] if num_layers % 2 else [])
+            + [f"processor.decoder_layers.{i}" for i in range(n_enc)])
+
+
+def conditioned_norm_state_dict(params: Mapping, num_layers: int) -> Dict[str, np.ndarray]:
+    """The `ConditionedNorm_*` leaves of a flax param tree (nested dicts of
+    arrays, with or without the outer "params") under the port's names:
+    `{block}.attn.cond_norm.*` from `GroupQueryAttention_0/ConditionedNorm_0`
+    and `{block}.ffn.cond_norm.*` from `FFN_0/ConditionedNorm_0`, `Dense_0`
+    the scale map and `Dense_1` the bias map, each kernel [in, out]
+    transposed to weight [out, in]. Merged with `state_dict_from_params`'s
+    output it loads a conditioned model with strict=True."""
+    tree = params
+    while "params" in tree and "processor" not in tree:
+        tree = tree["params"]
+    out = {}
+    for b, name in enumerate(block_names(num_layers)):
+        block = tree["processor"][f"TransformerBlock_{b}"]
+        for mod, key in (("GroupQueryAttention_0", "attn"), ("FFN_0", "ffn")):
+            norm = block[mod].get("ConditionedNorm_0")
+            if norm is None:
+                continue
+            for dense, mlp in (("Dense_0", "scale_mlp"), ("Dense_1", "bias_mlp")):
+                prefix = f"{name}.{key}.cond_norm.{mlp}"
+                out[f"{prefix}.weight"] = np.ascontiguousarray(np.asarray(norm[dense]["kernel"]).T)
+                out[f"{prefix}.bias"] = np.asarray(norm[dense]["bias"])
     return out
 
 
@@ -115,8 +173,10 @@ def reference_state_dict(model: GAOT3D) -> Dict[str, np.ndarray]:
     """The model's weights as the reference's `model.state_dict()`: its
     parameters under their (reference) keys and the `latent_tokens` buffer,
     as gaot3d_tpu/torch_export.py `state_dict_from_params(...,
-    latent_tokens=...)` writes them."""
+    latent_tokens=...)` writes them: without the ConditionedNorm weights,
+    which that function has no key for."""
     out = {"latent_tokens": latent_tokens_buffer(model.latent_tokens,
                                                  model.magno_config.gno_coord_dim)}
-    out.update(numpy_state_dict(model))
+    out.update({k: v for k, v in numpy_state_dict(model).items()
+                if not COND_NORM_KEY.fullmatch(k)})
     return out

@@ -393,9 +393,6 @@ def test_loader_device_cache_and_refusals(swept):
     with pytest.raises(ValueError, match="needs host-built slots"):
         tpipe.BatchLoader(tl.dataset, tl.preprocessor, 2, slot_mode="device",
                           edge_layout="flat")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        list(tpipe.BatchLoader(tl.dataset, tl.preprocessor, 2, slot_mode="precomputed",
-                               edge_layout="sectioned", edge_chunk_size=64, section_shards=2))
 
 
 def test_loader_warns_when_the_chunk_falls_far_below_edge_chunk_size(swept, caplog):
@@ -490,8 +487,6 @@ def test_section_slots_shared_refusals():
         thg.section_slots_shared([(lat, mask)], 64, profile=[4, 4])
     with pytest.raises(ValueError, match="must divide N"):
         thg.section_slots_shared([(lat, mask)], 100)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        thg.section_slots_shared([(lat, mask)], 64, shards=2)
     unpacked = mask[..., ::-1].copy()  # valid-last: not what sections can truncate
     with pytest.raises(ValueError, match="not valid-first packed"):
         thg.section_slots_shared([(lat, unpacked)], 64)

@@ -198,18 +198,14 @@ def test_init_model_is_seeded_by_its_generator():
 
 @pytest.mark.parametrize("magno_kw,attn_kw,match,error", [
     (dict(kernel_dtype="float16"), {}, "kernel_dtype", ValueError),  # float32 | bfloat16 run
-    ({}, dict(positional_embedding="rope3d"), "rope3d", NotImplementedError),
-    ({}, dict(attn_config=AttentionConfig(hidden_size=32, num_heads=4, num_kv_heads=2,
-                                          use_conditional_norm=True)),
-     "use_conditional_norm", NotImplementedError),
     (dict(gno_coord_dim=2), {}, "gno_coord_dim", NotImplementedError),
-], ids=["magno_kw0-attn_kw0-kernel_dtype", "magno_kw5-attn_kw5-rope3d",
-        "use_conditional_norm", "gno_coord_dim"])
+], ids=["magno_kw0-attn_kw0-kernel_dtype", "gno_coord_dim"])
 def test_unsupported_configs_raise(magno_kw, attn_kw, match, error):
     """Values the port does not run raise NotImplementedError, unknown ones
-    ValueError. The MAGNO variants run (tests/test_torch_port_variants*.py);
-    the processor's conditional norm and rope3d are ROADMAP item 6b, and
-    gno_coord_dim 2 runs in neither package."""
+    ValueError. The MAGNO variants run (tests/test_torch_port_variants*.py),
+    the processor's conditional norm and rope3d too
+    (tests/test_torch_port_processor_variants.py); gno_coord_dim 2 runs in
+    neither package."""
     magno, attn = _port_configs(_flagship_model())
     magno = dataclasses.replace(magno, **magno_kw)
     attn = dataclasses.replace(attn, **attn_kw)
@@ -221,8 +217,6 @@ def test_unsupported_inputs_raise():
     _, _, pmodel = _pair("float32", seed=6)
     pos, feats, _, mask, lat_c, msk_c = _problem(seed=53)
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="shards"):
-        SectionedEdgeSlots((EdgeSlots.from_numpy(lat_c, msk_c),), shards=2)
     bad = lat_c.copy()
     bad[msk_c] = 64  # a valid slot outside the 4x4x4 grid
     slots = EdgeSlots.from_numpy(bad, msk_c)

@@ -344,14 +344,12 @@ def test_run_config_file_applies_the_load_priority(pair, tmp_path):
      "magno.edge_layout='sectioned' requires precomputed or async graph building"),
     ({"dataset": {"update_pt_files_with_edges": False}, "magno": {"edge_layout": "flat"}},
      ValueError, "magno.edge_layout='flat' requires precomputed or async graph building"),
-    ({"setup": {"distributed": True}}, NotImplementedError, "ROADMAP item 7"),
-    ({"setup": {"node_shards": 2}}, NotImplementedError, "ROADMAP item 7"),
     ({"magno": {"slot_budget": None}}, ValueError, "requires slot_budget"),
     ({"magno": {"slot_budget": 1}}, ValueError, "below the max per-point degree"),
     ({"setup": {"device": "tpu"}}, ValueError, "not a device of this package"),
     ({"setup": {"trainer_name": "sequential"}}, ValueError, "unknown trainer"),
 ], ids=["neural_field-precompute", "neural_field-async", "device-sectioned", "device-flat",
-        "distributed", "node_shards", "sectioned-no-budget",
+        "sectioned-no-budget",
         "budget-too-small", "tpu", "trainer-name"])
 def test_trainer_refusals(tmp_path, updates, error, match):
     """What the trainer refuses; the neural-field and slot-mode refusals in
