@@ -15,7 +15,7 @@ Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
      power limit, turns TF32 off;
   2. build: compiles the twelve CUDA libraries of gaot3d_tpu_torch/csrc
-     with nvcc (K5's and K5b's sources twice, their f32 and bf16 bodies),
+     with nvcc (K5 and K5b each an f32 and a bf16 body),
      all at the same time, and prints each library's registers and spills
      from `-Xptxas -v`; for each body of K5 and K5b at the recipe's widths
      also its shared memory, the CTAs an SM holds and the TF32
@@ -34,14 +34,22 @@ Phases, each of which raises (exit code 1) on failure:
      version on the same sections, dfeats the same bits in two launches; both
      timed as the five launches alone and through their wrappers, with the
      bound from the 3xTF32 products, the GELU's instructions (counted in the
-     SASS of its formula built alone) and the bytes; then [k5-bf16] and
-     [k5b-bf16], the bf16 bodies (`kernel_dtype: bfloat16`) vs their bf16
-     plain versions on the same sections and on the neural-field step's
-     [1, 40,000, 5] slots, in relative L2 (K5_BF16_BOUND over the value
-     columns, K5B_BF16_BOUND for each of dfeats, dW, db), K5b launched once
-     a node chunk, each timed as its launches alone beside the f32 body's
-     time and its bound (one bf16 pass forward; the backward's recompute
-     one bf16 pass, its chain and dW two TF32 passes each);
+     SASS of its formula built alone), the L2 reductions (K5's scatter the
+     least time of the ways of adding these rows' payloads that
+     tools/probe_encoder_payload.py `red_rates` measures here, K5b's dW one
+     reduction a parameter an output at the fastest rate) and the bytes;
+     then [k5-bf16] and [k5b-bf16], the bf16 bodies (`kernel_dtype:
+     bfloat16`, valid-row tiles) vs their bf16 plain versions on the same
+     sections, on the neural-field step's [1, 40,000, 5] slots and on the
+     slots the card builds for the whole cloud ([1, 524,288, 5]), in
+     relative L2 (K5_BF16_BOUND over the value columns, K5B_BF16_BOUND for
+     each of dfeats, dW, db), K5b launched once a call (a dW slice a node
+     chunk), dfeats the same bits twice; the share of tile rows that are
+     valid in the earlier node-major tiles of every slot and in the tile
+     map; each timed as its launches alone beside the f32 body's time, the
+     earlier design's (NODE_MAJOR_MS) and its bound (one bf16 pass forward;
+     the backward's recompute one bf16 pass, its chain and dW two TF32
+     passes each; the L2 terms as above, K5b's a dW slice a node chunk);
   5. [serve] the DrivAerNet++ recipe model (random weights from a seed,
      `kernel_dtype: bfloat16` as tpu_500k.yaml sets it) is exported, loaded
      on the card and answers 2 requests of 524,288 points through K5's bf16
@@ -69,10 +77,10 @@ Phases, each of which raises (exit code 1) on failure:
      bytes and the pair's peak memory;
  11. [train] the recipe model takes 2 AdamW steps (mix schedule, dropout 0.1)
      on one 524,288-point cloud at `kernel_dtype: bfloat16`; launches per
-     step must be exactly K1 10, K2 10, K5 5 (a section each), K5b 8 (a node
-     chunk each), all of K5 and K5b through their bf16 bodies; then a
-     breakdown of one step, with K5's, K5b's and the GEMMs' device time in
-     its profile; the decoder's bf16 kernel MLP on one chunk's rows timed as
+     step must be exactly K1 10, K2 10, K5 5 and K5b 5 (a section each),
+     all of K5 and K5b through their bf16 bodies; then a breakdown of one
+     step, with K5's, K5b's and the GEMMs' device time and launches in its
+     profile; the decoder's bf16 kernel MLP on one chunk's rows timed as
      the port takes it (f32 GEMMs of bf16-rounded operands) and as torch.mm
      of bf16 operands with an f32 result; then one forward-and-backward on a
      32x32x16 grid with 65,536 points, at f32 and at bf16, is repeated with
@@ -85,8 +93,8 @@ Phases, each of which raises (exit code 1) on failure:
      epoch 2, test on 2 clouds; finite losses, the checkpoint, both .npz
      files and the CSV row with the JAX trainer's columns; a new trainer that
      reloads the checkpoint tests to the same metrics; every step launched
-     K1 10, K2 10, K3 0, K5's bf16 body once a section and K5b's once a node
-     chunk. Then [trainer-split]: one
+     K1 10, K2 10, K3 0, K5's and K5b's bf16 bodies once a section. Then
+     [trainer-split]: one
      epoch of the same config with GAOT_ATTN_BWD_FUSED=0 in the environment:
      every step K3's two kernels 10 times each and K2 never, finite losses,
      every parameter tensor moved.
@@ -180,7 +188,7 @@ Phases, each of which raises (exit code 1) on failure:
      (dropout, edge sampling from a generator on the card), finite, every
      parameter moved, timed with its peak; K1, K2, K5 and K5b launches as
      the configuration gives them (K5 once a scale on the fused linear
-     encoder under 'scatter', K5b once a node chunk a scale), K7 only and
+     encoder under 'scatter', K5b once a scale too), K7 only and
      at least once under 'sort';
  22. [trainer-variants] (run after [variants], on [trainer]'s data) the
      trainer through the CLI's entry point on h100_500k.toml with (f), (d)
@@ -192,7 +200,7 @@ Phases, each of which raises (exit code 1) on failure:
      rope3d`, then also a ConditionedNorm in every block's attention and FFN
      under c = [[0.7]]: an eval forward against the plain versions
      (E2E_BOUND), timed warm, K1 10; two AdamW steps, K1 10, K2 10, K5 a
-     section and K5b a node chunk (bf16 bodies), every parameter moving (the
+     section and K5b a section (bf16 bodies), every parameter moving (the
      ConditionedNorm maps' moves printed); two steps on a 32x32x16 grid with
      the kernels and with the plain versions, losses and the second step's
      gradient to E2E_BOUND.
@@ -666,11 +674,13 @@ def encoder_build_facts():
 
     for dtype in k5.KERNEL_DTYPES:
         bf16 = dtype == "bfloat16"
+        body = "_bf16" if bf16 else ""
         for lib, fn, kernel, need in (
                 (k5._library(dtype), "gaot_encoder_accumulate",
-                 "encoder_accumulate_kernelILi64ELi32E", ("BF16",) if bf16 else ("TF32",)),
+                 f"encoder_accumulate{body}_kernelILi64ELi32E", ("BF16",) if bf16 else ("TF32",)),
                 (k5._backward_library(dtype), "gaot_encoder_backward",
-                 "encoder_backward_kernelILi64ELi32ELi2E", ("BF16", "TF32") if bf16 else ("TF32",))):
+                 f"encoder_backward{body}_kernelILi64ELi32ELi2E",
+                 ("BF16", "TF32") if bf16 else ("TF32",))):
             name = os.path.basename(lib._name)[3:-3]
             text = sass(os.path.join(build.BUILD_DIR, f"lib{name}.so"))
             hmma = {kind: sum(1 for line in text.splitlines() if "HMMA" in line and kind in line)
@@ -740,7 +750,8 @@ def phase_k5():
     from gaot3d_tpu_torch.data.host_graph import build_edge_slots_host
     from gaot3d_tpu_torch.kernels import encoder_payload as k5
     from gaot3d_tpu_torch.models.mlp import ChannelMLP, reset_linear_
-    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
+    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid, build_budgeted_slots
+    from gaot3d_tpu_torch.tools import probe_encoder_payload as probe_payload
 
     grid = LatentGrid(dims=LATENT)
     rng = np.random.default_rng(1)
@@ -809,11 +820,23 @@ def phase_k5():
     slot_bytes = sum(lat.numel() * 5 for lat, _ in sec_t)
     moved = pos_t.numel() * 4 + feats.numel() * 4 + slot_bytes + n_weights * 4
     flops = valid_edges * 2 * n_weights
+    # the L2 reductions (tools/probe_encoder_payload.py red_rates): K5's scatter the least
+    # time any measured way of adding these rows' payloads takes, K5b's dW a reduction a
+    # parameter a launch's output at the fastest rate measured
+    arows = acc_rows(sections, grid.num_tokens)
+    red = probe_payload.red_rates(probe_payload.build_red_probe(), arows, C, grid.num_tokens)
+    print(f"[k5] red.global.add alone on the recipe's valid rows: K5's mix of v2 and scalar "
+          f"{red['k5_ms']:.3f} ms ({red['k5_per_s']:.3e} reductions a second), every column "
+          f"scalar {red['scalar_ms']:.3f} ms ({red['scalar_per_s']:.3e}), every pair v2 into rows "
+          f"of 48 floats {red['v2_ms']:.3f} ms ({red['v2_per_s']:.3e}), v4 on the 16-byte aligned "
+          f"groups {red['v4_ms']:.3f} ms ({red['v4_per_s']:.3e}) (median of 7)")
+    l2_s, l2_mode, l2_count = l2_scatter(arows, C, red)
     fwd_ops = {"tensor": 3 * flops / TF32_FLOPS, "fp32": hidden * gelu["gelu"][0] / FP32_OPS,
-               "sfu": hidden * gelu["gelu"][1] / SFU_OPS}
+               "sfu": hidden * gelu["gelu"][1] / SFU_OPS, "l2": l2_s}
     bwd_ops = {"tensor": 3 * 3 * flops / TF32_FLOPS,
                "fp32": hidden * (gelu["gelu"][0] + gelu["gelu_and_grad"][0]) / FP32_OPS,
-               "sfu": hidden * (gelu["gelu"][1] + gelu["gelu_and_grad"][1]) / SFU_OPS}
+               "sfu": hidden * (gelu["gelu"][1] + gelu["gelu_and_grad"][1]) / SFU_OPS,
+               "l2": l2_dw(len(sections), params.numel(), red)}
     rec = {"max_abs_err": err, "ms": cuda_ms(launches_alone),
            "plain_ms": cuda_ms(lambda: run(k5.encoder_accumulate_reference)),
            **bound(moved + 2 * acc.numel() * 4, **fwd_ops), "library_ms": None}
@@ -824,7 +847,8 @@ def phase_k5():
           f"(through the wrapper {wrapper_ms:.3f} ms: its share {wrapper_ms - rec['ms']:.3f} "
           f"ms), plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
           f"({rec['bound_by']}: tensor {1e3 * fwd_ops['tensor']:.3f}, GELU FP32 "
-          f"{1e3 * fwd_ops['fp32']:.3f}, MUFU {1e3 * fwd_ops['sfu']:.3f}, bytes "
+          f"{1e3 * fwd_ops['fp32']:.3f}, MUFU {1e3 * fwd_ops['sfu']:.3f}, L2 reductions "
+          f"{1e3 * fwd_ops['l2']:.3f} for {l2_count} as {l2_mode}, bytes "
           f"{1e3 * (moved + 2 * acc.numel() * 4) / HBM_BYTES_S:.3f}; as f32 FMAs "
           f"{1e3 * flops / F32_FLOPS:.3f}) (median of 5)")
 
@@ -877,38 +901,92 @@ def phase_k5():
           f"{wrapper_b:.3f} ms: its share {wrapper_b - rec_b['ms']:.3f} ms), plain "
           f"{rec_b['plain_ms']:.3f} ms, bound {rec_b['bound_ms']:.3f} ms ({rec_b['bound_by']}: "
           f"tensor {1e3 * bwd_ops['tensor']:.3f}, GELU FP32 {1e3 * bwd_ops['fp32']:.3f}, MUFU "
-          f"{1e3 * bwd_ops['sfu']:.3f}; as f32 FMAs {3e3 * flops / F32_FLOPS:.3f}) (median of 5)")
+          f"{1e3 * bwd_ops['sfu']:.3f}, L2 dW {1e3 * bwd_ops['l2']:.3f}; as f32 FMAs "
+          f"{3e3 * flops / F32_FLOPS:.3f}) (median of 5)")
     rec["wrapper_ms"], rec_b["wrapper_ms"] = wrapper_ms, wrapper_b
 
     # the bf16 bodies at the recipe's sections, beside the f32 bodies' times above, then at
-    # the neural-field step's slots: 40,000 nodes of the cloud, uniform, budget 5
+    # the neural-field step's slots (40,000 nodes of the cloud, uniform, budget 5) and at the
+    # slots the card builds for the whole cloud (uniform, budget 5, as [serve-device])
     counts = {"gelu": gelu, "flops": flops, "n_weights": n_weights, "widths": ws}
-    rec_bf, rec_b_bf = bf16_bodies("recipe's sections", sections, ws, bs, g, grid, counts,
-                                   (rec["ms"], rec_b["ms"]))
+    rec_bf, rec_b_bf = bf16_bodies("recipe's sections", "recipe", sections, ws, bs, g, grid,
+                                   counts, red, (rec["ms"], rec_b["ms"]))
     lat_nf, msk_nf = build_edge_slots_host(pos[perm][:NF_NODES], grid, RADIUS,
                                            strategy="bidirectional", budget=BUDGET)
     nf = [(pos_t[:, :NF_NODES], feats[:, :NF_NODES].contiguous(),
            torch.from_numpy(lat_nf[None]).cuda(), torch.from_numpy(msk_nf[None]).cuda())]
-    nf_fwd, nf_bwd = bf16_bodies(f"neural-field step's [1, {NF_NODES}, {BUDGET}]", nf, ws, bs,
-                                 g, grid, counts)
-    for rec_, nf_rec in ((rec_bf, nf_fwd), (rec_b_bf, nf_bwd)):
-        rec_.update({f"nf_{k}": nf_rec[k] for k in ("max_abs_err", "rel_l2", "ms", "plain_ms",
-                                                      "bound_ms", "bound_by", "f32_ms")})
+    nf_fwd, nf_bwd = bf16_bodies(f"neural-field step's [1, {NF_NODES}, {BUDGET}]", "nf", nf, ws,
+                                 bs, g, grid, counts, red)
+    dev = build_budgeted_slots(pos_t, grid, RADIUS, 1, "bidirectional", None, BUDGET, CHUNK)
+    device = [(pos_t, feats, dev.lat_idx.contiguous(), dev.mask.contiguous())]
+    dev_fwd, dev_bwd = bf16_bodies(f"device-built [1, {N_POINTS}, {BUDGET}]", "device", device,
+                                   ws, bs, g, grid, counts, red)
+    for prefix, extra in (("nf_", (nf_fwd, nf_bwd)), ("device_", (dev_fwd, dev_bwd))):
+        for rec_, other in zip((rec_bf, rec_b_bf), extra):
+            rec_.update({prefix + k: other[k] for k in (
+                "max_abs_err", "rel_l2", "ms", "plain_ms", "bound_ms", "bound_by", "f32_ms")})
     return rec, rec_b, rec_bf, rec_b_bf
 
 
-def bf16_bodies(label, sections, ws, bs, g, grid, counts, f32_ms=None):
+# The bf16 bodies before their valid-row tiles (node-major tiles of every slot, K5b once a
+# node chunk), their launches alone as this script timed them on an H100 80GB HBM3 at 700 W
+# (PERF.md section 6)
+NODE_MAJOR_MS = {("k5-bf16", "recipe"): 0.666, ("k5-bf16", "nf"): 0.107,
+           ("k5b-bf16", "recipe"): 4.112, ("k5b-bf16", "nf"): 0.621}
+
+
+def l2_scatter(arows, C, red):
+    """The L2 term of K5's bound for the valid rows whose accumulator rows
+    are `arows`: the least time among the ways `red` (probe_encoder_payload
+    `red_rates`) measured of adding their payloads (K5's v2 and scalar mix,
+    every column scalar, v4 on the 16-byte aligned groups), each its count of
+    reductions over its measured rate. Returns (seconds, mode, reductions)."""
+    from gaot3d_tpu_torch.tools.probe_encoder_payload import reduction_counts
+
+    counts = reduction_counts(arows, C)
+    return min((counts[m] / red[m + "_per_s"], m, counts[m]) for m in ("k5", "scalar", "v4"))
+
+
+def l2_dw(slices, n_params, red):
+    """The L2 term of K5b's bound: one reduction a parameter for each of
+    `slices` dW outputs (a node chunk's slice, or a launch's whole dW), at
+    the fastest rate `red` measured."""
+    return slices * n_params / max(red[m + "_per_s"] for m in ("k5", "scalar", "v2", "v4"))
+
+
+def acc_rows(sections, M):
+    """Accumulator rows (b * M + cell) of the valid rows of `sections`, in
+    node-major order, as K5 scatters them."""
+    import torch
+
+    out = []
+    for _, _, lat, msk in sections:
+        b = torch.arange(lat.shape[0], device=lat.device).view(-1, 1, 1).expand_as(lat)
+        out.append((b * M + lat.long())[msk])
+    return torch.cat(out).to(torch.int32)
+
+
+def with_zero_first(x):
+    """x with a 0 in front (an exclusive prefix's start)."""
+    import torch
+
+    return torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device), x])
+
+
+def bf16_bodies(label, key, sections, ws, bs, g, grid, counts, red, f32_ms=None):
     """[k5-bf16] / [k5b-bf16]: K5's and K5b's bf16 bodies against their bf16
     plain versions on `sections` ([(pos, feats, lat, mask)], node chunks of
     CHUNK), K5 to K5_BF16_BOUND over the value columns and K5b to
-    K5B_BF16_BOUND for each of dfeats, dW, db (relative L2); each timed as
-    its launches alone (K5 one a section, K5b one a chunk) beside the f32
-    body's time (`f32_ms`, or timed here) and its bound. Returns the two
-    records."""
+    K5B_BF16_BOUND for each of dfeats, dW, db (relative L2), K5b's dfeats the
+    same bits twice; each launched once a section; the share of tile rows
+    that are valid, in node-major tiles of every slot and in the tile map;
+    each timed as its launches alone beside the f32 body's time (`f32_ms`,
+    or timed here), the node-major design's (NODE_MAJOR_MS[tag, key], if
+    any) and its bound, whose L2-reduction terms take the rates `red`
+    measured (`l2_scatter`, `l2_dw`). Returns the two records."""
     import torch
 
     from gaot3d_tpu_torch.kernels import encoder_payload as k5
-    from gaot3d_tpu_torch.models.integral_transform import effective_chunk
 
     C = sections[0][1].shape[-1]
     bf = "bfloat16"
@@ -938,13 +1016,6 @@ def bf16_bodies(label, sections, ws, bs, g, grid, counts, f32_ms=None):
     if not rel <= K5_BF16_BOUND:
         raise RuntimeError(f"K5's bf16 body disagrees with its plain version: {rel}")
 
-    chunks = []  # K5b's launches: one a chunk of each section
-    for p, f, lat, msk in sections:
-        n = p.shape[1]
-        step = effective_chunk(n, CHUNK)
-        chunks += [(p[:, c:c + step], f[:, c:c + step], lat[:, c:c + step], msk[:, c:c + step])
-                   for c in range(0, n, step)]
-
     def run_backward(fn):
         out = []
         for p, f, lat, msk in sections:
@@ -962,8 +1033,8 @@ def bf16_bodies(label, sections, ws, bs, g, grid, counts, f32_ms=None):
     again = run_backward(k5.encoder_accumulate_backward)
     ref_b = run_backward(plain_backward)
     torch.cuda.synchronize()
-    if k5.encoder_accumulate_backward.launches_bf16 != nb + 2 * len(chunks):
-        raise RuntimeError("K5b bf16: not one launch a chunk")
+    if k5.encoder_accumulate_backward.launches_bf16 != nb + 2 * len(sections):
+        raise RuntimeError("K5b bf16: not one launch a call")
     if not torch.equal(got_b[0], again[0]):
         raise RuntimeError("K5b bf16: dfeats differs between two launches")
     names = ["dfeats"] + [f"dW{i}" for i in range(len(ws))] + [f"db{i}" for i in range(len(ws))]
@@ -973,40 +1044,60 @@ def bf16_bodies(label, sections, ws, bs, g, grid, counts, f32_ms=None):
             raise RuntimeError(f"K5b bf16: non-finite {name}")
         rels[name] = ((a - b).norm() / b.norm()).item()
     worst_abs = max((a - b).abs().max().item() for a, b in zip(got_b, ref_b))
-    print(f"[k5b-bf16] {label}: {len(chunks)} launches, against autograd through the bf16 "
-          f"plain version, relative L2 "
+    print(f"[k5b-bf16] {label}: {len(sections)} launches (one a section), against autograd "
+          f"through the bf16 plain version, relative L2 "
           + ", ".join(f"{n} {r:.2e}" for n, r in rels.items())
           + "; dfeats the same bits in two calls")
     if max(rels.values()) > K5B_BF16_BOUND:
         raise RuntimeError(f"K5b's bf16 body disagrees with its plain version: {rels}")
 
-    # bounds: K5's products one bf16 pass; K5b's recompute one bf16 pass, its chain (the
-    # layers after the first) and dW each two TF32 passes; the GELU's and the bytes as f32's
+    # the rows: valid ones, node-major tiles of every slot, the tile map's items
+    maps = [k5.tile_map(msk, CHUNK) for *_, msk in sections]
     valid = int(sum(int(m.sum()) for *_, m in sections))
+    node_major = sum(-(-lat.shape[1] // (k5.TILE_ROWS // lat.shape[2])) for _, _, lat, _ in sections)
+    items = 0
+    for tm, (*_, msk) in zip(maps, sections):
+        total = int(tm.n_items)
+        count = torch.cumsum(with_zero_first(msk.reshape(-1, msk.shape[-1]).sum(-1)), 0)
+        nf = tm.node_first[:total + 1].long()
+        items += int(((count[nf[1:]] - count[nf[:-1]]) > 0).sum())
+    print(f"[k5-bf16] {label}: {valid} valid rows of {sum(m.numel() for *_, m in sections)} "
+          f"slots; node-major tiles of every slot: {node_major} of 128 rows, "
+          f"{100 * valid / (node_major * k5.TILE_ROWS):.1f}% of their rows valid; the tile map: "
+          f"{items} items with rows, {100 * valid / (items * k5.TILE_ROWS):.1f}% of 128 rows "
+          f"each filled")
+
+    # bounds: K5's products one bf16 pass; K5b's recompute one bf16 pass, its chain (the
+    # layers after the first) and dW each two TF32 passes; the GELU's and the bytes as f32's;
+    # the L2 terms as the f32 bodies', K5b's with a dW slice a node chunk
     flops = valid * 2 * counts["n_weights"]
     chain = valid * 2 * (counts["n_weights"] - ws[0].numel())
     hidden = valid * sum(w.shape[0] for w in ws[:-1])
     gelu = counts["gelu"]
-    fp32_fwd = hidden * gelu["gelu"][0] / FP32_OPS
-    sfu_fwd = hidden * gelu["gelu"][1] / SFU_OPS
-    fwd_ops = {"tensor": flops / BF16_FLOPS, "fp32": fp32_fwd, "sfu": sfu_fwd}
+    l2_s, l2_mode, reductions = l2_scatter(acc_rows(sections, grid.num_tokens), C, red)
+    slices = sum(tm.n_chunks for tm in maps)
+    fwd_ops = {"tensor": flops / BF16_FLOPS, "fp32": hidden * gelu["gelu"][0] / FP32_OPS,
+               "sfu": hidden * gelu["gelu"][1] / SFU_OPS, "l2": l2_s}
     bwd_ops = {"tensor": flops / BF16_FLOPS + 2 * (chain + flops) / TF32_FLOPS,
                "fp32": hidden * (gelu["gelu"][0] + gelu["gelu_and_grad"][0]) / FP32_OPS,
-               "sfu": hidden * (gelu["gelu"][1] + gelu["gelu_and_grad"][1]) / SFU_OPS}
+               "sfu": hidden * (gelu["gelu"][1] + gelu["gelu_and_grad"][1]) / SFU_OPS,
+               "l2": l2_dw(slices, params.numel(), red)}
     n_nodes = sum(p.shape[1] for p, *_ in sections)
     slot_bytes = sum(lat.numel() * 5 for _, _, lat, _ in sections)
     moved = n_nodes * (3 + C) * 4 + slot_bytes + params.numel() * 4
     acc_bytes = 2 * acc.numel() * 4
 
     def launches_alone():
-        for p, f, lat, msk in sections:
-            k5.launch_accumulate(p, f, lat, msk, params, n_mid, hid, grid, acc, bf)
+        for (p, f, lat, msk), tm in zip(sections, maps):
+            k5.launch_accumulate(p, f, lat, msk, params, n_mid, hid, grid, acc, bf, tm)
 
-    outs = [(torch.empty_like(f), torch.zeros_like(params)) for _, f, _, _ in chunks]
+    # K5b's outputs zeroed once, outside the events (the slices take every launch's sums)
+    outs = [(torch.zeros_like(f), torch.zeros((tm.n_chunks, params.numel()), device="cuda"))
+            for (_, f, _, _), tm in zip(sections, maps)]
 
     def backward_launches():
-        for (p, f, lat, msk), (df, dp) in zip(chunks, outs):
-            k5.launch_backward(g, p, f, lat, msk, params, n_mid, hid, grid, df, dp, bf)
+        for (p, f, lat, msk), tm, (df, dp) in zip(sections, maps, outs):
+            k5.launch_backward(g, p, f, lat, msk, params, n_mid, hid, grid, df, dp, bf, tm)
 
     def f32_launches():
         for p, f, lat, msk in sections:
@@ -1023,6 +1114,7 @@ def bf16_bodies(label, sections, ws, bs, g, grid, counts, f32_ms=None):
     rec = {"max_abs_err": err, "rel_l2": rel, "ms": cuda_ms(launches_alone),
            "plain_ms": cuda_ms(lambda: run(plain_forward)),
            **bound(moved + acc_bytes, **fwd_ops), "library_ms": None, "f32_ms": f32_ms[0],
+           "valid_share": valid / (node_major * k5.TILE_ROWS),
            "wrapper_ms": cuda_ms(lambda: [
                k5.encoder_accumulate(p, f, lat, msk, ws, bs, grid, acc, CHUNK, kernel_dtype=bf)
                for p, f, lat, msk in sections])}
@@ -1033,11 +1125,17 @@ def bf16_bodies(label, sections, ws, bs, g, grid, counts, f32_ms=None):
              "f32_ms": f32_ms[1],
              "wrapper_ms": cuda_ms(lambda: run_backward(k5.encoder_accumulate_backward))}
     for tag, r, ops in (("k5-bf16", rec, fwd_ops), ("k5b-bf16", rec_b, bwd_ops)):
-        print(f"[{tag}] {label}: the launches alone {r['ms']:.3f} ms against the f32 body's "
-              f"{r['f32_ms']:.3f} ms (through the wrapper {r['wrapper_ms']:.3f} ms), plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}: tensor "
-              f"{1e3 * ops['tensor']:.3f}, GELU FP32 {1e3 * ops['fp32']:.3f}, MUFU "
-              f"{1e3 * ops['sfu']:.3f}) (median of 5, CUDA events)")
+        before = NODE_MAJOR_MS.get((tag, key))
+        print(f"[{tag}] {label}: the launches alone {r['ms']:.3f} ms"
+              + (f" (node-major design: {before:.3f} ms)" if before is not None else "")
+              + f" against the f32 body's {r['f32_ms']:.3f} ms (through the wrapper "
+              f"{r['wrapper_ms']:.3f} ms), plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']}: tensor {1e3 * ops['tensor']:.3f}, GELU "
+              f"FP32 {1e3 * ops['fp32']:.3f}, MUFU {1e3 * ops['sfu']:.3f}, L2 reductions "
+              f"{1e3 * ops['l2']:.3f}" + (
+                  f" for {slices} dW slices of {params.numel()}" if tag == "k5b-bf16"
+                  else f" for {reductions} as {l2_mode}")
+              + ") (median of 5, CUDA events)")
     return rec, rec_b
 
 
@@ -1193,9 +1291,10 @@ def plain_versions():
             (k1, "flash_attention", k1.flash_attention_plain),
             (k1, "flash_attention_backward", k1.flash_attention_backward_plain),
             (k5, "encoder_accumulate",
-             lambda *a, params=None, **kw: k5.encoder_accumulate_reference(*a, **kw)),
+             lambda *a, params=None, tiles=None, **kw: k5.encoder_accumulate_reference(*a, **kw)),
             (k5, "encoder_accumulate_backward",
-             lambda *a, params=None, **kw: k5.encoder_accumulate_backward_reference(*a, **kw)),
+             lambda *a, params=None, tiles=None, **kw:
+             k5.encoder_accumulate_backward_reference(*a, **kw)),
             (k7, "prefix_sum", k7.prefix_sum_reference),
             (segment, "segment_sum_sorted",
              lambda data, ids, num_segments, passes=1:
@@ -1642,12 +1741,11 @@ def phase_train(card, k5b_ms=None):
     pos, feats, target, mask, slots, nsec, _ = cloud(21, N_POINTS, grid)
     if nsec != 5:
         raise RuntimeError(f"[train] {nsec} sections, expected 5")
-    chunks = node_chunks([int(sec.lat_idx.shape[1]) for sec in slots.sections])
     batch = TrainBatch(pos, feats, target, mask, slots, slots)
-    print(f"[train] the recipe at kernel_dtype bfloat16: {nsec} sections, {chunks} node chunks")
+    print(f"[train] the recipe at kernel_dtype bfloat16: {nsec} sections")
     total, optimizer, generator = train_steps(
         "train", card, model, batch,
-        {"k1": 10, "k2": 10, **payload_launches(nsec, chunks, "bfloat16")})
+        {"k1": 10, "k2": 10, **payload_launches(nsec, "bfloat16")})
 
     # breakdown of one more step: device time of each part, then a profile
     model.train()
@@ -1669,8 +1767,8 @@ def phase_train(card, k5b_ms=None):
     print_profile("train", "profiled step", wall, rows, top=8)
     if rows:
         busy = sum(r[1] for r in rows)
-        for label, key in (("K5", "encoder_accumulate_kernel"),
-                           ("K5b", "encoder_backward_kernel"), ("GEMMs", "gemm")):
+        for label, key in (("K5", "encoder_accumulate"), ("K5b", "encoder_backward"),
+                           ("GEMMs", "gemm")):
             mine = [r for r in rows if key in r[0].lower()]
             print(f"[train] {label} in the profiled step: {sum(r[1] for r in mine):.3f} ms for "
                   f"{sum(r[2] for r in mine)} launches, {100 * sum(r[1] for r in mine) / busy:.1f}"
@@ -1763,22 +1861,25 @@ class PayloadCalls:
         fwd, bwd = k5.launch_accumulate, k5.launch_backward
 
         def spy_fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc,
-                    kernel_dtype="float32"):
+                    kernel_dtype="float32", tiles=None):
             if self.fwd is not None:
-                return fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc, kernel_dtype)
+                return fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc, kernel_dtype,
+                           tiles)
             inputs = [t.clone() for t in (pos, feats, lat_idx, mask, params, acc)]
-            fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc, kernel_dtype)
+            fwd(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc, kernel_dtype, tiles)
             self.fwd = (inputs, n_mid, hid, grid, acc.clone(), kernel_dtype)
 
         def spy_bwd(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, dparams,
-                    kernel_dtype="float32"):
+                    kernel_dtype="float32", tiles=None):
             if self.bwd is not None:
                 return bwd(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats,
-                           dparams, kernel_dtype)
+                           dparams, kernel_dtype, tiles)
             inputs = [t.clone() for t in (g, pos, feats, lat_idx, mask, params)]
             bwd(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, dparams,
-                kernel_dtype)
-            self.bwd = (inputs, n_mid, hid, grid, dfeats.clone(), dparams.clone(), kernel_dtype)
+                kernel_dtype, tiles)
+            chunk = tiles.chunk if tiles is not None else None
+            self.bwd = (inputs, n_mid, hid, grid, dfeats.clone(), dparams.clone(), kernel_dtype,
+                        chunk)
 
         self.patches = [mock.patch.object(k5, "launch_accumulate", spy_fwd),
                         mock.patch.object(k5, "launch_backward", spy_bwd)]
@@ -1799,9 +1900,10 @@ class PayloadCalls:
     def check(self, tag):
         """The f32 bodies: K5 to K5_BOUND and K5b to K5B_BOUND, relative to
         the max abs; the bf16 bodies: K5_BF16_BOUND and K5B_BF16_BOUND in
-        relative L2, the bf16 launch's dW rounded as the wrapper rounds it
-        (one launch, one chunk). Against the plain versions on the kept
-        inputs (each kept launch's, forward or backward, if any). The inputs
+        relative L2, the bf16 launch's dW slices rounded and summed as the
+        wrapper does, against the plain version at the launch's node chunk.
+        Against the plain versions on the kept inputs (each kept launch's,
+        forward or backward, if any). The inputs
         are copied again here: copies made under inference mode (a served
         request) take no in-place update or autograd outside it."""
         k5 = self.k5
@@ -1828,15 +1930,15 @@ class PayloadCalls:
             if not (rel <= limit and rel_vals <= limit):
                 raise RuntimeError(f"[{tag}] K5 disagrees with its plain version: {rel}")
         if self.bwd is not None:
-            inputs, n_mid, hid, grid, dfeats, dparams, dtype = self.bwd
+            inputs, n_mid, hid, grid, dfeats, dparams, dtype, chunk = self.bwd
             g, pos, feats, lat_idx, mask, params = (t.clone() for t in inputs)
             C = feats.shape[-1]
             ws, bs = self.mlp(params, n_mid, hid, C)
             ref = k5.encoder_accumulate_backward_reference(g, pos, feats, lat_idx, mask, ws, bs,
-                                                           grid, CHUNK, dtype)
+                                                           grid, chunk or CHUNK, dtype)
+            n_slices = dparams.shape[0] if dtype == "bfloat16" else 1
             if dtype == "bfloat16":
-                for a, b in k5._weight_entries(self.shapes(n_mid, hid, C)):
-                    dparams[a:b] = k5.round_bf16(dparams[a:b])
+                dparams = k5.sum_chunk_slices(dparams, self.shapes(n_mid, hid, C))
             dws, dbs = self.mlp(dparams, n_mid, hid, C)
             pairs = list(zip([dfeats, *dws, *dbs], [ref[0], *ref[1], *ref[2]]))
             if dtype == "bfloat16":
@@ -1846,7 +1948,9 @@ class PayloadCalls:
                 worst = max(((a - b).abs().max() / b.abs().max()).item() for a, b in pairs)
                 limit, what = K5B_BOUND, "relative"
             print(f"[{tag}] K5b ({dtype} body) as the path launched it, slots "
-                  f"{list(lat_idx.shape)}, against autograd through the plain version: worst "
+                  f"{list(lat_idx.shape)}"
+                  + (f" ({n_slices} node chunks)" if dtype == "bfloat16" else "")
+                  + ", against autograd through the plain version: worst "
                   f"{what} {worst:.3e} of dfeats, dW, db")
             if not worst <= limit:
                 raise RuntimeError(f"[{tag}] K5b disagrees with its plain version: {worst}")
@@ -2917,11 +3021,9 @@ class TrainerSpy:
             else:
                 n = int(batch.pos.shape[1])
                 sizes = [min(n, neural_field.input_nodes) if neural_field else n]
-            cfg = model.magno_config
             self.steps.append({**{n: fn.launches - was[n] for n, fn in self.counters.items()},
                                "sections": len(sizes),
-                               "chunks": node_chunks(sizes, cfg.edge_chunk_size),
-                               "kernel_dtype": cfg.kernel_dtype})
+                               "kernel_dtype": model.magno_config.kernel_dtype})
             return out
 
         def spy_eval(trainer, batch, *args, **kwargs):
@@ -2985,28 +3087,21 @@ def attention_counters():
             "k5b_bf16": Bf16Launches(k5.encoder_accumulate_backward)}
 
 
-def payload_launches(sections, chunks, kernel_dtype):
-    """K5's and K5b's launches of one step with `sections` sections of
-    `chunks` node chunks in all: K5 once a section; K5b once a section
-    (f32) or once a chunk (bf16, whose dW is rounded at JAX's chunks)."""
+def payload_launches(sections, kernel_dtype):
+    """K5's and K5b's launches of one step with `sections` sections: each
+    once a section, through the body for `kernel_dtype` (the bf16 K5b keeps
+    a dW slice for each node chunk in its one launch)."""
     bf16 = kernel_dtype == "bfloat16"
-    return {"k5": sections, "k5b": chunks if bf16 else sections,
-            "k5_bf16": sections if bf16 else 0, "k5b_bf16": chunks if bf16 else 0}
-
-
-def node_chunks(sizes, chunk=CHUNK):
-    """Node chunks of sections of `sizes` nodes (JAX's `effective_chunk`)."""
-    from gaot3d_tpu_torch.models.integral_transform import effective_chunk
-
-    return sum(n // effective_chunk(n, chunk) for n in sizes)
+    return {"k5": sections, "k5b": sections, "k5_bf16": sections if bf16 else 0,
+            "k5b_bf16": sections if bf16 else 0}
 
 
 def check_steps(label, spy, expect_per_step):
     """Every recorded step launched what `expect_per_step` says, and K5 and
-    K5b what the step's sections and chunks give (`payload_launches`)."""
+    K5b what the step's sections give (`payload_launches`)."""
     for i, step in enumerate(spy.steps):
         want = {**expect_per_step,
-                **payload_launches(step["sections"], step["chunks"], step["kernel_dtype"])}
+                **payload_launches(step["sections"], step["kernel_dtype"])}
         got = {n: step[n] for n in want}
         if got != want:
             raise RuntimeError(f"{label} step {i}: launches {got}, expected {want}")
@@ -3044,7 +3139,7 @@ def phase_trainer(card):
         raise RuntimeError(f"[trainer] {len(spy.steps)} steps, expected "
                            f"{args.epoch} x {steps_per_epoch}")
     check_steps("[trainer]", spy, {"k1": 10, "k2": 10, "k3_dq": 0, "k3_dkv": 0})
-    sections = sorted({(s["sections"], s["chunks"]) for s in spy.steps})
+    sections = sorted({s["sections"] for s in spy.steps})
     dtypes = sorted({s["kernel_dtype"] for s in spy.steps})
     if dtypes != ["bfloat16"]:
         raise RuntimeError(f"[trainer] kernel_dtype {dtypes}, the recipe's is bfloat16")
@@ -3106,9 +3201,8 @@ def phase_trainer(card):
           f"{stats['steps']} batches; validate {1e3 * val_s / val_n:.1f} ms a sample, test "
           f"inference {1e3 * float(row['inference time']):.1f} ms a sample; peak memory "
           f"{peak:.2f} GiB")
-    print(f"[trainer] kernel_dtype {dtypes[0]}; launches a step: K1 10, K2 10, K3 0, K5's bf16 "
-          f"body one a section, K5b's one a node chunk ((sections, chunks) a batch: "
-          f"{sections}); in all {total}")
+    print(f"[trainer] kernel_dtype {dtypes[0]}; launches a step: K1 10, K2 10, K3 0, K5's and "
+          f"K5b's bf16 bodies one a section (sections a batch: {sections}); in all {total}")
     return total, float(np.median(ms)), trainer
 
 
@@ -3324,16 +3418,15 @@ def variant_expect(over, step):
     """The launches of one eval forward (step False) or one train step of a
     variant of the recipe over uniform slots: K1 once a layer (K2 too in a
     step); K5 once a scale where the fused encoder runs a linear GNO under
-    'scatter', K5b in a step once a scale (f32) or once a node chunk a scale
-    (bf16); K7 only under 'sort' (checked apart: at least once)."""
+    'scatter', K5b in a step once a scale too; K7 only under 'sort' (checked
+    apart: at least once)."""
     scales = len(over.get("scales", [1.0]))
     fused = (over.get("fused_encoder", True) and not over.get("use_attn")
              and over.get("embedding_method", "statistical") == "statistical")
     k5 = scales if (fused and over.get("use_gno", True)
                     and over.get("in_gno_transform_type", "linear") == "linear"
                     and over.get("segment_impl", "scatter") == "scatter") else 0
-    payload = payload_launches(k5, k5 * (N_POINTS // CHUNK),
-                               over.get("kernel_dtype", "bfloat16"))
+    payload = payload_launches(k5, over.get("kernel_dtype", "bfloat16"))
     if not step:
         payload.update(k5b=0, k5b_bf16=0)
     return {"k1": 10, "k2": 10 if step else 0, "k3_dq": 0, "k3_dkv": 0, **payload}
@@ -3552,7 +3645,7 @@ def phase_processor_variants(card):
     rope3d, then with ConditionedNorm in attention and FFN under c =
     [[0.7]]: an eval forward (K1 10) against the plain versions to E2E_BOUND
     relative L2 and timed warm, two AdamW steps (K1 10, K2 10, K5 a section,
-    K5b a node chunk; every parameter moves, each ConditionedNorm map
+    K5b a section; every parameter moves, each ConditionedNorm map
     printed); then two steps of the same model on a 32x32x16 grid with 65,536
     points, with the kernels and with their plain versions from the same
     weights and seeds: each step's loss to E2E_BOUND relative, the second
@@ -3565,7 +3658,6 @@ def phase_processor_variants(card):
 
     grid = LatentGrid(dims=LATENT)
     pos, feats, target, mask, slots, nsec, _ = cloud(41, N_POINTS, grid)
-    chunks = node_chunks([int(sec.lat_idx.shape[1]) for sec in slots.sections])
     small = LatentGrid(dims=(32, 32, 16))
     radius = 2 * RADIUS
     budget = max_degree(np.random.default_rng(42).uniform(-1, 1, (65_536, 3)).astype(np.float32),
@@ -3596,7 +3688,7 @@ def phase_processor_variants(card):
         batch = TrainBatch(pos, feats, target, mask, slots, slots, condition=cond)
         total, _, _ = train_steps(tag, card, model, batch,
                                   {"k1": 10, "k2": 10,
-                                   **payload_launches(nsec, chunks, "bfloat16")})
+                                   **payload_launches(nsec, "bfloat16")})
         moves = cond_norm_moves(model, before)
         if moves:
             print(f"[{tag}] each of the {len(moves)} ConditionedNorm weights moved by "
@@ -4058,15 +4150,15 @@ def main():
          "source": "gaot3d_tpu_torch/csrc/encoder_payload_bwd.cu",
          "replaces": "gaot3d_tpu/ops/pallas_encoder.py:246",
          "launches": body_launches(k5b_phases, "k5b", "float32"), **k5b},
-        # the bf16 bodies (kernel_dtype bfloat16): the same sources built with GAOT_BF16=1.
-        # JAX takes its bf16 kernel MLP in XLA (models/fused_encoder.py:108), so they replace
-        # the Pallas kernels' work at another dtype, not another Pallas kernel
+        # the bf16 bodies (kernel_dtype bfloat16), valid-row tiles over the tile map. JAX
+        # takes its bf16 kernel MLP in XLA (models/fused_encoder.py:108), so they replace the
+        # Pallas kernels' work at another dtype, not another Pallas kernel
         {"name": "encoder_payload_bf16", "route": "cuda",
-         "source": "gaot3d_tpu_torch/csrc/encoder_payload.cu",
+         "source": "gaot3d_tpu_torch/csrc/encoder_payload_bf16.cu",
          "replaces": "gaot3d_tpu/ops/pallas_encoder.py:203",
          "launches": body_launches(k5_phases, "k5", "bfloat16"), **k5_bf16},
         {"name": "encoder_payload_bwd_bf16", "route": "cuda",
-         "source": "gaot3d_tpu_torch/csrc/encoder_payload_bwd.cu",
+         "source": "gaot3d_tpu_torch/csrc/encoder_payload_bwd_bf16.cu",
          "replaces": "gaot3d_tpu/ops/pallas_encoder.py:246",
          "launches": body_launches(k5b_phases, "k5b", "bfloat16"), **k5b_bf16},
         {"name": "segment_sum_sorted", "route": "cuda",

@@ -32,35 +32,19 @@
 // valid row of the recipe's 6-64-64-64-32 MLP on the tensor cores; the erf of
 // every hidden unit on the FP32 pipe; and the accumulator's reductions in L2.
 //
-// The bf16 body (`kernel_dtype: bfloat16`, this file built with
-// -DGAOT_BF16=1) is the same kernel with the products of the JAX package's
-// bf16 kernel MLP (gaot3d_tpu/models/mlp.py `kernel_mlp_apply`): every
-// layer's input, the positions [point | cell] included, and its weights
-// rounded to bf16 to nearest even, one m16n8k16 bf16 `mma.sync` pass with an
-// f32 result, bias and GELU in f32. The weights are rounded once, when
-// staged, in fragment order (one 8-byte shared load a fragment); the last
-// layer's output and everything after it (the product with the features and
-// the 11 moment columns) stay f32. Its products are a third of the f32
-// body's, and the GELU's erf on the FP32 pipe is its bound.
+// The bf16 body (`kernel_dtype: bfloat16`) is encoder_payload_bf16.cu.
 #include "encoder_tiles.cuh"
-
-#ifndef GAOT_BF16
-#define GAOT_BF16 0
-#endif
 
 namespace {
 
 using namespace enc;
 
-constexpr bool BF16 = GAOT_BF16 != 0;
-
-template <int HID, int C, bool BF>
+template <int HID, int C>
 struct FwdLayout {
-  // in fragment order: f32 weights split into hi and lo, two floats a weight;
-  // bf16 weights one half float, the first layer padded to 16 rows
-  static constexpr int W0 = BF ? 16 * HID / 2 : 2 * 8 * HID;
-  static constexpr int WM = BF ? HID * HID / 2 : 2 * HID * HID;
-  static constexpr int WL = BF ? HID * C / 2 : 2 * HID * C;
+  // in fragment order, the weights split into hi and lo: two floats a weight
+  static constexpr int W0 = 2 * 8 * HID;
+  static constexpr int WM = 2 * HID * HID;
+  static constexpr int WL = 2 * HID * C;
   static constexpr int STAGE = R * X0::S + R * Mat<C>::S + R;  // x0, feature rows, acc rows
   __host__ __device__ static int bias_floats(int n_mid) {
     return ((HID * (n_mid + 1) + C) + 3) & ~3;
@@ -73,40 +57,17 @@ struct FwdLayout {
   }
 };
 
-// bias + exact GELU over one accumulator, in place
-template <int N>
-__device__ __forceinline__ void bias_gelu(float (&z)[N][4], const float* b, int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < N; ++nt) {
-    const float b0 = b[8 * nt + 2 * t], b1 = b[8 * nt + 2 * t + 1];
-    z[nt][0] = gelu(z[nt][0] + b0);
-    z[nt][1] = gelu(z[nt][1] + b1);
-    z[nt][2] = gelu(z[nt][2] + b0);
-    z[nt][3] = gelu(z[nt][3] + b1);
-  }
-}
-
-__device__ __forceinline__ void red2(float* p, float a, float b, bool vec) {
-  if (vec) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
-  } else {
-    atomicAdd(p, a);
-    atomicAdd(p + 1, b);
-  }
-}
-
-template <int HID, int C, bool BF>
+template <int HID, int C>
 __global__ void __launch_bounds__(THREADS, 1)
     encoder_accumulate_kernel(const float* __restrict__ pos, const float* __restrict__ feats,
                               const int32_t* __restrict__ lat_idx,
                               const uint8_t* __restrict__ mask,
                               const float* __restrict__ params, int n_mid, Tiling T,
                               GridSpec grid, float* __restrict__ acc) {
-  using L = FwdLayout<HID, C, BF>;
+  using L = FwdLayout<HID, C>;
   extern __shared__ float4 smem4[];
   float* sw = reinterpret_cast<float*>(smem4);
-  float* sw0 = sw;                          // layer 0, [8][HID] (bf16: [16][HID]) as fragments
+  float* sw0 = sw;                          // layer 0, [8][HID] as fragments
   float* swm = sw0 + L::W0;                 // the n_mid hidden layers
   float* swl = swm + n_mid * L::WM;         // the last layer, [HID][C]
   float* sb = swl + L::WL;                  // biases, in layer order
@@ -115,26 +76,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   // stage the weights: the packed params are, per layer, W [in][out] then b
   {
     const float* p = params;
-    if constexpr (BF)
-      stage_bf16_fragments<HID>(reinterpret_cast<uint2*>(sw0), p, 6, 16);
-    else
-      stage_split_weights<HID>(reinterpret_cast<uint4*>(sw0), p, 6, 8);
+    stage_split_weights<HID>(reinterpret_cast<uint4*>(sw0), p, 6, 8);
     p += 6 * HID;
     for (int i = threadIdx.x; i < HID; i += THREADS) sb[i] = p[i];
     p += HID;
     for (int l = 0; l < n_mid; ++l) {
-      if constexpr (BF)
-        stage_bf16_fragments<HID>(reinterpret_cast<uint2*>(swm + l * L::WM), p, HID, HID);
-      else
-        stage_split_weights<HID>(reinterpret_cast<uint4*>(swm + l * L::WM), p, HID, HID);
+      stage_split_weights<HID>(reinterpret_cast<uint4*>(swm + l * L::WM), p, HID, HID);
       p += HID * HID;
       for (int i = threadIdx.x; i < HID; i += THREADS) sb[HID * (l + 1) + i] = p[i];
       p += HID;
     }
-    if constexpr (BF)
-      stage_bf16_fragments<C>(reinterpret_cast<uint2*>(swl), p, HID, HID);
-    else
-      stage_split_weights<C>(reinterpret_cast<uint4*>(swl), p, HID, HID);
+    stage_split_weights<C>(reinterpret_cast<uint4*>(swl), p, HID, HID);
     p += HID * C;
     for (int i = threadIdx.x; i < C; i += THREADS) sb[HID * (n_mid + 1) + i] = p[i];
   }
@@ -179,21 +131,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // the MLP for the warp's 16 rows
     float h[HID / 8][4];
-    if constexpr (BF)
-      dense_first_bf16<HID>(x0_of(s), wrow,
-                            Bf16Fragments<HID>{reinterpret_cast<const uint2*>(sw0)}, h, lane);
-    else
-      dense_first<HID>(x0_of(s), wrow, SplitWeights<HID>{reinterpret_cast<const uint4*>(sw0)},
-                       h, lane);
+    dense_first<HID>(x0_of(s), wrow, SplitWeights<HID>{reinterpret_cast<const uint4*>(sw0)}, h,
+                     lane);
     bias_gelu(h, sb, lane);
     for (int l = 0; l < n_mid; ++l) {
       float z[HID / 8][4];
-      if constexpr (BF)
-        dense_bf16<HID, HID>(
-            h, Bf16Fragments<HID>{reinterpret_cast<const uint2*>(swm + l * L::WM)}, z, lane);
-      else
-        dense<HID, HID>(
-            h, SplitWeights<HID>{reinterpret_cast<const uint4*>(swm + l * L::WM)}, z, lane);
+      dense<HID, HID>(h, SplitWeights<HID>{reinterpret_cast<const uint4*>(swm + l * L::WM)}, z,
+                      lane);
       bias_gelu(z, sb + HID * (l + 1), lane);
 #pragma unroll
       for (int nt = 0; nt < HID / 8; ++nt)
@@ -201,46 +145,12 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int e = 0; e < 4; ++e) h[nt][e] = z[nt][e];
     }
     float o[C / 8][4];
-    if constexpr (BF)
-      dense_bf16<HID, C>(h, Bf16Fragments<C>{reinterpret_cast<const uint2*>(swl)}, o, lane);
-    else
-      dense<HID, C>(h, SplitWeights<C>{reinterpret_cast<const uint4*>(swl)}, o, lane);
+    dense<HID, C>(h, SplitWeights<C>{reinterpret_cast<const uint4*>(swl)}, o, lane);
 
     if (has_next) commit(in, s ^ 1);  // stage s^1 was last read before the sync above
 
     // scatter: vals = (o + b) * feats, then the 11 moment columns
-    const float* bl = sb + HID * (n_mid + 1);
-    const float* F = f_of(s);
-    const float* x0 = x0_of(s);
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = wrow + g + 8 * hr;
-      const int arow = rows_of(s)[r];
-      if (arow < 0) continue;
-      float* dst = acc + (long long)arow * (C + 11);
-      // the row stride is C + 11 floats: pairs are 8-byte aligned on every other row
-      const bool vec = (reinterpret_cast<uintptr_t>(dst) & 7) == 0;
-#pragma unroll
-      for (int nt = 0; nt < C / 8; ++nt) {
-        const int c = 8 * nt + 2 * t;
-        const float2 f = *reinterpret_cast<const float2*>(F + Mat<C>::at(r, c));
-        red2(dst + c, (o[nt][2 * hr] + bl[c]) * f.x, (o[nt][2 * hr + 1] + bl[c + 1]) * f.y, vec);
-      }
-      // moments, rounded like the reference: lane t adds columns C + t, C + t + 4, C + t + 8
-      const float4 pc = *reinterpret_cast<const float4*>(x0 + X0::at(r, 0));
-      const float4 cc = *reinterpret_cast<const float4*>(x0 + X0::at(r, 4));
-      const float yx = __fsub_rn(pc.x, pc.w), yy = __fsub_rn(pc.y, cc.x),
-                  yz = __fsub_rn(pc.z, cc.y);
-      const float xx = __fmul_rn(yx, yx), xy = __fmul_rn(yx, yy), xz = __fmul_rn(yx, yz);
-      const float y2 = __fmul_rn(yy, yy), yz2 = __fmul_rn(yy, yz), z2 = __fmul_rn(yz, yz);
-      const float dist = sqrtf(__fadd_rn(__fadd_rn(xx, y2), z2));
-      const float mom[12] = {1.f, dist, yx, yy, yz, xx, xy, xz, y2, yz2, z2, 0.f};
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        const int col = t + 4 * q;
-        if (col < 11) atomicAdd(dst + C + col, mom[col]);
-      }
-    }
+    scatter_rows<C>(o, sb + HID * (n_mid + 1), f_of(s), x0_of(s), rows_of(s), acc, wrow, lane);
     if (!has_next) break;
   }
 }
@@ -248,8 +158,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int HID, int C>
 int occupancy(int n_mid, int& per_sm, int& sms) {
   static LaunchCache cache;
-  return cache.get(encoder_accumulate_kernel<HID, C, BF16>, FwdLayout<HID, C, BF16>::bytes(n_mid),
-                   n_mid, per_sm, sms);
+  return cache.get(encoder_accumulate_kernel<HID, C>, FwdLayout<HID, C>::bytes(n_mid), n_mid,
+                   per_sm, sms);
 }
 
 template <int HID, int C>
@@ -263,8 +173,8 @@ int launch(const float* pos, const float* feats, const int32_t* lat_idx, const u
   const Tiling T = Tiling::make(b, n, k, m);
   const long long cap = (long long)sms * per_sm;
   const int blocks = (int)(T.items < cap ? T.items : cap);
-  encoder_accumulate_kernel<HID, C, BF16>
-      <<<blocks, THREADS, FwdLayout<HID, C, BF16>::bytes(n_mid), stream>>>(
+  encoder_accumulate_kernel<HID, C>
+      <<<blocks, THREADS, FwdLayout<HID, C>::bytes(n_mid), stream>>>(
           pos, feats, lat_idx, mask, params, n_mid, T, g, acc);
   return (int)cudaGetLastError();
 }
@@ -279,7 +189,7 @@ extern "C" {
 // checks it against the device's limit), or 0 for widths not built.
 long long gaot_encoder_accumulate_smem(int n_mid, int hid, int c) {
 #define GAOT_K5_SMEM(H, CC) \
-  if (hid == H && c == CC) return (long long)FwdLayout<H, CC, BF16>::bytes(n_mid);
+  if (hid == H && c == CC) return (long long)FwdLayout<H, CC>::bytes(n_mid);
   GAOT_K5_WIDTHS(GAOT_K5_SMEM)
 #undef GAOT_K5_SMEM
   return 0;

@@ -20,7 +20,8 @@
 // the B operand read the same way), so one layer's accumulator is the next
 // layer's A operand register for register, with no shuffle.
 //
-// bf16 (`kernel_dtype: bfloat16`): a layer's input and weight are rounded to
+// bf16 (`kernel_dtype: bfloat16`, encoder_payload_bf16.cu and
+// encoder_payload_bwd_bf16.cu): a layer's input and weight are rounded to
 // bf16 (to nearest even, `cvt.rn.bf16x2.f32`, as JAX's astype) and the
 // product is one `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` pass
 // with an f32 result. Its A fragment holds rows g, g+8 at columns 2t, 2t+1
@@ -36,11 +37,12 @@
 // of bank conflicts: rows g (0..7) at columns 2t, 2t+1 (an accumulator's
 // pattern, as float2), and rows 2t, 2t+1 at column g (a B operand's pattern).
 //
-// Tiles: a tile holds whole nodes, floor(R / K) of them, with all K slots of
-// each (row = node * K + slot), so a node's rows are adjacent and a sum over
-// its slots stays inside the tile. When K > R a node takes ceil(K / R)
-// consecutive tiles of one CTA. Rows past the tile's nodes are padding and
-// count as masked.
+// Tiles (the f32 bodies): a tile holds whole nodes, floor(R / K) of them,
+// with all K slots of each (row = node * K + slot), so a node's rows are
+// adjacent and a sum over its slots stays inside the tile. When K > R a node
+// takes ceil(K / R) consecutive tiles of one CTA. Rows past the tile's nodes
+// are padding and count as masked. The bf16 bodies take only valid rows, from
+// a tile map (`TileMap` below).
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -286,15 +288,13 @@ __device__ __forceinline__ void stage_split_weights(uint4* dst, const float* src
 }
 
 // Stage one layer's weights [in][out] (packed row-major in global memory,
-// `in_real` rows; rows up to `in_pad` are zero) into a Mat<OUT>, rounded to
-// bf16 when ROUND.
-template <int OUT, bool ROUND = false>
+// `in_real` rows; rows up to `in_pad` are zero) into a Mat<OUT>.
+template <int OUT>
 __device__ __forceinline__ void stage_weights(float* dst, const float* src, int in_real,
                                               int in_pad) {
   for (int i = threadIdx.x; i < in_pad * OUT; i += blockDim.x) {
     const int r = i / OUT, c = i - r * OUT;
-    const float v = r < in_real ? src[i] : 0.f;
-    dst[Mat<OUT>::at(r, c)] = ROUND ? round_bf16(v) : v;
+    dst[Mat<OUT>::at(r, c)] = r < in_real ? src[i] : 0.f;
   }
 }
 
@@ -309,51 +309,6 @@ struct Bf16Fragments {
     return w[(ks * (OUT / 8) + nt) * 32 + lane];
   }
 };
-
-// A layer's weights [in][out] rounded to bf16 and held as f32 in a Mat<OUT>
-// (K5b): packed into bf16 fragments for the recompute, read as TF32 values of
-// W^T (exact) for the chain d W^T. `fragment16` of the first layer reads
-// rows < 8 only (its rows 6-15 are zero).
-template <int OUT, int ROWS>
-struct RoundedWeights {
-  const float* w;
-  __device__ __forceinline__ float at(int r, int c) const {
-    return r < ROWS ? w[Mat<OUT>::at(r, c)] : 0.f;
-  }
-  __device__ __forceinline__ uint2 fragment16(int ks, int nt, int lane) const {
-    const int g = lane >> 2, t = lane & 3;
-    const int r = 16 * ks + 2 * t, c = 8 * nt + g;
-    return make_uint2(pack_bf16(at(r, c), at(r + 1, c)), pack_bf16(at(r + 8, c), at(r + 9, c)));
-  }
-  __device__ __forceinline__ void fragment_t(int kt, int nt, int lane, uint32_t (&b)[2]) const {
-    const int g = lane >> 2, t = lane & 3;
-    const float2 v =
-        *reinterpret_cast<const float2*>(w + Mat<OUT>::at(8 * nt + g, 8 * kt + 2 * t));
-    b[0] = __float_as_uint(v.x);
-    b[1] = __float_as_uint(v.y);
-  }
-};
-
-// acc[16 x OUT] = bf16(act[16 x IN]) * W for one warp's 16 rows, `act` in
-// accumulator layout over IN (a multiple of 16).
-template <int IN, int OUT, class Weights>
-__device__ __forceinline__ void dense_bf16(const float (&act)[IN / 8][4], const Weights& w,
-                                           float (&acc)[OUT / 8][4], int lane) {
-  static_assert(IN % 16 == 0, "a bf16 product is 16 deep");
-  zero(acc);
-#pragma unroll
-  for (int ks = 0; ks < IN / 16; ++ks) {
-    const uint32_t a[4] = {pack_bf16(act[2 * ks][0], act[2 * ks][1]),
-                           pack_bf16(act[2 * ks][2], act[2 * ks][3]),
-                           pack_bf16(act[2 * ks + 1][0], act[2 * ks + 1][1]),
-                           pack_bf16(act[2 * ks + 1][2], act[2 * ks + 1][3])};
-#pragma unroll
-    for (int nt = 0; nt < OUT / 8; ++nt) {
-      const uint2 b = w.fragment16(ks, nt, lane);
-      mma_bf16(acc[nt], a, b.x, b.y);
-    }
-  }
-}
 
 // The first layer in bf16: the warp's rows of x0 [point | cell | 0 0], the
 // positions rounded to bf16, padded with zeros to 16 deep, times W0.
@@ -384,6 +339,147 @@ __device__ __forceinline__ void stage_bf16_fragments(uint2* dst, const float* sr
   }
 }
 
+// ---- the backward's weight products over a tile's rows (K5b, both bodies) --------------
+__device__ __forceinline__ float as_f32(float x) { return x; }
+__device__ __forceinline__ float as_f32(uint16_t x) { return __uint_as_float((uint32_t)x << 16); }
+// x rounded to bf16, where X holds f32 values; bf16 values are already
+__device__ __forceinline__ float as_bf16_value(const float*, float x) { return round_bf16(x); }
+__device__ __forceinline__ float as_bf16_value(const uint16_t*, float x) { return x; }
+
+// How the 8 warps share the weight product of an [MT x 16] x [NT x 8] matrix
+// summed over the tile's rows: MT warps a column of n-tiles, NG groups of WN
+// n-tiles, and the rows in KS slices.
+template <int MT, int NT>
+struct Split {
+  static constexpr int G = WARPS / MT;
+  static constexpr int NG = G < NT ? G : NT;
+  static constexpr int KS = G / NG;
+  static constexpr int WN = NT / NG;
+  static constexpr int KT = R / 8 / KS;
+  static_assert(WARPS % MT == 0 && G % NG == 0 && NT % NG == 0, "warps must tile the product");
+};
+
+// How a weight product takes its operands: both f32 (3xTF32), or one of them
+// rounded to bf16 (exact in TF32) and the other, an f32 cotangent, split
+// (2xTF32).
+enum class Operands { F32, BF16_X, BF16_Y };
+
+// acc[m][n] += sum_r X[r][m] * Y[r][n] for this warp's slice (X and Y f32, or
+// bf16 values as BMat holds them), with db the
+// column sums of Y (DB_Y, this warp's n-tiles, by the warps of m-tile 0) or
+// of X (the warp's two m rows g, g+8, by the warps of n group 0). db sums the
+// values as stored, never rounded.
+template <class XL, class YL, int MT, int NT, bool DB_Y, Operands OP = Operands::F32,
+          class XT = float, class YT = float>
+__device__ __forceinline__ void wgrad(const XT* X, const YT* Y,
+                                      float (&acc)[Split<MT, NT>::WN][4],
+                                      float (&db)[DB_Y ? Split<MT, NT>::WN : 2], int warp,
+                                      int lane) {
+  using S = Split<MT, NT>;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp % MT, q = warp / MT, ng = q % S::NG, ks = q / S::NG;
+  const int m0 = 16 * mt, n0 = 8 * S::WN * ng;
+  const bool do_db = DB_Y ? mt == 0 : ng == 0;
+#pragma unroll 2
+  for (int kk = 0; kk < S::KT; ++kk) {
+    const int r0 = 8 * (ks * S::KT + kk) + 2 * t;
+    const float a[4] = {as_f32(X[XL::at(r0, m0 + g)]), as_f32(X[XL::at(r0, m0 + g + 8)]),
+                        as_f32(X[XL::at(r0 + 1, m0 + g)]), as_f32(X[XL::at(r0 + 1, m0 + g + 8)])};
+    if (!DB_Y && do_db) {
+      db[0] += a[0] + a[2];
+      db[1] += a[1] + a[3];
+    }
+    uint32_t ah[4], al[4];
+    if constexpr (OP == Operands::BF16_X) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ah[i] = __float_as_uint(as_bf16_value(X, a[i]));
+    } else {
+      split4(a, ah, al);
+    }
+#pragma unroll
+    for (int j = 0; j < S::WN; ++j) {
+      const int c = n0 + 8 * j + g;
+      const float y0 = as_f32(Y[YL::at(r0, c)]), y1 = as_f32(Y[YL::at(r0 + 1, c)]);
+      if (DB_Y && do_db) db[j] += y0 + y1;
+      if constexpr (OP == Operands::F32) {
+        mma3(acc[j], ah, al, y0, y1);
+      } else if constexpr (OP == Operands::BF16_X) {
+        uint32_t yh[2], yl[2];
+        split(y0, yh[0], yl[0]);
+        split(y1, yh[1], yl[1]);
+        mma_tf32(acc[j], ah, yl[0], yl[1]);
+        mma_tf32(acc[j], ah, yh[0], yh[1]);
+      } else {
+        const uint32_t b0 = __float_as_uint(as_bf16_value(Y, y0));
+        const uint32_t b1 = __float_as_uint(as_bf16_value(Y, y1));
+        mma_tf32(acc[j], al, b0, b1);
+        mma_tf32(acc[j], ah, b0, b1);
+      }
+    }
+  }
+}
+
+// Adds a warp's slice of dW (and db) into the packed gradient: `w` at [in][out]
+// with `out` columns, `b` the bias. TRANSPOSED: the slice is of dW^T (m the
+// output unit, n the input, of which only the first `in_real` exist).
+template <int MT, int NT, bool DB_Y, bool TRANSPOSED>
+__device__ __forceinline__ void flush(const float (&acc)[Split<MT, NT>::WN][4],
+                                      float (&db)[DB_Y ? Split<MT, NT>::WN : 2], float* w,
+                                      float* b, int out, int in_real, int warp, int lane) {
+  using S = Split<MT, NT>;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp % MT, q = warp / MT, ng = q % S::NG;
+  const int m0 = 16 * mt, n0 = 8 * S::WN * ng;
+#pragma unroll
+  for (int j = 0; j < S::WN; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + g + 8 * (e >> 1), n = n0 + 8 * j + 2 * t + (e & 1);
+      if (TRANSPOSED) {
+        if (n < in_real) atomicAdd(w + n * out + m, acc[j][e]);
+      } else {
+        atomicAdd(w + m * out + n, acc[j][e]);
+      }
+    }
+  }
+  constexpr int NDB = DB_Y ? S::WN : 2;
+#pragma unroll
+  for (int j = 0; j < NDB; ++j) {
+    float v = db[j];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    const bool do_db = DB_Y ? mt == 0 : ng == 0;
+    if (do_db && t == 0) atomicAdd(b + (DB_Y ? n0 + 8 * j + g : m0 + g + 8 * j), v);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void add_bias(float (&z)[N][4], const float* b, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < N; ++nt) {
+    const float b0 = b[8 * nt + 2 * t], b1 = b[8 * nt + 2 * t + 1];
+    z[nt][0] += b0;
+    z[nt][1] += b1;
+    z[nt][2] += b0;
+    z[nt][3] += b1;
+  }
+}
+
+// the warp's 16 rows of an accumulator into a Mat<W>
+template <int W>
+__device__ __forceinline__ void store_rows(float* M, const float (&v)[W / 8][4], int row0,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < W / 8; ++nt) {
+    *reinterpret_cast<float2*>(M + Mat<W>::at(row0 + g, 8 * nt + 2 * t)) =
+        make_float2(v[nt][0], v[nt][1]);
+    *reinterpret_cast<float2*>(M + Mat<W>::at(row0 + g + 8, 8 * nt + 2 * t)) =
+        make_float2(v[nt][2], v[nt][3]);
+  }
+}
+
 // ---- GELU (exact erf) -------------------------------------------------------------
 __device__ __forceinline__ float gelu_phi(float z) {
   return 0.5f * (1.f + erff(z * 0.70710678118654752f));
@@ -396,6 +492,72 @@ __device__ __forceinline__ void gelu_and_grad(float z, float& h, float& gp) {
   const float phi = gelu_phi(z);
   h = z * phi;
   gp = phi + z * expf(-0.5f * z * z) * 0.3989422804014327f;
+}
+
+// ---- K5's payload and scatter ------------------------------------------------------------
+// bias + exact GELU over one accumulator, in place
+template <int N>
+__device__ __forceinline__ void bias_gelu(float (&z)[N][4], const float* b, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < N; ++nt) {
+    const float b0 = b[8 * nt + 2 * t], b1 = b[8 * nt + 2 * t + 1];
+    z[nt][0] = gelu(z[nt][0] + b0);
+    z[nt][1] = gelu(z[nt][1] + b1);
+    z[nt][2] = gelu(z[nt][2] + b0);
+    z[nt][3] = gelu(z[nt][3] + b1);
+  }
+}
+
+__device__ __forceinline__ void red2(float* p, float a, float b, bool vec) {
+  if (vec) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
+  } else {
+    atomicAdd(p, a);
+    atomicAdd(p + 1, b);
+  }
+}
+
+// K5's scatter for the warp's rows row0 + g (+8): vals = (o + bias) * feats
+// and the 11 moment columns of row r added into acc at arows[r] (none where
+// it is negative) by `red.global.add` (float atomics without a return value):
+// two columns at a time as a v2 reduction where the accumulator row is
+// 8-byte aligned (its row stride is C+11 floats, so every other cell), one at
+// a time elsewhere.
+template <int C>
+__device__ __forceinline__ void scatter_rows(const float (&o)[C / 8][4], const float* bl,
+                                             const float* F, const float* x0, const int* arows,
+                                             float* __restrict__ acc, int row0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + g + 8 * hr;
+    const int arow = arows[r];
+    if (arow < 0) continue;
+    float* dst = acc + (long long)arow * (C + 11);
+    // the row stride is C + 11 floats: pairs are 8-byte aligned on every other row
+    const bool vec = (reinterpret_cast<uintptr_t>(dst) & 7) == 0;
+#pragma unroll
+    for (int nt = 0; nt < C / 8; ++nt) {
+      const int c = 8 * nt + 2 * t;
+      const float2 f = *reinterpret_cast<const float2*>(F + Mat<C>::at(r, c));
+      red2(dst + c, (o[nt][2 * hr] + bl[c]) * f.x, (o[nt][2 * hr + 1] + bl[c + 1]) * f.y, vec);
+    }
+    // moments, rounded like the reference: lane t adds columns C + t, C + t + 4, C + t + 8
+    const float4 pc = *reinterpret_cast<const float4*>(x0 + X0::at(r, 0));
+    const float4 cc = *reinterpret_cast<const float4*>(x0 + X0::at(r, 4));
+    const float yx = __fsub_rn(pc.x, pc.w), yy = __fsub_rn(pc.y, cc.x),
+                yz = __fsub_rn(pc.z, cc.y);
+    const float xx = __fmul_rn(yx, yx), xy = __fmul_rn(yx, yy), xz = __fmul_rn(yx, yz);
+    const float y2 = __fmul_rn(yy, yy), yz2 = __fmul_rn(yy, yz), z2 = __fmul_rn(yz, yz);
+    const float dist = sqrtf(__fadd_rn(__fadd_rn(xx, y2), z2));
+    const float mom[12] = {1.f, dist, yx, yy, yz, xx, xy, xz, y2, yz2, z2, 0.f};
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int col = t + 4 * q;
+      if (col < 11) atomicAdd(dst + C + col, mom[col]);
+    }
+  }
 }
 
 // ---- asynchronous copies --------------------------------------------------------------
@@ -578,5 +740,161 @@ struct LaunchCache {
     return 0;
   }
 };
+
+// ---- valid-row tiles (the bf16 bodies) ------------------------------------------------
+// The bf16 bodies walk a tile map the wrapper builds from the masks
+// (kernels/encoder_payload.py `tile_map`): in node-major order, each (sample,
+// node chunk) segment's valid rows are numbered from a start rounded to a
+// window of S = R - K + 1 positions (S = 1 when K > R), and item t holds the
+// nodes whose first row falls in window t, `node_first[t]` up to
+// `node_first[t + 1]`. An item so holds whole nodes of one node chunk and at
+// most R valid rows when K <= R; when K > R it holds one node with rows (and
+// perhaps nodes without any before it), whose rows take ceil(rows / R)
+// passes of one CTA. Masked slots take no row. The CTAs split the items
+// [0, *n_items) into contiguous ranges.
+struct TileMap {
+  const int32_t* node_first;  // [items + 1]
+  const int32_t* n_items;     // [1], on the device
+  int chunk;                  // nodes a chunk
+};
+
+// Items [first, last) of CTA `cta` of `ctas`.
+__device__ __forceinline__ void item_range(const TileMap& M, int cta, int ctas, int& first,
+                                           int& last) {
+  const long long n = *M.n_items;
+  first = (int)(n * cta / ctas);
+  last = (int)(n * (cta + 1) / ctas);
+}
+
+// The rows of pass `pass` of an item: the valid slots among the flat slot
+// indices [s0, s1), in order, from position pass * R on, their flat indices
+// into slots[0, min(R, count - pass * R)). Returns the item's valid count.
+// `scratch` holds WARPS ints. Every thread of the block calls it.
+__device__ __forceinline__ int gather_rows(const uint8_t* __restrict__ mask, long long s0,
+                                           long long s1, int pass, int* slots, int* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int count = 0;
+  for (long long base = s0; base < s1; base += blockDim.x) {
+    const long long s = base + threadIdx.x;
+    const bool v = s < s1 && mask[s] != 0;
+    const unsigned bal = __ballot_sync(0xffffffffu, v);
+    if (lane == 0) scratch[warp] = __popc(bal);
+    __syncthreads();
+    int before = count, total = count;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+      const int c = scratch[w];
+      before += w < warp ? c : 0;
+      total += c;
+    }
+    if (v) {
+      const int p = before + __popc(bal & ((1u << lane) - 1u)) - pass * R;
+      if (p >= 0 && p < R) slots[p] = (int)s;
+    }
+    count = total;
+    __syncthreads();  // scratch is rewritten by the next batch
+  }
+  return count;
+}
+
+// A row of a valid-row tile: slot `slot` (a flat index into [B, n, K]) or,
+// past the pass's rows, padding. Fills a RowIn as RowIn::load does.
+__device__ __forceinline__ void load_slot_row(RowIn& in, const Tiling& T, int i, int rows,
+                                              const int* slots, const float* __restrict__ pos,
+                                              const int32_t* __restrict__ lat_idx) {
+  in.present = i < rows;
+  in.valid = in.present;  // a row of the map is an unmasked slot
+  in.node = 0;
+  in.cell = 0;
+  in.px = in.py = in.pz = 0.f;
+  if (in.present) {
+    const int s = slots[i];
+    in.node = s / T.k;
+    in.cell = lat_idx[s];
+    in.px = pos[in.node * 3 + 0];
+    in.py = pos[in.node * 3 + 1];
+    in.pz = pos[in.node * 3 + 2];
+  }
+}
+
+// ---- bf16 matrices in shared memory --------------------------------------------------------
+// A [rows][W] matrix of bf16 (W <= 64), 16-byte chunks of 8 values XORed with
+// bits of the row, so that a warp's reads of rows 2t (+1, +8, +9) at column g
+// (a B fragment of a bf16 product), of rows g at columns 2t, 2t+1 (a B
+// fragment of W^T, one 32-bit word) and of rows 2t at columns g, g+8 (an A
+// fragment of X^T) fall in distinct banks.
+template <int W>
+struct BMat {
+  static constexpr int CHUNKS = W / 8;
+  __device__ __forceinline__ static int at(int r, int c) {
+    const int sw = CHUNKS > 1 ? (r / (8 / CHUNKS)) & (CHUNKS - 1) : 0;
+    return r * W + ((((c >> 3) ^ sw)) << 3) + (c & 7);
+  }
+};
+
+__device__ __forceinline__ uint16_t bf16_bits(float x) {
+  return (uint16_t)(pack_bf16(x, 0.f) & 0xffffu);
+}
+
+// A layer's weights [in][out] rounded to bf16 once, when staged, in a
+// BMat<OUT>: `fragment16` the B fragment of x W (two rows of a column packed),
+// `fragment_t` that of d W^T as TF32 values (a bf16 value is exact in TF32),
+// one 32-bit word.
+template <int OUT>
+struct Bf16Weights {
+  const uint16_t* w;
+  __device__ __forceinline__ uint32_t pair(int r, int c) const {
+    return (uint32_t)w[BMat<OUT>::at(r, c)] | ((uint32_t)w[BMat<OUT>::at(r + 1, c)] << 16);
+  }
+  __device__ __forceinline__ uint2 fragment16(int ks, int nt, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+    const int r = 16 * ks + 2 * t, c = 8 * nt + g;
+    return make_uint2(pair(r, c), pair(r + 8, c));
+  }
+  __device__ __forceinline__ void fragment_t(int kt, int nt, int lane, uint32_t (&b)[2]) const {
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t v =
+        *reinterpret_cast<const uint32_t*>(w + BMat<OUT>::at(8 * nt + g, 8 * kt + 2 * t));
+    b[0] = v << 16;
+    b[1] = v & 0xffff0000u;
+  }
+};
+
+// Stage one layer's weights [in][out] (packed row-major in global memory,
+// `in_real` rows; rows up to `in_pad` are zero) rounded to bf16 into a
+// BMat<OUT>.
+template <int OUT>
+__device__ __forceinline__ void stage_bf16_mat(uint16_t* dst, const float* src, int in_real,
+                                               int in_pad) {
+  for (int i = threadIdx.x; i < in_pad * OUT; i += blockDim.x) {
+    const int r = i / OUT, c = i - r * OUT;
+    dst[BMat<OUT>::at(r, c)] = bf16_bits(r < in_real ? src[i] : 0.f);
+  }
+}
+
+// acc[16 x OUT] = bf16(act[16 x IN]) * W for one warp's 16 rows, `act` in
+// accumulator layout over IN (a multiple of 16), packed to bf16 first (half
+// the registers while the products run).
+template <int IN, int OUT, class Weights>
+__device__ __forceinline__ void dense_bf16_packed(const float (&act)[IN / 8][4],
+                                                  const Weights& w, float (&acc)[OUT / 8][4],
+                                                  int lane) {
+  static_assert(IN % 16 == 0, "a bf16 product is 16 deep");
+  uint32_t a[IN / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < IN / 16; ++ks) {
+    a[ks][0] = pack_bf16(act[2 * ks][0], act[2 * ks][1]);
+    a[ks][1] = pack_bf16(act[2 * ks][2], act[2 * ks][3]);
+    a[ks][2] = pack_bf16(act[2 * ks + 1][0], act[2 * ks + 1][1]);
+    a[ks][3] = pack_bf16(act[2 * ks + 1][2], act[2 * ks + 1][3]);
+  }
+  zero(acc);
+#pragma unroll
+  for (int ks = 0; ks < IN / 16; ++ks)
+#pragma unroll
+    for (int nt = 0; nt < OUT / 8; ++nt) {
+      const uint2 b = w.fragment16(ks, nt, lane);
+      mma_bf16(acc[nt], a[ks], b.x, b.y);
+    }
+}
 
 }  // namespace enc

@@ -38,20 +38,27 @@ MLP weights are passed in torch layout (weight [out, in], bias [out]).
 [point | cell] included) and weight are rounded to bf16, to nearest even,
 and their product has an f32 result; bias and GELU stay f32, and so do the
 last layer's output and the rest of the payload. Each kernel has a body for
-each, built from one source into two libraries. Under 'bfloat16' the
-backward rounds where jax.grad does: d(in_l) and dW_l to bf16, db and the
-cotangent never; dW once for each node chunk of `chunk` nodes, summed over
-the chunks in f32. The plain versions get those points from autograd
-through `kernel_mlp`; on the card the wrapper launches K5b once a chunk,
-each launch into its own f32 gradient, and rounds and sums them
-(`_backward_by_chunk`). `encoder_accumulate.launches` counts every K5
-launch and `encoder_accumulate.launches_bf16` those of the bf16 body; the
-same two counts sit on `encoder_accumulate_backward` for K5b.
+each (`csrc/encoder_payload.cu` and `encoder_payload_bf16.cu`, K5b's
+likewise). Under 'bfloat16' the backward rounds where jax.grad does: d(in_l)
+and dW_l to bf16, db and the cotangent never; dW once for each node chunk of
+`chunk` nodes, summed over the chunks in f32. The plain versions get those
+points from autograd through `kernel_mlp`; on the card K5b is launched once
+a call and adds each chunk's f32 gradient into its own slice, and the
+wrapper rounds and sums the slices (`sum_chunk_slices`).
+
+The bf16 bodies take valid rows only, from a tile map that `tile_map` builds
+on the device from the masks (no host sync): items of whole nodes of one
+node chunk with at most TILE_ROWS valid rows each. The forward builds it
+once and `accumulate` hands it to the backward.
+
+`encoder_accumulate.launches` counts every K5 launch and
+`encoder_accumulate.launches_bf16` those of the bf16 body; the same two
+counts sit on `encoder_accumulate_backward` for K5b.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,20 +78,22 @@ def check_kernel_dtype(kernel_dtype: str) -> str:
     return kernel_dtype
 
 
-def _built(name: str, kernel_dtype: str):
-    """(library name, nvcc defines) of a kernel's body for kernel_dtype."""
-    if check_kernel_dtype(kernel_dtype) == "bfloat16":
-        return f"{name}_bf16", ["GAOT_BF16=1"]
-    return name, []
+def _built(name: str, kernel_dtype: str) -> str:
+    """The library (and csrc/ source) of a kernel's body for kernel_dtype."""
+    return f"{name}_bf16" if check_kernel_dtype(kernel_dtype) == "bfloat16" else name
+
+
+# the bf16 bodies' extra arguments: the tile map (node_first, n_items, max_items) and chunk
+_MAP_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
 
 
 def _library(kernel_dtype: str = "float32") -> ctypes.CDLL:
-    name, defines = _built("encoder_payload", kernel_dtype)
-    lib = load_cuda_library(name, "encoder_payload.cu", ["encoder_tiles.cuh"], defines)
+    name = _built("encoder_payload", kernel_dtype)
+    lib = load_cuda_library(name, f"{name}.cu", ["encoder_tiles.cuh"])
     lib.gaot_encoder_accumulate.restype = ctypes.c_int
     lib.gaot_encoder_accumulate.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6
-        + [ctypes.c_void_p] * 2)
+        + (_MAP_ARGS if kernel_dtype == "bfloat16" else []) + [ctypes.c_void_p] * 2)
     lib.gaot_encoder_accumulate_smem.restype = ctypes.c_longlong
     lib.gaot_encoder_accumulate_smem.argtypes = [ctypes.c_int] * 3
     lib.gaot_encoder_accumulate_occupancy.restype = ctypes.c_int
@@ -93,12 +102,12 @@ def _library(kernel_dtype: str = "float32") -> ctypes.CDLL:
 
 
 def _backward_library(kernel_dtype: str = "float32") -> ctypes.CDLL:
-    name, defines = _built("encoder_payload_bwd", kernel_dtype)
-    lib = load_cuda_library(name, "encoder_payload_bwd.cu", ["encoder_tiles.cuh"], defines)
+    name = _built("encoder_payload_bwd", kernel_dtype)
+    lib = load_cuda_library(name, f"{name}.cu", ["encoder_tiles.cuh"])
     lib.gaot_encoder_backward.restype = ctypes.c_int
     lib.gaot_encoder_backward.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6
-        + [ctypes.c_void_p] * 4)
+        + (_MAP_ARGS if kernel_dtype == "bfloat16" else []) + [ctypes.c_void_p] * 4)
     lib.gaot_encoder_backward_smem.restype = ctypes.c_longlong
     lib.gaot_encoder_backward_smem.argtypes = [ctypes.c_int] * 3
     lib.gaot_encoder_backward_occupancy.restype = ctypes.c_int
@@ -248,6 +257,74 @@ def _unpack_mlp(packed: torch.Tensor, shapes):
     return ws, bs
 
 
+TILE_ROWS = 128  # rows of a tile of the kernels (csrc/encoder_tiles.cuh R)
+
+
+class TileMap(NamedTuple):
+    """The valid-row tiles of one [B, n, K] mask (`tile_map`): item t holds
+    the nodes node_first[t] up to node_first[t + 1] (flat indices b * n +
+    node) for t < n_items[0]; both tensors lie on the mask's device."""
+    node_first: torch.Tensor  # int32 [max_items + 1]
+    n_items: torch.Tensor     # int32 [1]
+    max_items: int            # a bound on n_items known without a sync
+    chunk: int                # nodes a node chunk
+    n_chunks: int             # node chunks a sample
+
+
+def tile_map(mask: torch.Tensor, chunk: Optional[int] = None) -> TileMap:
+    """The bf16 kernels' tiles of valid rows, by plain tensor operations on
+    the mask's device, with no host sync. In node-major order (sample, node)
+    the valid rows of each segment (one sample's node chunk of `chunk` nodes;
+    the whole sample when None) are numbered from a start that is a multiple
+    of S = TILE_ROWS - K + 1 (1 when K > TILE_ROWS), at least one window past
+    the previous segment's last row; item t holds the nodes whose first row
+    lies in [t * S, (t + 1) * S). An item so holds whole nodes of one segment
+    and at most TILE_ROWS rows (when K > TILE_ROWS, at most one node with
+    rows, whose rows take several passes). Masked slots take no row, wherever
+    they lie among a node's slots."""
+    B, n, K = mask.shape
+    step = n if chunk is None else min(int(chunk), n)
+    n_chunks = -(-n // step)
+    S = TILE_ROWS - K + 1 if K <= TILE_ROWS else 1
+    count = F.pad(mask.sum(-1, dtype=torch.int32), (0, n_chunks * step - n))
+    count = count.view(B, n_chunks, step)
+    within = torch.cumsum(count, -1, dtype=torch.int32) - count  # rows before, in the segment
+    windows = (within[..., -1] + count[..., -1]) // S + 1  # [B, n_chunks]
+    flat = windows.reshape(-1)
+    before = torch.cumsum(flat, 0) - flat
+    start = (before.view(B, n_chunks, 1).long() * S + within).reshape(B, -1)[:, :n]
+    # a bound on the items without reading the counts: every row valid
+    sizes = [step] * (n // step) + ([n % step] if n % step else [])
+    max_items = B * sum(size * K // S + 1 for size in sizes)
+    edges = torch.arange(max_items + 1, device=mask.device, dtype=torch.int64) * S
+    node_first = torch.searchsorted(start.reshape(-1), edges).to(torch.int32)
+    return TileMap(node_first, flat.sum().to(torch.int32).view(1), max_items, step, n_chunks)
+
+
+def _weight_entries(shapes) -> List[Tuple[int, int]]:
+    """[start, end) of each layer's weights in the packed layout of
+    `_pack_mlp` for torch shapes [(out, in), ...] (the biases lie between)."""
+    spans, off = [], 0
+    for out, inp in shapes:
+        spans.append((off, off + inp * out))
+        off += inp * out + out
+    return spans
+
+
+def sum_chunk_slices(slices: torch.Tensor, shapes) -> torch.Tensor:
+    """The bf16 backward's packed gradient from K5b's [n_chunks, P] f32
+    slices: each chunk's weights rounded to bf16 (the biases not), then the
+    chunks summed in f32 in order, as jax.grad sums its chunks."""
+    is_weight = torch.zeros(slices.shape[1], dtype=torch.bool, device=slices.device)
+    for a, b in _weight_entries(shapes):
+        is_weight[a:b] = True
+    rounded = torch.where(is_weight, round_bf16(slices), slices)
+    total = rounded[0].clone()
+    for part in rounded[1:]:
+        total += part
+    return total
+
+
 def _check(pos, feats, lat_idx, mask, weights, biases, grid, acc, kernel_dtype="float32"):
     check_kernel_dtype(kernel_dtype)
     if pos.ndim != 3 or pos.shape[-1] != 3:
@@ -278,13 +355,22 @@ def _check(pos, feats, lat_idx, mask, weights, biases, grid, acc, kernel_dtype="
                          f"supported: {SUPPORTED_WIDTHS}")
 
 
+def _map_args(kernel_dtype: str, tiles: Optional[TileMap]) -> list:
+    if kernel_dtype != "bfloat16":
+        return []
+    if tiles is None:
+        raise ValueError("the bf16 bodies need the tile map (`tile_map`)")
+    return [tiles.node_first.data_ptr(), tiles.n_items.data_ptr(), tiles.max_items, tiles.chunk]
+
+
 def launch_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Tensor,
                       mask: torch.Tensor, params: torch.Tensor, n_mid: int, hid: int,
-                      grid: LatentGrid, acc: torch.Tensor,
-                      kernel_dtype: str = "float32") -> None:
+                      grid: LatentGrid, acc: torch.Tensor, kernel_dtype: str = "float32",
+                      tiles: Optional[TileMap] = None) -> None:
     """K5 alone: one launch of the body for `kernel_dtype` on CUDA tensors
     that `_check` accepted, with the MLP packed by `_pack_mlp` (n_mid
-    hidden-to-hidden layers of width hid)."""
+    hidden-to-hidden layers of width hid); the bf16 body over `tiles`, the
+    mask's `tile_map`."""
     B, n, K = lat_idx.shape
     C = feats.shape[-1]
     _, d1, d2 = grid.dims
@@ -293,7 +379,8 @@ def launch_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Ten
         err = _library(kernel_dtype).gaot_encoder_accumulate(
             pos.data_ptr(), feats.data_ptr(), lat_idx.data_ptr(), mask.data_ptr(),
             params.data_ptr(), params.numel(), n_mid, hid, C, B, n, K, grid.num_tokens, d1,
-            d2, *grid.lo, *grid.spacing, acc.data_ptr(), stream)
+            d2, *grid.lo, *grid.spacing, *_map_args(kernel_dtype, tiles), acc.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"encoder_payload launch failed: cudaError {err}")
     encoder_accumulate.launches += 1
@@ -303,10 +390,13 @@ def launch_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Ten
 def launch_backward(g: torch.Tensor, pos: torch.Tensor, feats: torch.Tensor,
                     lat_idx: torch.Tensor, mask: torch.Tensor, params: torch.Tensor, n_mid: int,
                     hid: int, grid: LatentGrid, dfeats: torch.Tensor,
-                    dparams: torch.Tensor, kernel_dtype: str = "float32") -> None:
-    """K5b alone: one launch of the body for `kernel_dtype` that writes every
-    row of dfeats and adds into dparams (packed like params, zeroed by the
-    caller) in f32."""
+                    dparams: torch.Tensor, kernel_dtype: str = "float32",
+                    tiles: Optional[TileMap] = None) -> None:
+    """K5b alone: one launch of the body for `kernel_dtype`. The f32 body
+    writes every row of dfeats and adds into dparams (packed like params,
+    zeroed by the caller) in f32. The bf16 body, over `tiles`, writes the
+    rows of nodes with a valid slot (the caller zeroes dfeats) and adds each
+    node chunk's gradient into its row of dparams [tiles.n_chunks, P]."""
     B, n, K = lat_idx.shape
     C = feats.shape[-1]
     _, d1, d2 = grid.dims
@@ -315,8 +405,8 @@ def launch_backward(g: torch.Tensor, pos: torch.Tensor, feats: torch.Tensor,
         err = _backward_library(kernel_dtype).gaot_encoder_backward(
             pos.data_ptr(), feats.data_ptr(), lat_idx.data_ptr(), mask.data_ptr(),
             params.data_ptr(), params.numel(), n_mid, hid, C, B, n, K, grid.num_tokens, d1,
-            d2, *grid.lo, *grid.spacing, g.data_ptr(), dfeats.data_ptr(), dparams.data_ptr(),
-            stream)
+            d2, *grid.lo, *grid.spacing, *_map_args(kernel_dtype, tiles), g.data_ptr(),
+            dfeats.data_ptr(), dparams.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"encoder_payload_bwd launch failed: cudaError {err}")
     encoder_accumulate_backward.launches += 1
@@ -337,11 +427,13 @@ def encoder_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Te
                        biases: Sequence[torch.Tensor], grid: LatentGrid,
                        acc: torch.Tensor, chunk: Optional[int] = None, *,
                        params: Optional[torch.Tensor] = None,
-                       kernel_dtype: str = "float32") -> torch.Tensor:
+                       kernel_dtype: str = "float32",
+                       tiles: Optional[TileMap] = None) -> torch.Tensor:
     """Add the payload of every valid (node, slot) row into acc[b, cell]:
     pos [B,n,3], feats [B,n,C], lat_idx/mask [B,n,K], acc [B,M,C+11]
     (updated in place and returned). `chunk` only bounds the twin's memory;
-    `params`, the MLP already packed by `_pack_mlp`, saves packing it again."""
+    `params`, the MLP already packed by `_pack_mlp`, and `tiles`, the mask's
+    `tile_map` (the bf16 body), save building them again."""
     if pos.device.type == "cpu":
         return encoder_accumulate_reference(pos, feats, lat_idx, mask, weights,
                                             biases, grid, acc, chunk, kernel_dtype)
@@ -353,7 +445,10 @@ def encoder_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Te
                          "the forward", hid, C, n_mid)
     if params is None:
         params = _pack_mlp(weights, biases)
-    launch_accumulate(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc, kernel_dtype)
+    if kernel_dtype == "bfloat16" and tiles is None:
+        tiles = tile_map(mask, chunk)
+    launch_accumulate(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc, kernel_dtype,
+                      tiles)
     return acc
 
 
@@ -361,54 +456,19 @@ encoder_accumulate.launches = 0
 encoder_accumulate.launches_bf16 = 0
 
 
-def _weight_entries(shapes) -> List[Tuple[int, int]]:
-    """[start, end) of each layer's weights in the packed layout of
-    `_pack_mlp` for torch shapes [(out, in), ...] (the biases lie between)."""
-    spans, off = [], 0
-    for out, inp in shapes:
-        spans.append((off, off + inp * out))
-        off += inp * out + out
-    return spans
-
-
-def _backward_by_chunk(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, chunk,
-                       shapes) -> torch.Tensor:
-    """The bf16 backward at JAX's rounding of dW: one K5b launch for each node
-    chunk of `chunk` nodes (all B samples, as one JAX chunk), each into its
-    own f32 gradient, whose weights are rounded to bf16 before the chunks are
-    summed in f32; the biases' gradients are summed as they are. Writes every
-    row of dfeats; returns the packed gradient."""
-    n = pos.shape[1]
-    step = n if chunk is None else chunk
-    total = torch.zeros_like(params)
-    part = torch.empty_like(params)
-    for c0 in range(0, n, step):
-        rows = slice(c0, min(c0 + step, n))
-        cut = [t[:, rows].contiguous() for t in (pos, feats, lat_idx, mask)]
-        df = dfeats[:, rows]
-        out = df if df.is_contiguous() else torch.empty_like(cut[1])
-        part.zero_()
-        launch_backward(g, *cut, params, n_mid, hid, grid, out, part, "bfloat16")
-        if out is not df:
-            df.copy_(out)
-        for a, b in _weight_entries(shapes):
-            part[a:b] = round_bf16(part[a:b])
-        total += part
-    return total
-
-
 def encoder_accumulate_backward(
         g: torch.Tensor, pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Tensor,
         mask: torch.Tensor, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
         grid: LatentGrid, chunk: Optional[int] = None, *,
-        params: Optional[torch.Tensor] = None, kernel_dtype: str = "float32"
+        params: Optional[torch.Tensor] = None, kernel_dtype: str = "float32",
+        tiles: Optional[TileMap] = None
 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
     """Gradients of `encoder_accumulate` given the accumulator's cotangent g
     [B, M, C+11]: (dfeats [B,n,C], dW per layer in torch layout, db per
-    layer; on CUDA, views of one packed gradient). `params` as for
-    `encoder_accumulate`. Under 'float32' `chunk` only bounds the plain
+    layer; on CUDA, views of one packed gradient). `params` and `tiles` as
+    for `encoder_accumulate`. Under 'float32' `chunk` only bounds the plain
     version's memory; under 'bfloat16' dW is rounded once a chunk of `chunk`
-    nodes, so the card launches K5b once a chunk."""
+    nodes: K5b's one launch keeps a slice for each chunk."""
     if pos.device.type == "cpu":
         return encoder_accumulate_backward_reference(g, pos, feats, lat_idx, mask, weights,
                                                      biases, grid, chunk, kernel_dtype)
@@ -422,11 +482,16 @@ def encoder_accumulate_backward(
     if params is None:
         params = _pack_mlp(weights, biases)
     shapes = [tuple(w.shape) for w in weights]
-    dfeats = torch.empty_like(feats)  # the kernel writes every node
     if kernel_dtype == "bfloat16":
-        dparams = _backward_by_chunk(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid,
-                                     dfeats, chunk, shapes)
+        if tiles is None:
+            tiles = tile_map(mask, chunk)
+        dfeats = torch.zeros_like(feats)  # nodes without a valid slot are not written
+        slices = torch.zeros((tiles.n_chunks, params.numel()), device=params.device)
+        launch_backward(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats, slices,
+                        kernel_dtype, tiles)
+        dparams = sum_chunk_slices(slices, shapes)
     else:
+        dfeats = torch.empty_like(feats)  # the kernel writes every node
         dparams = torch.zeros_like(params)
         launch_backward(g, pos, feats, lat_idx, mask, params, n_mid, hid, grid, dfeats,
                         dparams)
@@ -442,29 +507,31 @@ class _EncoderAccumulate(torch.autograd.Function):
     """K5 forward, K5b backward. `acc` is updated in place and returned; its
     gradient is the identity, so one accumulator can be threaded through the
     degree sections. On CUDA the MLP is packed once, in the forward, and the
-    packed tensor is saved for the backward."""
+    packed tensor (and the bf16 bodies' tile map) kept for the backward."""
 
     @staticmethod
     def forward(ctx, acc, pos, feats, lat_idx, mask, grid, chunk, kernel_dtype, *mlp):
         n_layers = len(mlp) // 2
         weights = [w.detach() for w in mlp[:n_layers]]
         biases = [b.detach() for b in mlp[n_layers:]]
-        params = _pack_mlp(weights, biases) if pos.device.type == "cuda" else None
+        cuda = pos.device.type == "cuda"
+        params = _pack_mlp(weights, biases) if cuda else None
+        tiles = tile_map(mask, chunk) if cuda and kernel_dtype == "bfloat16" else None
         encoder_accumulate(pos, feats, lat_idx, mask, weights, biases, grid, acc, chunk,
-                           params=params, kernel_dtype=kernel_dtype)
+                           params=params, kernel_dtype=kernel_dtype, tiles=tiles)
         ctx.mark_dirty(acc)
         ctx.save_for_backward(pos, feats, lat_idx, mask, params, *mlp)
-        ctx.static = (grid, chunk, kernel_dtype, n_layers)
+        ctx.static = (grid, chunk, kernel_dtype, n_layers, tiles)
         return acc
 
     @staticmethod
     def backward(ctx, g):
         pos, feats, lat_idx, mask, params, *mlp = ctx.saved_tensors
-        grid, chunk, kernel_dtype, n_layers = ctx.static
+        grid, chunk, kernel_dtype, n_layers, tiles = ctx.static
         dfeats, dws, dbs = encoder_accumulate_backward(
             g.contiguous(), pos, feats, lat_idx, mask, [w.detach() for w in mlp[:n_layers]],
             [b.detach() for b in mlp[n_layers:]], grid, chunk, params=params,
-            kernel_dtype=kernel_dtype)
+            kernel_dtype=kernel_dtype, tiles=tiles)
         return (g, None, dfeats, None, None, None, None, None, *dws, *dbs)
 
 

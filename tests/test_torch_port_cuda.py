@@ -132,17 +132,18 @@ def test_encoder_autograd_threads_one_accumulator():
         assert ((a - 2 * b).abs().max() / b.abs().max()).item() <= 1e-4
 
 
-def _edge_problem(hid, C, K, B, n, n_mid, seed):
+def _edge_problem(hid, C, K, B, n, n_mid, seed, valid=0.7):
     """Slots that reach every edge of K5's and K5b's node-major tiles: n not
-    a multiple of the nodes a tile holds, masked slots holding any index, and
-    valid slots off the grid (dropped), in every batch."""
+    a multiple of the nodes a tile holds, masked slots (a share 1 - valid,
+    anywhere among a node's slots) holding any index, and valid slots off the
+    grid (dropped), in every batch."""
     rng = np.random.default_rng(seed)
     grid = LatentGrid(dims=(8, 8, 4))
     M = grid.num_tokens
     pos = rng.uniform(-1, 1, (B, n, 3)).astype(np.float32)
     feats = rng.normal(size=(B, n, C)).astype(np.float32)
     lat = rng.integers(0, M, (B, n, K)).astype(np.int32)
-    msk = rng.random((B, n, K)) < 0.7
+    msk = rng.random((B, n, K)) < valid
     lat[~msk] = rng.integers(-2 ** 31, 2 ** 31 - 1, int((~msk).sum()))
     off = rng.random((B, n, K)) < 0.02
     lat[off & msk] = rng.choice([-1, M, M + 5, 2 ** 30], int((off & msk).sum()))
@@ -207,14 +208,15 @@ def _rel_l2(a, b):
 
 @pytest.mark.parametrize("hid,C,K,B,n,n_mid,chunk", [
     *[(64, 32, K, 1, 1001, 2, None) for K in (1, 3, 5)],
-    (64, 32, 5, 1, 3000, 2, 1000),  # three chunks: three launches, dW rounded in each
-    (64, 32, 3, 2, 1001, 2, 500),   # B = 2: a chunk's rows are copied out, dfeats back
+    (64, 32, 5, 1, 3000, 2, 1000),  # three chunks: one launch, dW rounded in each chunk's slice
+    (64, 32, 3, 2, 1001, 2, 500),   # B = 2: the same chunks in both samples
     (64, 16, 3, 1, 1001, 2, None), (32, 32, 5, 1, 777, 0, None), (32, 16, 4, 1, 777, 3, 300),
     (16, 8, 5, 1, 555, 3, None), (64, 32, 130, 1, 37, 2, None),
 ])
 def test_encoder_bf16_bodies_match_plain(hid, C, K, B, n, n_mid, chunk):
     """K5's bf16 body (the accumulator's value columns) and K5b's (dfeats,
-    dW, db), one K5b launch a chunk, against the bf16 plain versions."""
+    dW, db), one K5b launch a call whatever the chunks, against the bf16
+    plain versions."""
     args, ws, bs, grid, g = _edge_problem(hid, C, K, B, n, n_mid, seed=hid + C + K + n + 1)
     acc = torch.zeros((B, grid.num_tokens, C + 11), device="cuda")
     n5, n5b = k5.encoder_accumulate.launches_bf16, k5.encoder_accumulate_backward.launches_bf16
@@ -227,7 +229,7 @@ def test_encoder_bf16_bodies_match_plain(hid, C, K, B, n, n_mid, chunk):
     want = k5.encoder_accumulate_backward_reference(g, *args, ws, bs, grid, chunk, "bfloat16")
     chunks = 1 if chunk is None else -(-n // chunk)
     assert k5.encoder_accumulate.launches_bf16 == n5 + 1
-    assert k5.encoder_accumulate_backward.launches_bf16 == n5b + chunks
+    assert k5.encoder_accumulate_backward.launches_bf16 == n5b + 1
     pairs = [(got[0], want[0])] + list(zip(got[1], want[1])) + list(zip(got[2], want[2]))
     for a, b in pairs:
         assert a.shape == b.shape and torch.isfinite(a).all()
@@ -235,6 +237,42 @@ def test_encoder_bf16_bodies_match_plain(hid, C, K, B, n, n_mid, chunk):
     if chunks == 1:  # one launch: dW is its bf16 rounding, db is not rounded
         assert all(torch.equal(k5.round_bf16(w), w) for w in got[1])
         assert not all(torch.equal(k5.round_bf16(b), b) for b in got[2])
+
+
+@pytest.mark.parametrize("K,B,n,chunk,valid", [
+    (5, 1, 3001, 1000, 0.1),   # uniform slots, mostly masked
+    (5, 2, 2000, 77, 0.5),     # chunks of 77 nodes: no multiple of a tile, B = 2
+    (8, 2, 999, None, 0.02),   # nearly every slot masked, nodes without any valid slot
+    (130, 1, 37, None, 0.9),   # nodes with more than 128 valid slots
+    (300, 2, 11, 4, 0.7),      # a node's rows over three passes, chunks of 4 nodes, B = 2
+])
+def test_encoder_bf16_valid_row_tiles(K, B, n, chunk, valid):
+    """The bf16 bodies over the tile map's valid rows: K5 and K5b against
+    their bf16 plain versions where most slots are masked, where a node has
+    more than 128 valid slots, at chunk sizes that are no multiple of a
+    tile, at B = 2; one K5b launch a backward call, dfeats the same bits
+    twice, zero for nodes without a valid slot."""
+    args, ws, bs, grid, g = _edge_problem(64, 32, K, B, n, 2, seed=K + n, valid=valid)
+    C = 32
+    acc = torch.zeros((B, grid.num_tokens, C + 11), device="cuda")
+    k5.encoder_accumulate(*args, ws, bs, grid, acc, chunk, kernel_dtype="bfloat16")
+    ref = k5.encoder_accumulate_reference(*args, ws, bs, grid, torch.zeros_like(acc), chunk,
+                                          "bfloat16")
+    torch.cuda.synchronize()
+    assert torch.isfinite(acc).all() and _rel_l2(acc[..., :C], ref[..., :C]) <= K5_BF16
+    before = k5.encoder_accumulate_backward.launches_bf16
+    got = k5.encoder_accumulate_backward(g, *args, ws, bs, grid, chunk, kernel_dtype="bfloat16")
+    again = k5.encoder_accumulate_backward(g, *args, ws, bs, grid, chunk,
+                                           kernel_dtype="bfloat16")
+    want = k5.encoder_accumulate_backward_reference(g, *args, ws, bs, grid, chunk, "bfloat16")
+    torch.cuda.synchronize()
+    assert k5.encoder_accumulate_backward.launches_bf16 == before + 2
+    assert torch.equal(got[0], again[0])
+    assert torch.all(got[0][~args[3].any(-1)] == 0)
+    pairs = [(got[0], want[0])] + list(zip(got[1], want[1])) + list(zip(got[2], want[2]))
+    for a, b in pairs:
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert _rel_l2(a, b) <= K5B_BF16
 
 
 def test_encoder_bf16_backward_dfeats_repeat_bit_for_bit():
@@ -246,8 +284,9 @@ def test_encoder_bf16_backward_dfeats_repeat_bit_for_bit():
 
 
 def test_encoder_bf16_autograd_on_card_matches_cpu():
-    """`accumulate` at bf16 under autograd on the card (K5, then K5b once a
-    chunk) against the same on the CPU (the plain versions)."""
+    """`accumulate` at bf16 under autograd on the card (K5, then K5b once,
+    with a dW slice a chunk) against the same on the CPU (the plain
+    versions)."""
     args, ws, bs, grid, g = _edge_problem(64, 32, 4, 1, 3000, 2, seed=9)
 
     def run(device):
@@ -617,7 +656,7 @@ def test_train_step_on_card_matches_cpu():
 
 def test_train_step_bf16_on_card_matches_cpu():
     """kernel_dtype bfloat16: one forward-and-backward through K5's and
-    K5b's bf16 bodies (K5b once a 64-node chunk) on the card against the
+    K5b's bf16 bodies (K5b once, its dW in 64-node chunks) on the card against the
     plain versions on the CPU, same seeds, f32 attention, no dropout:
     relative L2 of the gradient within K5B_BF16 (bf16 roundings that the
     sums' other order flips)."""
@@ -650,7 +689,7 @@ def test_train_step_bf16_on_card_matches_cpu():
                      decoder_slots=[slots])
         masked_mse(pred, target.to(device), mask.to(device)).backward()
         grads.append(torch.cat([p.grad.flatten().cpu() for p in model.parameters()]))
-    assert k5.encoder_accumulate_backward.launches_bf16 == n5b + 4
+    assert k5.encoder_accumulate_backward.launches_bf16 == n5b + 1
     assert torch.isfinite(grads[1]).all()
     assert _rel_l2(grads[1], grads[0]) <= K5B_BF16
 

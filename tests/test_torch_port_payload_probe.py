@@ -1,6 +1,7 @@
 """The encoder payload probe (`gaot3d_tpu_torch/tools/probe_encoder_payload.py`)
-on the CPU: every variant it builds is still one substitution away from the
-kernels in the checkout, and without a card it refuses to run."""
+on the CPU: every variant it builds, of the f32 and the bf16 bodies, is still
+a few substitutions away from the kernels in the checkout, and without a card
+it refuses to run."""
 import pytest
 import torch
 
@@ -10,12 +11,14 @@ from gaot3d_tpu_torch.tools import probe_encoder_payload as probe
 def test_every_variant_applies_to_the_sources():
     sources = probe.variant_sources()
     assert set(sources) == set(probe.VARIANTS)
-    shipped = {"fwd": sources["k5"], "bwd": sources["k5b"]}
-    for name, (kind, _, _, _) in probe.VARIANTS.items():
-        if name in ("k5", "k5b"):
+    shipped = {kind: sources[name] for name, (kind, _, _, what) in probe.VARIANTS.items()
+               if what == "as shipped"}
+    assert set(shipped) == {"fwd", "bwd", "fwd_bf16", "bwd_bf16"}
+    for name, (kind, _, _, what) in probe.VARIANTS.items():
+        if what == "as shipped":
             continue
         assert sources[name] != shipped[kind], f"{name} changes nothing"
-    for kind in ("fwd", "bwd"):  # only the recipe's instantiation is built
+    for kind in shipped:  # only the recipe's instantiation is built
         src = shipped[kind][0]
         assert src.count("X(64, 32") == 1
 
