@@ -50,6 +50,7 @@ from gaot3d_tpu_torch.weights import load_numpy_state_dict, numpy_state_dict
 from test_degree_sections import _flagship_model, _problem
 from test_torch_port_model import _port_configs, _sections, _with_attention_dtype
 from test_torch_port_trainer import port_trainer, small_config
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -28,6 +28,7 @@ from gaot3d_tpu_torch.data import transforms as ttr
 from gaot3d_tpu_torch.metadata import DATASET_METADATA as TMETA
 from gaot3d_tpu_torch.models.magno import MAGNOConfig as TMAGNOConfig
 from gaot3d_tpu_torch.ops import grid_graph as tgg
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 META = "synthetic/unit_cube"
 DIMS = (8, 8, 8)

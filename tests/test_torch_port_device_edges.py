@@ -26,6 +26,7 @@ from gaot3d_tpu_torch.ops import grid_graph as tgg
 from gaot3d_tpu_torch.weights import load_numpy_state_dict
 from test_degree_sections import _flagship_model
 from test_torch_port_model import _port_configs, _with_attention_dtype
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

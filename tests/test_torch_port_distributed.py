@@ -27,6 +27,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP_TIMEOUT = 240  # seconds a spawned step run may take

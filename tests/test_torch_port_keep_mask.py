@@ -13,6 +13,7 @@ import torch
 from gaot3d_tpu.ops.pallas_attention import flash_attention_dropout
 from gaot3d_tpu_torch.kernels import dropout_bits as k4
 from gaot3d_tpu_torch.kernels import flash_attention as k1
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 
 def _keep(bits, rate):

@@ -16,6 +16,7 @@ from gaot3d_tpu_torch.kernels import dropout_bits as k4
 from gaot3d_tpu_torch.kernels import encoder_payload as k5
 from gaot3d_tpu_torch.kernels import flash_attention as k1
 from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -26,11 +27,64 @@ def _qkv(S, Skv, seed=0, B=1, H=2, D=32):
     return [rng.normal(size=(B, H, s, D)).astype(np.float32) for s in (S, Skv, Skv)]
 
 
+def _scores_f64(q, k):
+    """q as the kernels take it (prescaled in f32, rounded back to its type)
+    and the float64 scores, their row maxima and exponentials' row sums."""
+    qs = (q.float() * (1.0 / q.shape[-1] ** 0.5)).to(q.dtype).double().numpy()
+    s = qs @ np.swapaxes(k.double().numpy(), -1, -2)
+    m = s.max(axis=-1, keepdims=True)
+    p = np.exp(s - m)
+    return qs, p, m, p.sum(axis=-1, keepdims=True)
+
+
+def _keep_f64(bits, rate, shape):
+    """The dropout's keep / (1 - rate) from bits [B*H, S, Skv], or 1."""
+    if bits is None:
+        return 1.0
+    keep = bits.numpy().astype(np.int64) >= int(rate * 4294967295.0)
+    return (keep / (1.0 - rate)).reshape(shape)
+
+
+def _attention_f64(q, k, v, rate=0.0, bits=None):
+    """Float64 attention and lse of q, k, v [B,H,S,D] as both sides see them,
+    dropout by `bits` at `rate`."""
+    _, p, m, l = _scores_f64(q, k)
+    out = (p * _keep_f64(bits, rate, p.shape)) @ v.double().numpy() / l
+    return out, (m + np.log(l))[..., 0]
+
+
+def _attention_grads_f64(q, k, v, do, rate=0.0, bits=None):
+    """Float64 dq, dk, dv of <attention(q, k, v), do>."""
+    qs, p, _, l = _scores_f64(q, k)
+    p = p / l
+    mult = _keep_f64(bits, rate, p.shape)
+    do = np.asarray(do, np.float64)
+    dpm = (do @ np.swapaxes(v.double().numpy(), -1, -2)) * mult
+    ds = p * (dpm - (p * dpm).sum(axis=-1, keepdims=True))
+    return (ds @ k.double().numpy() / q.shape[-1] ** 0.5, np.swapaxes(ds, -1, -2) @ qs,
+            np.swapaxes(p * mult, -1, -2) @ do)
+
+
+# f32 results against the float64 attention, as shares of the reference's
+# largest magnitude: outputs and lse 5e-6, gradients 1e-5 (f32 reaches about
+# 4e-7 and 8e-7 of it at these sizes)
+F64_SHARE, F64_GRAD_SHARE = 5e-6, 1e-5
+
+
+def _assert_near_f64(side, what, got, ref, share):
+    err = float(np.abs(np.asarray(got, np.float64) - ref).max())
+    bound = share * float(np.abs(ref).max())
+    assert err <= bound, (f"the {side}'s {what} is {err:.3e} from the float64 attention, "
+                          f"above {bound:.3e}")
+
+
 @pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("S,Skv", [(128, 128), (192, 160)])
 def test_flash_twin_matches_pallas(dtype, atol, S, Skv):
-    """bf16: P is rounded to bf16 per 64-key block in the Pallas kernel and per
-    full row in the twin, so the bound is bf16-grade."""
+    """Each side against a float64 attention of the same inputs, so that a
+    drift names the side that moved, then the twin against the Pallas kernel.
+    bf16: P is rounded to bf16 per 64-key block in the Pallas kernel and per
+    full row in the twin, so the output bounds are bf16-grade."""
     q, k, v = _qkv(S, Skv)
     jq, jk, jv = (jnp.asarray(x).astype(dtype) for x in (q, k, v))
     want = flash_attention_dropout(jq, jk, jv, block_q=64, block_k=64, interpret=True)
@@ -39,8 +93,14 @@ def test_flash_twin_matches_pallas(dtype, atol, S, Skv):
     tq, tk, tv = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v))
     out, lse = k1.flash_attention_reference(tq, tk, tv)
     assert out.dtype == tq.dtype and lse.dtype == torch.float32
-    np.testing.assert_allclose(out.float().numpy(), np.asarray(want.astype(jnp.float32)),
-                               atol=atol)
+    ref, ref_lse = _attention_f64(tq, tk, tv)
+    share = F64_SHARE if dtype == "float32" else atol / np.abs(ref).max()
+    want = np.asarray(want.astype(jnp.float32))
+    for side, o, l in (("twin", out.float().numpy(), lse.numpy()),
+                       ("Pallas kernel", want, np.asarray(want_lse))):
+        _assert_near_f64(side, "output", o, ref, share)
+        _assert_near_f64(side, "lse", l, ref_lse, F64_SHARE)
+    np.testing.assert_allclose(out.float().numpy(), want, atol=atol)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5, rtol=1e-6)
 
 
@@ -244,12 +304,16 @@ def _dropout_problem(dtype, S=192, Skv=130, seed=11):
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_flash_dropout_plain_matches_pallas(dtype, atol, rate):
     """One set of bits through the Pallas kernel (interpret mode) and the
-    plain forward, S=192, Skv=130. bf16: P is rounded per 64-key tile there
-    and per row here."""
+    plain forward, S=192, Skv=130, each held to a float64 attention in f32.
+    bf16: P is rounded per 64-key tile there and per row here."""
     jqkv, tqkv, jbits, bits = _dropout_problem(dtype)
     want = flash_attention_dropout(*jqkv, dropout_rate=rate, dropout_bits=jbits, block_q=64,
                                    block_k=64, interpret=True)
     out, lse = k1.flash_attention_reference(*tqkv, rate, bits)
+    if dtype == "float32":
+        ref, _ = _attention_f64(*tqkv, rate, bits)
+        for side, o in (("twin", out.numpy()), ("Pallas kernel", np.asarray(want))):
+            _assert_near_f64(side, "output", o, ref, F64_SHARE)
     np.testing.assert_allclose(out.float().numpy(), np.asarray(want.astype(jnp.float32)),
                                atol=atol)
     # dropout leaves the denominator, and so lse, as it was
@@ -259,14 +323,23 @@ def test_flash_dropout_plain_matches_pallas(dtype, atol, rate):
     assert torch.equal(wrapped, out)
 
 
+def _assert_grads_near_f64(got, want, ref):
+    """The twin's (got) and the Pallas kernels' (want) f32 dq, dk, dv each
+    against the float64 gradients, so that a drift names the side."""
+    for side, grads in (("twin", got), ("Pallas kernel", want)):
+        for g, r, name in zip(grads, ref, ("dq", "dk", "dv")):
+            _assert_near_f64(side, name, np.asarray(g), r, F64_GRAD_SHARE)
+
+
 @pytest.mark.parametrize("dtype,rel", [("float32", 2e-5), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 @pytest.mark.parametrize("fused", ["1", "0"])
 def test_flash_backward_plain_matches_pallas_grad(dtype, rel, rate, fused, monkeypatch):
     """The plain backward against jax.grad through the Pallas kernels, fused
-    and split (GAOT_ATTN_BWD_FUSED=0), with the same bits. Bounds relative to
-    each gradient's max-abs: summation order in f32, roundings of pm, ds and
-    the results in bf16."""
+    and split (GAOT_ATTN_BWD_FUSED=0), with the same bits; in f32 each side
+    against the float64 gradients too. Bounds relative to each gradient's
+    max-abs: summation order in f32, roundings of pm, ds and the results in
+    bf16."""
     monkeypatch.setenv("GAOT_ATTN_BWD_FUSED", fused)
     jqkv, tqkv, jbits, bits = _dropout_problem(dtype, seed=13)
     if rate == 0.0:
@@ -282,6 +355,8 @@ def test_flash_backward_plain_matches_pallas_grad(dtype, rel, rate, fused, monke
     tdo = torch.from_numpy(do).to(tqkv[0].dtype)
     out, lse = k1.flash_attention_reference(*tqkv, rate, bits)
     got = k1.flash_attention_backward_reference(*tqkv, out, lse, tdo, rate, bits)
+    if dtype == "float32":
+        _assert_grads_near_f64(got, want, _attention_grads_f64(*tqkv, do, rate, bits))
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
         w = np.asarray(w.astype(jnp.float32))
         assert g.dtype == tqkv[0].dtype
@@ -301,8 +376,9 @@ def test_flash_backward_split_matches_pallas_split(dtype, rel, rate, S, Skv, mon
     kernels (interpret mode under GAOT_ATTN_BWD_FUSED=0) and through
     `flash_attention_backward_split` on CPU tensors, at K2's CPU tolerance:
     relative to each gradient's max-abs, 2e-5 in f32 (summation order) and
-    2e-2 in bf16 (roundings of pm, ds and the results). S=150 and Skv=130 are
-    no multiples of the 64-row tiles."""
+    2e-2 in bf16 (roundings of pm, ds and the results); in f32 each side
+    against the float64 gradients too. S=150 and Skv=130 are no multiples of
+    the 64-row tiles."""
     monkeypatch.setenv("GAOT_ATTN_BWD_FUSED", "0")
     jqkv, tqkv, jbits, bits = _dropout_problem(dtype, S=S, Skv=Skv, seed=17)
     if rate == 0.0:
@@ -319,6 +395,8 @@ def test_flash_backward_split_matches_pallas_split(dtype, rel, rate, S, Skv, mon
     out, lse = k1.flash_attention(*tqkv, rate, dropout_bits=bits)
     before = (k1.flash_attention_backward_dq.launches, k1.flash_attention_backward_dkv.launches)
     got = k1.flash_attention_backward_split(*tqkv, out, lse, tdo, rate, dropout_bits=bits)
+    if dtype == "float32":
+        _assert_grads_near_f64(got, want, _attention_grads_f64(*tqkv, do, rate, bits))
     # CPU tensors go to the plain version: no kernel is counted
     assert before == (k1.flash_attention_backward_dq.launches,
                       k1.flash_attention_backward_dkv.launches)

@@ -25,6 +25,7 @@ from gaot3d_tpu_torch.ops.grid_graph import EdgeSlots, SectionedEdgeSlots
 from gaot3d_tpu_torch.serve import export_inference, load_inference, make_edge_arg_model
 from gaot3d_tpu_torch.weights import load_numpy_state_dict
 from test_degree_sections import _flagship_model, _problem
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -35,6 +35,7 @@ from gaot3d_tpu_torch.train import (NeuralField, TrainBatch, gather_nodes, neura
 from gaot3d_tpu_torch.weights import numpy_state_dict
 from test_torch_port_device_edges import _jax_and_port
 from test_torch_port_trainer import port_trainer, small_config, write_config
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NF_CONFIG = os.path.join(REPO, "configs", "examples", "synthetic", "neural_field.yaml")

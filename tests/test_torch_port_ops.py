@@ -31,6 +31,7 @@ from gaot3d_tpu_torch.ops import eigh3 as peigh
 from gaot3d_tpu_torch.ops import rope as prope
 from gaot3d_tpu_torch.ops import segment as pseg
 from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -30,6 +30,7 @@ import torch
 from gaot3d_tpu_torch.kernels import encoder_payload as k5
 from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
 from test_torch_port_payload_tf32 import cut, gelu_parts, tf32
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 K5_BF16_LIMIT = 1e-4   # chip_smoke.py K5_BF16_BOUND
 K5B_BF16_LIMIT = 2e-3  # chip_smoke.py K5B_BF16_BOUND

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from gaot3d_tpu_torch.tools import probe_encoder_payload as probe
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 
 def test_every_variant_applies_to_the_sources():

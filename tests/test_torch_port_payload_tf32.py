@@ -23,6 +23,7 @@ import torch
 
 from gaot3d_tpu_torch.kernels import encoder_payload as k5
 from gaot3d_tpu_torch.ops.grid_graph import LatentGrid
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 K5_LIMIT = 1e-5
 K5B_LIMIT = 1e-4

@@ -18,6 +18,7 @@ from jax.experimental import pallas as pl
 
 from gaot3d_tpu_torch.kernels import elementwise_chain as t1
 from gaot3d_tpu_torch.tools import microbench_vpu_bf16 as probe
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

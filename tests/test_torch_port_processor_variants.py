@@ -49,6 +49,7 @@ from gaot3d_tpu_torch.weights import (COND_NORM_KEY, conditioned_norm_state_dict
                                       load_numpy_state_dict, numpy_state_dict,
                                       reference_state_dict, state_dict_from_reference)
 from test_degree_sections import compact_slots_np
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

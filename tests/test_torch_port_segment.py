@@ -26,6 +26,7 @@ from gaot3d_tpu_torch.kernels import prefix_sum as k7
 from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
 from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
 from gaot3d_tpu_torch.ops import segment as pseg
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 t = torch.from_numpy
 
@@ -35,6 +36,21 @@ def _close(got, want, rel=1e-5):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= rel * max(np.abs(want).max(), 1.0)
+
+
+def _near_exact(side, got, exact, share):
+    """max |got - exact| <= share * max |exact|: one side against the float64
+    result, so that a drift names the side that moved."""
+    err = np.abs(np.asarray(got, np.float64) - exact).max()
+    assert err <= share * np.abs(exact).max(), (side, float(err / np.abs(exact).max()))
+
+
+def _segment_sum_f64(payload, seg, M):
+    """Float64 sums of the rows of each segment id below M."""
+    exact = np.zeros((M, payload.shape[1]))
+    valid = seg < M
+    np.add.at(exact, seg[valid], payload[valid].astype(np.float64))
+    return exact
 
 
 def _edges(seed=0, E=257, S=19, C=4, keep=0.8):
@@ -55,7 +71,11 @@ def test_prefix_sum_matches_pallas_interpret(E, C, block_rows):
     x = rng.normal(size=(E, C)).astype(np.float32)
     want = np.asarray(jk.prefix_sum(jnp.asarray(x), block_rows=block_rows, interpret=True))
     got = k7.prefix_sum(t(x)).numpy()
-    top = np.abs(np.cumsum(x.astype(np.float64), axis=0)).max(axis=0)
+    exact = np.cumsum(x.astype(np.float64), axis=0)
+    top = np.abs(exact).max(axis=0)
+    for side, out in (("plain version", got), ("Pallas kernel", want)):
+        # f32 reaches 6e-8 (plain) and 5e-7 (Pallas) of the largest prefix
+        assert (np.abs(out - exact) / top).max() <= 5e-6, side
     assert (np.abs(got - want) / top).max() <= 1e-5
     assert k7.prefix_sum.launches == 0  # a CPU tensor takes the plain version
     np.testing.assert_array_equal(k7.cumsum_fast(t(x)).numpy(), got)
@@ -81,6 +101,9 @@ def test_segment_sum_sorted_matches_pallas_interpret(E, P, M, mt, slab):
     want = segment_sum_sorted_pallas(jnp.asarray(payload), jnp.asarray(seg), M, mt=mt,
                                      slab=slab, interpret=True, passes=2)
     got = k6.segment_sum_sorted(t(payload), t(seg), M, passes=2)
+    exact = _segment_sum_f64(payload, seg, M)
+    _near_exact("plain version", got.numpy(), exact, 1e-6)  # f32: 1e-7 of the largest sum
+    _near_exact("Pallas kernel", want, exact, 1e-5)  # the bf16 halves: 3.4e-6
     _close(got.numpy(), want)
     assert k6.segment_sum_sorted.launches == 0
 

@@ -28,6 +28,7 @@ from hypothesis import strategies as st
 
 from gaot3d_tpu.ops.pallas_segment import segment_sum_sorted_pallas
 from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 t = torch.from_numpy
 MT = 32  # the JAX kernel's segment tile: its M is padded up to a multiple of it

@@ -27,6 +27,7 @@ from gaot3d_tpu.ops import segment as jseg
 from gaot3d_tpu_torch.kernels import prefix_sum as k7
 from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
 from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 t = torch.from_numpy
 

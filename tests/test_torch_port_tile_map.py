@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from gaot3d_tpu_torch.kernels import encoder_payload as k5
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 R = k5.TILE_ROWS
 

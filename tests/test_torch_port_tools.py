@@ -47,6 +47,7 @@ from gaot3d_tpu_torch.train.checkpoint import (load_msgpack_params, load_trained
                                                save_checkpoint)
 from gaot3d_tpu_torch.weights import load_numpy_state_dict
 from test_vtk_ingestion import write_vtk
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -29,6 +29,7 @@ from gaot3d_tpu_torch.train import (OptimizerargsConfig, TrainBatch, eval_step,
 from gaot3d_tpu_torch.weights import numpy_state_dict
 from test_degree_sections import _problem
 from test_torch_port_model import _pair, _sections
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

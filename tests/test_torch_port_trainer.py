@@ -30,6 +30,7 @@ from gaot3d_tpu_torch.train import metrics as tmetrics
 from gaot3d_tpu_torch.train.trainer import init_trainer
 from gaot3d_tpu_torch.utils import dataclass_utils as tdu
 from gaot3d_tpu_torch.weights import numpy_state_dict
+from test_torch_port_cpu import child_env
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -257,9 +258,9 @@ def test_profile_dir_gets_a_chrome_trace(pair, tmp_path):
 
 
 def _run_cli(*args):
-    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     return subprocess.run([sys.executable, "-m", "gaot3d_tpu_torch", *args],
-                          capture_output=True, text=True, cwd=REPO, timeout=560, env=env)
+                          capture_output=True, text=True, cwd=REPO, timeout=560,
+                          env=child_env(JAX_PLATFORMS="cpu"))
 
 
 def _cli_config(tmp_path, name):

@@ -8,6 +8,7 @@ from gaot3d_tpu.utils import sample as jsample
 from gaot3d_tpu.utils import viz as jviz
 from gaot3d_tpu_torch.utils import sample as tsample
 from gaot3d_tpu_torch.utils import viz as tviz
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 
 @pytest.mark.parametrize("n", [7, 50, 500])

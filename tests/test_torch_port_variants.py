@@ -36,6 +36,7 @@ from gaot3d_tpu_torch.ops import sampling as psmp
 from gaot3d_tpu_torch.ops import segment as pseg
 from gaot3d_tpu_torch.ops.grid_graph import EdgeSlots, LatentGrid
 from test_degree_sections import _problem
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -72,9 +73,13 @@ def _slots(seed=23):
     return pos, mask, lat, msk
 
 
-def _jax_grads(fn, params, cot):
-    """d <fn(params), cot> / d params of the JAX module."""
-    return jax.grad(lambda p: jnp.vdot(fn(p), jnp.asarray(cot)))(params)["params"]
+def _jax_vjp(fn, rng, *primals):
+    """fn(*primals), a cotangent of its shape drawn from `rng` and the
+    gradient of <fn, cot> for each primal, from one forward and one backward
+    of the jitted fn."""
+    out, pull = jax.vjp(jax.jit(fn), *primals)
+    cot = rng.normal(size=out.shape).astype(np.float32)
+    return out, cot, pull(jnp.asarray(cot))
 
 
 def _port_grads(out, params, cot):
@@ -112,10 +117,8 @@ def test_integral_transform_matches_jax(transform, attention, direction, segment
     def run(p, s=jnp.asarray(src)):
         return jmod.apply(p, *args, s, direction=direction)
 
-    want = run(params)
-    cot = rng.normal(size=want.shape).astype(np.float32)
-    jg = _jax_grads(run, params, cot)
-    jsrc = jax.grad(lambda s: jnp.vdot(run(params, s), jnp.asarray(cot)))(jnp.asarray(src))
+    want, cot, (jg, jsrc) = _jax_vjp(run, rng, params, jnp.asarray(src))
+    jg = jg["params"]
 
     pmod = IntegralTransform(list(layers), LatentGrid(dims=DIMS), transform,
                              use_attn=attention is not None, attention_type=attention or "cosine",
@@ -187,9 +190,8 @@ def test_geoembed_matches_jax(method, pooling, direction, segment_impl):
     def run(p):
         return jmod.apply(p, *args, direction=direction, query_mask=qm)
 
-    want = run(params)
-    cot = np.random.default_rng(6).normal(size=want.shape).astype(np.float32)
-    jg = _jax_grads(run, params, cot)
+    want, cot, (jg,) = _jax_vjp(run, np.random.default_rng(6), params)
+    jg = jg["params"]
     pmod = _load(GeometricEmbedding(3, C, method, pooling, CHUNK, segment_impl,
                                     LatentGrid(dims=DIMS)), _put_geo, params, method)
     got = pmod(EdgeSlots.from_numpy(lat, msk), _t(pos), direction,
@@ -228,10 +230,8 @@ def test_fused_decoder_matches_jax(transform):
 
     params = jmod.init(jax.random.key(2), slots, jnp.asarray(pos), jnp.asarray(latent),
                        jgrid.positions(), query_mask=jnp.asarray(mask))
-    want = run(params)
-    cot = rng.normal(size=want.shape).astype(np.float32)
-    jg = _jax_grads(run, params, cot)
-    jlat = jax.grad(lambda f: jnp.vdot(run(params, f), jnp.asarray(cot)))(jnp.asarray(latent))
+    want, cot, (jg, jlat) = _jax_vjp(run, rng, params, jnp.asarray(latent))
+    jg = jg["params"]
 
     grid = LatentGrid(dims=DIMS)
     gno = IntegralTransform(list(layers), grid, transform)
@@ -277,7 +277,7 @@ def test_fused_encoder_variants_match_jax(variant, segment_impl):
         return geo if gno is None else jnp.concatenate([gno, geo], axis=-1)
 
     params = jmod.init(jax.random.key(5), slots, jnp.asarray(pos), jf, jgrid.positions())
-    want = run(params)
+    want = jax.jit(run)(params)
     grid = LatentGrid(dims=DIMS)
     p = params["params"]
     gno = _load(IntegralTransform(list(layers), grid, transform), _put_it, params,

@@ -10,16 +10,13 @@ statistical geoembed (FusedDecoderScale), two scales with scale weights,
 false`. Both models build their slots in the forward; the port loads the JAX
 weights through gaot3d_tpu.torch_export.state_dict_from_params with
 strict=True. Then a train step's loss and gradients (the sampling steps on
-JAX's own draws), a multiscale model served both ways, and the port's
-trainer on a multiscale PointNet attention config against the JAX trainer.
+JAX's own draws) and a multiscale model served both ways. The trainer on a
+multiscale variant config is tests/test_torch_port_variants_trainer.py.
 
 Attention runs in f32 in both. Limits, relative to the size of the
 reference: eval forward 1e-5 relative L2, loss 1e-5, each gradient 1e-4
-relative L2; trainer losses 1e-3 (tests/test_torch_port_trainer.py's bound
-and reason).
+relative L2.
 """
-import copy
-import dataclasses
 import os
 
 import jax
@@ -28,12 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-from gaot3d_tpu import config as jconfig
 from gaot3d_tpu.models import magno as jmagno
 from gaot3d_tpu.ops.grid_graph import LatentGrid as JaxLatentGrid
 from gaot3d_tpu.ops.grid_graph import build_edge_slots_batched
 from gaot3d_tpu.torch_export import state_dict_from_params
-from gaot3d_tpu.train.trainer import init_trainer as jax_init_trainer
 from gaot3d_tpu_torch.models import init_model
 from gaot3d_tpu_torch.ops.grid_graph import EdgeSlots
 from gaot3d_tpu_torch.serve import export_inference, load_inference, make_edge_arg_model
@@ -41,7 +36,7 @@ from gaot3d_tpu_torch.train.step import masked_mse
 from gaot3d_tpu_torch.weights import load_numpy_state_dict, numpy_state_dict
 from test_degree_sections import _flagship_model, _problem
 from test_torch_port_model import _port_configs, _with_attention_dtype
-from test_torch_port_trainer import port_trainer, small_config, write_config
+import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -234,54 +229,3 @@ def test_reference_state_dict_drops_the_dead_recovery_without_gno():
                       "encoder.recovery.fcs.0.bias": np.zeros(8, np.float32)})
     out = state_dict_from_reference(ref, pmodel)
     assert set(out) == set(sd)
-
-
-# -- the trainer --------------------------------------------------------------------
-
-
-def variant_config(base, name="run"):
-    """`small_config` with two scales and scale weights, the PointNet encoder
-    geoembed and cosine attention in the GNOs, over uniform slots (sections
-    take one scale)."""
-    cfg = small_config(base, name)
-    cfg["model"]["args"]["magno"].update(
-        scales=[1.0, 2.0], use_scale_weights=True, embedding_method="pointnet",
-        use_attn=True, attention_type="cosine", edge_layout="slots", slot_budget=None)
-    return cfg
-
-
-@pytest.fixture(scope="module")
-def trainers(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("variants")
-    cfg = variant_config(tmp)
-    jcfg = copy.deepcopy(cfg)
-    jcfg["path"]["ckpt_path"] = os.path.join(str(tmp), "jax", "c.msgpack")
-    for key in ("loss_path", "result_path", "database_path"):
-        jcfg["path"][key] = jcfg["path"][key].replace("/run/", "/jax/")
-    jt = jax_init_trainer(jconfig.load_run_config(write_config(jcfg, tmp / "jax.json")))
-    init_ckpt = os.path.join(str(tmp), "init.msgpack")
-    jt.save_ckpt(init_ckpt)
-    pt = port_trainer(cfg, tmp)
-    pt.load_ckpt(init_ckpt)  # the JAX tree's variant names through tree_path
-    return {"jax": jt, "port": pt, "val": (jt.validate(jt.val_loader),
-                                          pt.validate(pt.val_loader)),
-            "fit": (jt.fit(), pt.fit())}
-
-
-def test_trainer_reads_multiscale_batches(trainers):
-    pt = trainers["port"]
-    batch = pt.put_batch(next(iter(pt.train_loader)))
-    assert isinstance(batch.enc_slots, list) and len(batch.enc_slots) == 2
-    assert batch.enc_slots[1].lat_idx.shape[-1] > batch.enc_slots[0].lat_idx.shape[-1]
-    assert dataclasses.asdict(pt.model.magno_config)["scales"] == [1.0, 2.0]
-
-
-def test_trainer_follows_the_jax_trainers_losses(trainers):
-    """validate() on the JAX trainer's initial parameters to 1e-5; two epochs
-    of fit() to 1e-3 (Adam's first step, see tests/test_torch_port_trainer.py)."""
-    jval, pval = trainers["val"]
-    np.testing.assert_allclose(pval, jval, rtol=1e-5)
-    jfit, pfit = trainers["fit"]
-    np.testing.assert_allclose(pfit["train"]["loss"], jfit["train"]["loss"], rtol=1e-3)
-    np.testing.assert_allclose(pfit["valid"]["loss"], jfit["valid"]["loss"], rtol=1e-3)
-    assert pfit["train"]["loss"][1] < pfit["train"]["loss"][0]
