@@ -1,0 +1,8 @@
+"""forward_busy_ms.train: device busy ms a traced step of the operations
+launched inside the span gaot.train.forward (the forward and masked MSE),
+by launch correlation (stages.py)."""
+from benchmark import stages
+
+
+def read(record):
+    return stages.busy_ms(record, "gaot.train.forward")

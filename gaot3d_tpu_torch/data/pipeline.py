@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..metadata import Metadata
+from ..tracing import span
 from .dataset import DatasetConfig, MeshDataset
 from .transforms import normalize, rescale, rescale_new
 
@@ -432,7 +433,9 @@ def prefetch_to_device(iterator: Iterator[PointBatch], put_fn, size: int = 2,
     = the warm-up wait for batch 1 (unavoidable cold load), 'gets' = batches
     yielded. Steady-state loader stall = wait_s - first_wait_s; about 0 means
     the loader and the upload sustain the device's step rate. The producer
-    adds 'host_load_s' (disk + batch assembly) and 'put_s' (the upload)."""
+    adds 'host_load_s' (disk + batch assembly) and 'put_s' (the upload).
+    Inside a profiler session the same three stretches are the spans
+    gaot.loader.wait, gaot.loader.load and gaot.loader.put (see tracing.py)."""
     q: "queue.Queue" = queue.Queue(maxsize=size)
     sentinel = object()
     put = put_fn
@@ -448,14 +451,16 @@ def prefetch_to_device(iterator: Iterator[PointBatch], put_fn, size: int = 2,
         # zero-batch epoch trains on nothing while reporting loss 0.0
         try:
             while True:
-                t0 = time.time()
+                t0 = time.perf_counter()
                 try:
-                    item = next(iterator)
+                    with span("gaot.loader.load"):
+                        item = next(iterator)
                 except StopIteration:
                     break
-                t1 = time.time()
-                placed = put(item)
-                t2 = time.time()
+                t1 = time.perf_counter()
+                with span("gaot.loader.put"):
+                    placed = put(item)
+                t2 = time.perf_counter()
                 if stats is not None:
                     # producer-side breakdown (distinct keys from the
                     # consumer's wait_s, so no cross-thread races matter)
@@ -469,10 +474,11 @@ def prefetch_to_device(iterator: Iterator[PointBatch], put_fn, size: int = 2,
     t = threading.Thread(target=producer, daemon=True)
     t.start()
     while True:
-        t0 = time.time()
-        item = q.get()
+        t0 = time.perf_counter()
+        with span("gaot.loader.wait"):
+            item = q.get()
         if stats is not None:
-            w = time.time() - t0
+            w = time.perf_counter() - t0
             stats["wait_s"] = stats.get("wait_s", 0.0) + w
             if stats.get("gets", 0) == 0:
                 stats["first_wait_s"] = w

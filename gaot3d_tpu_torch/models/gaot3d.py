@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots
 from ..parallel.sharding import active_placement
+from ..tracing import span
 from .magno import MAGNOConfig, MAGNODecoder, MAGNOEncoder
 from .transformer import TransformerConfig, UViTProcessor
 
@@ -198,6 +199,31 @@ class GAOT3D(nn.Module):
                                  f"got {len(side)}")
         enc = list(encoder_slots) if encoder_slots is not None else None
         dec = list(decoder_slots) if decoder_slots is not None else None
+        if enc is not None or dec is not None:
+            with span("gaot.check_edges"):
+                self._check_edges(enc, dec, point_pos, query_pos)
+        if enc is None or dec is None:
+            with span("gaot.slot_build"):
+                if enc is None:
+                    enc = [build(point_pos, point_mask) for build in self.encoder.builds]
+                    if dec is None and query_pos is point_pos and query_mask is point_mask:
+                        dec = [e if db.same_edges(eb) else db(query_pos, query_mask)
+                               for e, eb, db in zip(enc, self.encoder.builds,
+                                                    self.decoder.builds)]
+                if dec is None:
+                    dec = [build(query_pos, query_mask) for build in self.decoder.builds]
+        rng = iter(edge_draws) if edge_draws is not None else generator
+        with span("gaot.encode"):
+            rndata = self.encoder(point_pos, point_feats, enc, rng=rng)
+        with span("gaot.process"):
+            rndata = self.process(rndata, condition, generator)
+        with span("gaot.decode"):
+            return self.decoder(rndata, query_pos, dec, query_mask=query_mask, rng=rng)
+
+    def _check_edges(self, enc: Optional[list], dec: Optional[list],
+                     point_pos: torch.Tensor, query_pos: torch.Tensor) -> None:
+        """Validate each side's call-time edges; the decoder's where they are
+        not the encoder's own slots or sections, which are checked once."""
         if enc is not None:
             # the encoder folds by cell when its lists come sorted so; the
             # decoder always folds by node, so one flat list cannot serve both
@@ -210,14 +236,3 @@ class GAOT3D(nn.Module):
                 if enc is None or d is not enc[s] or isinstance(d, FlatEdgeChunks):
                     check_slots(d, query_pos.shape[0], query_pos.shape[1],
                                 self.grid.num_tokens, "src")
-        if enc is None:
-            enc = [build(point_pos, point_mask) for build in self.encoder.builds]
-            if dec is None and query_pos is point_pos and query_mask is point_mask:
-                dec = [e if db.same_edges(eb) else db(query_pos, query_mask)
-                       for e, eb, db in zip(enc, self.encoder.builds, self.decoder.builds)]
-        if dec is None:
-            dec = [build(query_pos, query_mask) for build in self.decoder.builds]
-        rng = iter(edge_draws) if edge_draws is not None else generator
-        rndata = self.encoder(point_pos, point_feats, enc, rng=rng)
-        rndata = self.process(rndata, condition, generator)
-        return self.decoder(rndata, query_pos, dec, query_mask=query_mask, rng=rng)

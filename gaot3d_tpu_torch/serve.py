@@ -63,6 +63,7 @@ from .models import MAGNOConfig, TransformerConfig, init_model, require_device
 from .models.gaot3d import GAOT3D
 from .models.transformer import AttentionConfig, FFNConfig
 from .ops.grid_graph import LatentGrid
+from .tracing import span
 
 EDGE_MODES = ("args", "device")
 BUNDLE_FORMAT = "gaot3d_tpu_torch bucket bundle 1"
@@ -148,7 +149,7 @@ def make_device_edge_model(model: GAOT3D) -> Callable:
     defaults to all true when query_pos is given."""
 
     def infer(pos, feats, mask, query_pos=None, query_mask=None):
-        with torch.inference_mode():
+        with torch.inference_mode(), span("gaot.serve.forward"):
             return model(pos, feats, mask, query_pos=query_pos, query_mask=query_mask)
 
     return infer

@@ -27,6 +27,7 @@ import torch.distributed as dist
 
 from ..models.gaot3d import GAOT3D
 from ..parallel.sharding import active_placement, all_reduce_gradients, world_group
+from ..tracing import span
 from .schedule import ScheduledOptimizer
 
 
@@ -183,22 +184,28 @@ def train_step(model: GAOT3D, optimizer: ScheduledOptimizer, batch: TrainBatch,
     summed over every rank before the optimizer steps, and the loss and norm
     are the global ones."""
     _check_devices(model, batch)
-    model.train()
-    optimizer.zero_grad()
-    if neural_field is not None:
-        loss = neural_field_loss(model, batch, neural_field, generator)
-    else:
-        loss = masked_mse(_forward(model, batch, generator), batch.target, batch.node_mask)
-    scale = optimizer.loss_scale
-    (loss * scale if scale != 1.0 else loss).backward()
-    place = active_placement()
-    if place is not None:
-        all_reduce_gradients(model, place.mesh)
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    grad_norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
-    optimizer.step()
-    return _global(loss.detach()), grad_norm
+    with span("gaot.train.step"):
+        model.train()
+        optimizer.zero_grad()
+        with span("gaot.train.forward"):
+            if neural_field is not None:
+                loss = neural_field_loss(model, batch, neural_field, generator)
+            else:
+                loss = masked_mse(_forward(model, batch, generator), batch.target,
+                                  batch.node_mask)
+        scale = optimizer.loss_scale
+        with span("gaot.train.backward"):
+            (loss * scale if scale != 1.0 else loss).backward()
+        place = active_placement()
+        if place is not None:
+            with span("gaot.train.allreduce"):
+                all_reduce_gradients(model, place.mesh)
+        with span("gaot.train.optimizer"):
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+            optimizer.step()
+        return _global(loss.detach()), grad_norm
 
 
 def eval_step(model: GAOT3D, batch: TrainBatch) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -636,7 +636,16 @@ class StaticTrainer3D(TrainerBase):
 
                 activities = [ProfilerActivity.CPU] + (
                     [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
-                profiler = profile(activities=activities)
+                # every thread, so the loader's prefetch thread lays its spans
+                # too, where this torch's private profiler config offers it;
+                # else the step loop's thread alone
+                try:
+                    from torch._C._profiler import _ExperimentalConfig
+                    threads = {"experimental_config": _ExperimentalConfig(
+                        profile_all_threads=True)}
+                except (ImportError, TypeError):
+                    threads = {}
+                profiler = profile(activities=activities, **threads)
             total_loss = torch.zeros((), device=self.device)
             nb = 0
             t0 = time.time()

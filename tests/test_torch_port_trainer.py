@@ -242,16 +242,21 @@ def test_full_state_round_trip_and_artifacts(pair, tmp_path):
 
 def test_profile_dir_gets_a_chrome_trace(pair, tmp_path):
     """`setup.profile_dir` wraps the first `profile_steps` steps of
-    `profile_epoch` in torch.profiler and writes a Chrome trace there."""
+    `profile_epoch` in torch.profiler and writes a Chrome trace there, with
+    the port's spans: both steps' stages, and the wait for the second batch."""
     cfg = copy.deepcopy(pair["cfg"])
     cfg["path"] = {k: v.replace("/run/", "/prof/") for k, v in cfg["path"].items()}
-    cfg["setup"].update(profile_dir=str(tmp_path / "trace"), profile_epoch=0, profile_steps=1)
+    cfg["setup"].update(profile_dir=str(tmp_path / "trace"), profile_epoch=0, profile_steps=2)
     cfg["optimizer"]["args"].update(epoch=1)
     port_trainer(cfg, tmp_path).fit()
     with open(tmp_path / "trace" / "train_steps.trace.json") as f:
         trace = json.load(f)
-    assert any("train_step" in str(e.get("name", "")) or e.get("cat") == "cpu_op"
-               for e in trace["traceEvents"])
+    assert any(e.get("cat") == "cpu_op" for e in trace["traceEvents"])
+    names = [str(e.get("name", "")) for e in trace["traceEvents"]]
+    for span in ("gaot.train.step", "gaot.train.forward", "gaot.train.backward",
+                 "gaot.train.optimizer"):
+        assert names.count(span) == 2, span
+    assert "gaot.loader.wait" in names
 
 
 # --- (g) the command line
