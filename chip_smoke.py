@@ -4,7 +4,7 @@
 
 `--flat-seed` (31) seeds the cloud of phases 13 and 14, for a second reading
 of their limits. `--only` runs just the named phases (k1, attention-train,
-k3, k5, serve-device, serve-buckets, nf, trainer, export (after trainer),
+k3, k5, k9, serve-device, serve-buckets, nf, trainer, export (after trainer),
 trainer-split, trainer-nf, variants, trainer-variants, processor, dist (its
 part (a) after trainer), t1, k7, k6, k8, flat; the last four share one
 cloud), builds each kernel at its first use and prints no record: for work
@@ -14,7 +14,7 @@ itself.
 Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
      power limit, turns TF32 off;
-  2. build: compiles the twelve CUDA libraries of gaot3d_tpu_torch/csrc
+  2. build: compiles the thirteen CUDA libraries of gaot3d_tpu_torch/csrc
      with nvcc (K5 and K5b each an f32 and a bf16 body),
      all at the same time, and prints each library's registers and spills
      from `-Xptxas -v`; for each body of K5 and K5b at the recipe's widths
@@ -50,6 +50,16 @@ Phases, each of which raises (exit code 1) on failure:
      earlier design's (NODE_MAJOR_MS) and its bound (one bf16 pass forward;
      the backward's recompute one bf16 pass, its chain and dW two TF32
      passes each; the L2 terms as above, K5b's a dW slice a node chunk);
+  4b. [k9] the decoder payload (K9) at the main path's shape, the request
+     of configs/examples/drivaerml/pressure.yaml: 8,388,608 points of a
+     closed surface, uniform slots the card builds at budget 8, the decoder
+     of that config's model (kernel_dtype float32). The decoder must pick K9
+     (`MAGNODecoder._payload_means`, one launch); its mean against the plain
+     `decoder_chunk` over node chunks of 65,536 in relative L2 (K9_BOUND);
+     a second launch the same bits; `decoder_payload.launches` reset to 0
+     before, 2 after; K9's device time (`kernel_ms`), the plain chunks'
+     time and the bound: the FP32 pipe's FMAs of the kernel MLP and its
+     exact GELUs on the valid slots, the MUFU's, and the bytes;
   5. [serve] the DrivAerNet++ recipe model (random weights from a seed,
      `kernel_dtype: bfloat16` as tpu_500k.yaml sets it) is exported, loaded
      on the card and answers 2 requests of 524,288 points through K5's bf16
@@ -144,7 +154,8 @@ Phases, each of which raises (exit code 1) on failure:
      steps (mix schedule, dropout 0.1) by neural field, 40,000 input and
      query nodes of a 524,288-point cloud: K1 10, K2 10, K5 1, K5b 1 a step,
      finite loss and gradients, every parameter moves; the sampler's time;
-     a full-grid eval forward with its slots built on the card; then one
+     a full-grid eval forward with its slots built on the card (K1 10, K5 1,
+     K9 1); then one
      neural-field loss and backward on a 32x32x16 grid with 65,536 points
      against the plain versions on the same indices;
  18. [trainer-nf] (run after [trainer-split], on its data) the trainer on
@@ -254,6 +265,8 @@ K5B_BOUND = 1e-4  # relative to each gradient's max abs: per-CTA sums, then floa
 # over a whole chunk, read up to 9e-4 (one 200,000-row chunk): K5b's limit is twice that
 K5_BF16_BOUND = 1e-4
 K5B_BF16_BOUND = 2e-3
+K9_BOUND = 1e-6   # relative L2, K9 against the plain decoder_chunk: the same f32 products and
+#                   exact GELUs, sums taken in another order (a few 1e-8 against float64 each)
 K7_BOUND = 2e-6   # of the column's largest prefix |Z|, against the plain version (a float64
 #                   running sum): the kernel adds 32 rows in f32, then groups' and blocks' totals
 K6_BOUND = 1e-6   # of each column's max abs in the plain result: the same few f32 additions in
@@ -491,21 +504,21 @@ def encoder_loaders():
 
 
 def phase_build():
-    from gaot3d_tpu_torch.kernels import (build, dropout_bits, elementwise_chain,
-                                          encoder_payload, flash_attention, prefix_sum,
-                                          segment_sum_sorted, tile_segment_sum)
+    from gaot3d_tpu_torch.kernels import (build, decoder_payload, dropout_bits,
+                                          elementwise_chain, encoder_payload, flash_attention,
+                                          prefix_sum, segment_sum_sorted, tile_segment_sum)
 
     t0 = time.perf_counter()
     build.build_together([dropout_bits._library, flash_attention._library,
                           flash_attention._backward_library, flash_attention._split_library,
-                          *encoder_loaders(), prefix_sum._library,
+                          *encoder_loaders(), decoder_payload._library, prefix_sum._library,
                           segment_sum_sorted._library, tile_segment_sum._library,
                           elementwise_chain._library])
-    print(f"[build] twelve kernel libraries built together in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] thirteen kernel libraries built together in {time.perf_counter() - t0:.1f} s")
     for name in ("dropout_bits", "flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_split",
                  "encoder_payload", "encoder_payload_bwd", "encoder_payload_bf16",
-                 "encoder_payload_bwd_bf16", "prefix_sum", "segment_sum_sorted",
-                 "tile_segment_sum", "elementwise_chain"):
+                 "encoder_payload_bwd_bf16", "decoder_payload", "prefix_sum",
+                 "segment_sum_sorted", "tile_segment_sum", "elementwise_chain"):
         regs, spills, serialized, entry = [], [], 0, "?"
         for line in build.build_log(name).splitlines():
             if "Compiling entry function" in line:  # the mangled name keeps the template arguments
@@ -1139,6 +1152,87 @@ def bf16_bodies(label, key, sections, ws, bs, g, grid, counts, red, f32_ms=None)
     return rec, rec_b
 
 
+K9_POINTS = 8_388_608  # a request of configs/examples/drivaerml/pressure.yaml
+K9_BUDGET = 8          # its slot_budget
+
+
+def phase_k9():
+    """[k9]: the decoder payload at the shape of a drivaerml request."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import decoder_payload as k9
+    from gaot3d_tpu_torch.kernels.encoder_payload import _pack_mlp, tile_map
+    from gaot3d_tpu_torch.models.mlp import kernel_weights
+    from gaot3d_tpu_torch.ops.grid_graph import build_budgeted_slots
+
+    decoder = dist_model().decoder
+    gno, grid = decoder.gno, decoder.grid
+    g = torch.Generator(device="cuda").manual_seed(9)
+    d = torch.randn(1, K9_POINTS, 3, device="cuda", generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    pos = 0.8 * d * (1 + 0.15 * torch.sin(3 * d[..., :1]) * torch.cos(2 * d[..., 1:2]))
+    mask = torch.ones(1, K9_POINTS, dtype=torch.bool, device="cuda")
+    slots = build_budgeted_slots(pos, grid, RADIUS, 1, "bidirectional", mask, K9_BUDGET, CHUNK)
+    lat, msk = slots.lat_idx, slots.mask
+    latent = torch.randn(1, grid.num_tokens, gno.channel_mlp.fcs[-1].weight.shape[0],
+                         device="cuda", generator=g)
+    ws, bs = (list(map(torch.Tensor.detach, t)) for t in kernel_weights(gno.channel_mlp.fcs))
+
+    def plain():
+        return torch.cat([gno.decoder_chunk(latent, pos[:, c:c + CHUNK], lat[:, c:c + CHUNK],
+                                            msk[:, c:c + CHUNK])
+                          for c in range(0, K9_POINTS, CHUNK)], dim=1)
+
+    k9.decoder_payload.launches = 0
+    with torch.no_grad():
+        means = decoder._payload_means(latent, pos, [slots])
+        if means is None:
+            raise RuntimeError("[k9] the drivaerml decoder's eval forward does not pick K9")
+        again = k9.decoder_payload(latent, pos, lat, msk, ws, bs, grid)
+        want = plain()
+    torch.cuda.synchronize()
+    got, launches = means[0], k9.decoder_payload.launches
+    rel = rel_l2(got, want)
+    valid = int(msk.sum())
+    same = torch.equal(got, again)
+    if not (bool(torch.isfinite(got).all()) and rel <= K9_BOUND and same and launches == 2):
+        raise RuntimeError(f"[k9] relative L2 {rel:.3e} (limit {K9_BOUND}), the same bits in two "
+                           f"launches {same}, launches {launches} (2 expected)")
+
+    widths = [ws[0].shape[1]] + [w.shape[0] for w in ws]
+    fmas = sum(a * b for a, b in zip(widths, widths[1:]))
+    gelus = sum(widths[1:-1])
+    gelu = gelu_instructions()["gelu"]
+    C = widths[-1]
+    moved = (lat.numel() * 4 + msk.numel() + pos.numel() * 4 + K9_POINTS * C * 4
+             + latent.numel() * 4)
+    ops = {"ffma": valid * fmas / FP32_OPS, "fp32": valid * (fmas + gelus * gelu[0]) / FP32_OPS,
+           "sfu": valid * gelus * gelu[1] / SFU_OPS}
+    params, tiles = _pack_mlp(ws, bs), tile_map(msk)
+    out = torch.empty_like(got)
+    rec = kernel_ms(lambda: k9.decoder_payload(latent, pos, lat, msk, ws, bs, grid),
+                    ["decoder_payload"],
+                    bare=lambda: bare_launches(lambda: k9.launch_payload(
+                        latent, pos, lat, msk, params, len(ws) - 2, ws[0].shape[0], grid, tiles,
+                        out)))
+    with torch.no_grad():
+        rec.update(plain_ms=cuda_ms(plain), **bound(moved, **ops), library_ms=None,
+                   rel_l2=rel, launches_per_call=1, valid_slots=valid)
+    print(f"[k9] [1, {K9_POINTS:,}, {lat.shape[-1]}] slots built on the card, {valid} valid "
+          f"({valid / K9_POINTS:.3f} a node), the decoder MLP {widths}: K9 against the plain "
+          f"decoder_chunk over node chunks of {CHUNK}: relative L2 {rel:.3e}; the same bits in "
+          f"two launches; one launch a call")
+    print(f"[k9] K9 {rec['ms']:.3f} ms ({rec['ms_reading']}; cold L2 {rec['device_ms_cold']}),"
+          f" through the wrapper with its tile map {rec['call_ms']:.3f} ms, plain "
+          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: FFMA "
+          f"{1e3 * ops['ffma']:.3f}, the FP32 pipe with {gelus} GELUs of {gelu[0]} "
+          f"instructions {1e3 * ops['fp32']:.3f}, MUFU {1e3 * ops['sfu']:.3f}, bytes "
+          f"{1e3 * moved / HBM_BYTES_S:.3f})")
+    del decoder, slots, lat, msk, means, again, want, got, out, tiles
+    torch.cuda.empty_cache()
+    return rec
+
+
 def recipe_model(latent=LATENT, radius=RADIUS, budget=BUDGET, kernel_dtype="bfloat16",
                  positional_embedding="rope", conditional_norm=False, **magno_overrides):
     """The DrivAerNet++ pressure recipe at full width and depth, on the card,
@@ -1205,7 +1299,9 @@ def against_plain(tag, what, fn, got):
     E2E_BOUND relative. The plain run may launch no kernel."""
     import torch
 
-    counters = attention_counters()
+    from gaot3d_tpu_torch.kernels import decoder_payload as k9
+
+    counters = {**attention_counters(), "k9": k9.decoder_payload}
     launched = {n: fn_.launches for n, fn_ in counters.items()}
     with plain_versions():
         plain = fn()
@@ -1281,6 +1377,7 @@ def plain_versions():
     from gaot3d_tpu_torch.kernels import prefix_sum as k7
     from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
     from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
+    from gaot3d_tpu_torch.models import magno
     from gaot3d_tpu_torch.ops import segment
 
     def plain_tile(rows, sorted_seg, *, ts, num_segments, seg_tile, perm):
@@ -1299,7 +1396,9 @@ def plain_versions():
             (segment, "segment_sum_sorted",
              lambda data, ids, num_segments, passes=1:
              k6.segment_sum_sorted_reference(data, ids, num_segments)),
-            (segment, "tile_segment_sum", plain_tile)):
+            (segment, "tile_segment_sum", plain_tile),
+            # the decoder's GNO by node chunks through decoder_chunk instead of K9
+            (magno, "engages", lambda *a, **kw: False)):
         stack.enter_context(mock.patch.object(mod, name, plain))
     return stack
 
@@ -2258,6 +2357,7 @@ def phase_nf(card):
     """[nf]: the recipe model over uniform slots trains by neural field."""
     import torch
 
+    from gaot3d_tpu_torch.kernels import decoder_payload as k9
     from gaot3d_tpu_torch.kernels import encoder_payload as k5
     from gaot3d_tpu_torch.kernels import flash_attention as k1
     from gaot3d_tpu_torch.ops.grid_graph import LatentGrid, build_edge_slots, max_slot_degree
@@ -2281,22 +2381,25 @@ def phase_nf(card):
           f"{sampler_ms:.3f} ms (CUDA events, median of 5)")
 
     # a full-grid eval forward, its slots built on the card
-    n1, n5 = k1.flash_attention.launches, k5.encoder_accumulate.launches
+    n1, n5, n9 = (k1.flash_attention.launches, k5.encoder_accumulate.launches,
+                  k9.decoder_payload.launches)
     torch.cuda.reset_peak_memory_stats()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     pred, val = eval_step(model, batch)
     end.record()
     end.synchronize()
-    d1, d5 = k1.flash_attention.launches - n1, k5.encoder_accumulate.launches - n5
+    d1, d5, d9 = (k1.flash_attention.launches - n1, k5.encoder_accumulate.launches - n5,
+                  k9.decoder_payload.launches - n9)
     ok = tuple(pred.shape) == (1, N_POINTS, 1) and bool(torch.isfinite(pred).all())
     print(f"[nf] {card}: full-grid eval forward on {N_POINTS} points: {start.elapsed_time(end):.1f}"
           f" ms with its slot build, loss {val.item():.6f}, finite={ok}, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K1 {d1}, K5 {d5}")
-    if not ok or (d1, d5) != (10, 1):
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K1 {d1}, K5 {d5}, K9 {d9}")
+    if not ok or (d1, d5, d9) != (10, 1, 1):
         raise RuntimeError("[nf] the eval forward: bad output or launch counts")
     total["k1_eval"] = d1
     total["k5"] += d5
+    total["k9"] = d9
     against_plain("nf", f"the full-grid eval forward on {N_POINTS} points",
                   lambda: (eval_step(model, batch)[0],), (pred,))
     del model, batch, pred
@@ -3998,7 +4101,7 @@ def main():
     parser.add_argument("--flat-seed", type=int, default=31,
                         help="seed of the cloud of the [k6], [k7], [k8] and [flat] phases")
     parser.add_argument("--only", default="",
-                        help="comma-separated subset of k1, attention-train, k3, k5, "
+                        help="comma-separated subset of k1, attention-train, k3, k5, k9, "
                              "serve-device, serve-buckets, nf, trainer, export (after trainer), "
                              "trainer-split, trainer-nf, variants, trainer-variants, "
                              "processor, dist (its part (a) on trainer's data), t1, k7, k6, "
@@ -4044,6 +4147,8 @@ def main():
                 build.build_together(encoder_loaders())
                 encoder_build_facts()
                 phase_k5()
+            elif name == "k9":
+                phase_k9()
             elif name == "k3":
                 k3_build_facts()
                 phase_k3()
@@ -4083,6 +4188,7 @@ def main():
     k7, k6, k8 = phase_k7(flat_input), phase_k6(flat_input), phase_k8(flat_input)
     k1 = phase_k1()
     k5, k5b, k5_bf16, k5b_bf16 = phase_k5()
+    k9 = phase_k9()
     serve = phase_serve()
     serve_device = phase_serve_device(card)
     serve_buckets = phase_serve_buckets(card)
@@ -4161,6 +4267,11 @@ def main():
          "source": "gaot3d_tpu_torch/csrc/encoder_payload_bwd_bf16.cu",
          "replaces": "gaot3d_tpu/ops/pallas_encoder.py:246",
          "launches": body_launches(k5b_phases, "k5b", "bfloat16"), **k5b_bf16},
+        # the decoder's GNO mean of an f32 eval forward on the card, which JAX leaves to XLA
+        # (gaot3d_tpu/models/integral_transform.py `_decoder_chunk`)
+        {"name": "decoder_payload", "route": "cuda",
+         "source": "gaot3d_tpu_torch/csrc/decoder_payload.cu",
+         "replaces": "gaot3d_tpu/models/integral_transform.py:194", "launches": nf["k9"], **k9},
         {"name": "segment_sum_sorted", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/segment_sum_sorted.cu",
          "replaces": "gaot3d_tpu/ops/pallas_segment.py:103", "launches": flat["k6"], **k6},

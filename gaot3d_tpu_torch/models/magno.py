@@ -21,7 +21,10 @@ statistical geoembed fused, or modular, and the recovery when the decoder's
 geoembed is on) -> the scales combined as in the encoder, from the query
 positions -> the projection head (C -> projection_channels -> out, exact
 GELU). Without a decoder geoembed the GNO, the combination and the head run
-one node chunk at a time.
+one node chunk at a time; in an eval forward on the card, a linear f32 GNO
+over slots or sections takes its means first from one K9 launch a scale over
+every node (kernels/decoder_payload.py), and only the combination and the
+head run by chunks.
 
 `MAGNOConfig` has the JAX fields and defaults, so one config drives both
 packages. The model dispatches on the type of the edge structure it is
@@ -59,6 +62,7 @@ from typing import Any, Iterator, List, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from ..kernels.decoder_payload import decoder_payload, engages
 from ..kernels.encoder_payload import KERNEL_DTYPES
 from ..ops.grid_graph import (EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots,
                               build_budgeted_slots, compact_slots)
@@ -68,7 +72,7 @@ from .fused_encoder import FusedEncoderScale
 from .geoembed import GeometricEmbedding
 from .integral_transform import (ATTENTION_TYPES, TRANSFORM_TYPES, IntegralTransform,
                                  effective_chunk, run_chunk)
-from .mlp import ChannelMLP
+from .mlp import ChannelMLP, kernel_weights
 
 
 @dataclass
@@ -494,11 +498,31 @@ class MAGNODecoder(_Side):
         self.projection = ChannelMLP(
             [in_channels, cfg.projection_channels, out_channels], cfg.mlp_type)
 
+    def _payload_means(self, latent_feats, pos,
+                       scale_slots: Sequence[EdgeSlots]) -> Optional[List[torch.Tensor]]:
+        """Every scale's GNO mean [B, N, C] over all the nodes from K9, one
+        launch a scale, where `decoder_payload.engages`; else None."""
+        fcs = self.gno.channel_mlp.fcs
+        widths = [fcs[0].weight.shape[1]] + [fc.weight.shape[0] for fc in fcs]
+        k = max(s.lat_idx.shape[-1] for s in scale_slots)
+        if not engages(latent_feats.device, self.gno.transform_type, self.gno.use_attn,
+                       self.gno.kernel_dtype, widths, k):
+            return None
+        weights, biases = kernel_weights(fcs)
+        return [decoder_payload(latent_feats, pos, s.lat_idx, s.mask, weights, biases, self.grid)
+                for s in scale_slots]
+
     def _decode(self, latent_feats, pos, scale_slots: Sequence[EdgeSlots]) -> torch.Tensor:
         """GNO of every scale, their combination and the projection head, one
-        node chunk at a time."""
+        node chunk at a time; in an eval forward on the card the GNO means
+        come first from K9 over every node (`_payload_means`)."""
         n = pos.shape[1]
         chunk = effective_chunk(n, self.edge_chunk_size)
+        means = self._payload_means(latent_feats, pos, scale_slots)
+        if means is not None:
+            return torch.cat([self.projection(self.combine_scales(
+                [m[:, c0:c0 + chunk] for m in means], pos[:, c0:c0 + chunk]))
+                for c0 in range(0, n, chunk)], dim=1)
 
         def body(latent_feats, pos_c, *slots_c):
             per_scale = [self.gno.decoder_chunk(latent_feats, pos_c, i, m)

@@ -30,14 +30,20 @@ def reset_linear_(layer: nn.Module, generator: Optional[torch.Generator]) -> Non
                 p.copy_(draw * (2 * bound) - bound)
 
 
+def kernel_weights(fcs: Sequence[nn.Module]):
+    """(weights [out, in], biases) of the layers `fcs`, Linear or kernel-size-1
+    Conv1d alike."""
+    return ([fc.weight[..., 0] if fc.weight.ndim == 3 else fc.weight for fc in fcs],
+            [fc.bias for fc in fcs])
+
+
 def kernel_mlp_apply(x: torch.Tensor, fcs: Sequence[nn.Module],
                      compute_dtype: str = "float32") -> torch.Tensor:
     """Dense layers with exact GELU between them and none after the last, at
     the GNO kernel MLP's `kernel_dtype`: 'float32', or 'bfloat16' (operands
     rounded to bf16 a layer, products with an f32 result, bias and GELU in
     f32, as kernels/encoder_payload.py `kernel_mlp` says)."""
-    weights = [fc.weight[..., 0] if fc.weight.ndim == 3 else fc.weight for fc in fcs]
-    return kernel_mlp(x, weights, [fc.bias for fc in fcs], compute_dtype)
+    return kernel_mlp(x, *kernel_weights(fcs), compute_dtype)
 
 
 class ChannelMLP(nn.Module):

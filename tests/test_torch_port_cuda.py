@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from gaot3d_tpu_torch.kernels import decoder_payload as k9
 from gaot3d_tpu_torch.kernels import dropout_bits as k4
 from gaot3d_tpu_torch.kernels import elementwise_chain as t1
 from gaot3d_tpu_torch.kernels import encoder_payload as k5
@@ -19,6 +20,7 @@ from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
 from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
 from gaot3d_tpu_torch.models import (AttentionConfig, FFNConfig, MAGNOConfig,
                                      TransformerConfig, init_model)
+from gaot3d_tpu_torch.models.integral_transform import IntegralTransform, effective_chunk
 from gaot3d_tpu_torch.ops.grid_graph import (EdgeSlots, LatentGrid, build_budgeted_slots,
                                              build_edge_slots_batched)
 
@@ -618,7 +620,8 @@ def test_model_on_card_matches_cpu():
 
 def test_train_step_on_card_matches_cpu():
     """One forward-and-backward in train mode with dropout: all four kernels
-    on the card against the plain versions on the CPU, same seeds, f32."""
+    on the card against the plain versions on the CPU, same seeds, f32. The
+    training forward keeps the plain decoder: no K9 launch."""
     from gaot3d_tpu_torch.train import TrainBatch, masked_mse
 
     magno = MAGNOConfig(lifting_channels=8, use_geoembed=[True, False], gno_radius=0.45,
@@ -639,6 +642,7 @@ def test_train_step_on_card_matches_cpu():
     msk = t(rng.random((1, 256, 4)) < 0.7)
     mask = torch.ones(1, 256, dtype=torch.bool)
     grads = []
+    k9_before = k9.decoder_payload.launches
     for device in ("cpu", "cuda"):
         model = init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=(4, 4, 4),
                            generator=torch.Generator().manual_seed(0), device=device).train()
@@ -649,6 +653,7 @@ def test_train_step_on_card_matches_cpu():
                      decoder_slots=[slots], generator=torch.Generator().manual_seed(3))
         masked_mse(pred, batch.target, batch.node_mask).backward()
         grads.append(torch.cat([p.grad.flatten().cpu() for p in model.parameters()]))
+    assert k9.decoder_payload.launches == k9_before
     assert torch.isfinite(grads[1]).all()
     rel = ((grads[1] - grads[0]).norm() / grads[0].norm()).item()
     assert rel <= 1e-4
@@ -977,3 +982,146 @@ def test_edge_build_on_card_equals_cpu_bit_for_bit(B, N, k, strategy, budget):
     assert card.lat_idx.is_cuda and card.mask.is_cuda
     assert torch.equal(card.lat_idx.cpu(), cpu.lat_idx)
     assert torch.equal(card.mask.cpu(), cpu.mask)
+
+
+# ---- K9: the decoder's GNO mean (kernels/decoder_payload.py) -------------------------------
+
+def _decoder_mlp(rng, sizes):
+    """torch.nn.Linear's default draws, on the card."""
+    ws = [torch.from_numpy(rng.uniform(-1, 1, (b, a)).astype(np.float32) / a ** 0.5).cuda()
+          for a, b in zip(sizes, sizes[1:])]
+    bs = [torch.from_numpy(rng.uniform(-1, 1, b).astype(np.float32) / a ** 0.5).cuda()
+          for a, b in zip(sizes, sizes[1:])]
+    return ws, bs
+
+
+def _decoder_gaps(latent, pos, lat, msk, ws, bs, grid):
+    """K9's output, the plain path's (`IntegralTransform`'s node chunks of
+    65,536 through `decoder_chunk`) and the relative L2 gaps of each to a
+    float64 version of the same function (the plain version in float64,
+    131,072 nodes at a time)."""
+    before = k9.decoder_payload.launches
+    with torch.no_grad():
+        got = k9.decoder_payload(latent, pos, lat, msk, ws, bs, grid)
+        gno = IntegralTransform([6] + [w.shape[0] for w in ws], grid, edge_chunk_size=65_536)
+        for fc, w, b in zip(gno.channel_mlp.fcs, ws, bs):
+            fc.weight.copy_(w)
+            fc.bias.copy_(b)
+        plain = gno.cuda()(EdgeSlots(lat, msk), pos, latent)
+        wd, bd = [w.double() for w in ws], [b.double() for b in bs]
+        step = 131_072
+        exact = torch.cat([k9.decoder_payload_reference(
+            latent.double(), pos[:, c:c + step].double(), lat[:, c:c + step],
+            msk[:, c:c + step], wd, bd, grid) for c in range(0, pos.shape[1], step)], dim=1)
+    torch.cuda.synchronize()
+    assert k9.decoder_payload.launches == before + 1
+    assert got.shape == plain.shape and torch.isfinite(got).all()
+    return got, plain, _rel_l2(got.double(), exact), _rel_l2(plain.double(), exact)
+
+
+@pytest.mark.parametrize("hid,C,n_mid,K,B,n,valid", [
+    (64, 32, 1, 8, 1, 65_536, 0.3),  # the recipe's widths over one of its node chunks
+    (64, 32, 1, 5, 2, 3001, 0.5), (64, 16, 2, 8, 1, 2000, 0.7), (32, 32, 0, 3, 1, 777, 0.6),
+    (32, 16, 3, 128, 1, 50, 0.9),    # a node's slots fill a tile
+    (16, 16, 1, 1, 1, 555, 0.8), (16, 8, 0, 8, 2, 999, 0.02),  # nearly every slot masked
+])
+def test_decoder_payload_matches_plain_and_float64(hid, C, n_mid, K, B, n, valid):
+    """K9 against the plain path on the card (relative L2 1e-6) and both
+    against float64: K9 at most 1e-6 and within 10% of the plain path's gap.
+    Both take f32 products and exact GELUs, the library's GEMMs summing them
+    in another order than K9, so either gap may come out the smaller by a
+    rounding: on an H100 the first two cases (the recipe's widths) read
+    1.2241e-7 against 1.2240e-7 and 1.2259e-7 against 1.2254e-7, and hidden
+    width 16 read 6.37e-8 against 6.08e-8. Rows with no valid slot (the
+    first 5 of each sample) give 0; masked slots hold any index; a few valid
+    slots lie off the grid (the latent row clipped, the centre from the
+    index, as the plain path takes them)."""
+    rng = np.random.default_rng(hid + C + K + n)
+    grid = LatentGrid(dims=(16, 16, 8))
+    M = grid.num_tokens
+    lat = rng.integers(0, M, (B, n, K)).astype(np.int32)
+    msk = rng.random((B, n, K)) < valid
+    msk[:, :5] = False
+    lat[~msk] = rng.integers(-2 ** 31, 2 ** 31 - 1, int((~msk).sum()))
+    off = msk & (rng.random((B, n, K)) < 0.001)
+    lat[off] = rng.choice([-1, M, M + 5], int(off.sum()))
+    pos = rng.uniform(-1, 1, (B, n, 3)).astype(np.float32)
+    latent = rng.normal(size=(B, M, C)).astype(np.float32)
+    ws, bs = _decoder_mlp(rng, [6] + [hid] * (n_mid + 1) + [C])
+    pos, latent, lat, msk = (torch.from_numpy(x).cuda() for x in (pos, latent, lat, msk))
+    got, plain, k9_gap, plain_gap = _decoder_gaps(latent, pos, lat, msk, ws, bs, grid)
+    print(f"K9 vs float64 {k9_gap:.3e}, plain vs float64 {plain_gap:.3e}, "
+          f"K9 vs plain {_rel_l2(got, plain):.3e}")
+    assert torch.all(got[:, :5] == 0)
+    assert _rel_l2(got, plain) <= 1e-6
+    assert k9_gap <= 1e-6 and k9_gap <= 1.1 * plain_gap
+
+
+def test_decoder_payload_at_drivaerml_size():
+    """8,388,608 points of a closed surface, slots built on the card at the
+    recipe's grid, radius and budget 8, the recipe's MLP: K9 against the
+    plain path and both against float64, K9 no worse than the plain path
+    (1.039e-7 against 1.040e-7 on an H100; the inputs are the same every
+    run); two launches give the same bits."""
+    grid = LatentGrid(dims=(64, 64, 32))
+    N = 8_388_608
+    g = torch.Generator(device="cuda").manual_seed(20)
+    d = torch.randn(1, N, 3, device="cuda", generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    pos = 0.8 * d * (1 + 0.15 * torch.sin(3 * d[..., :1]) * torch.cos(2 * d[..., 1:2]))
+    mask = torch.ones(1, N, dtype=torch.bool, device="cuda")
+    slots = build_budgeted_slots(pos, grid, 0.033, 1, "bidirectional", mask, 8, 65_536)
+    latent = torch.randn(1, grid.num_tokens, 32, device="cuda", generator=g)
+    ws, bs = _decoder_mlp(np.random.default_rng(20), [6, 64, 64, 32])
+    got, plain, k9_gap, plain_gap = _decoder_gaps(latent, pos, slots.lat_idx, slots.mask, ws,
+                                                  bs, grid)
+    valid = slots.mask.sum().item()
+    print(f"{valid} valid slots ({valid / N:.3f} a node); K9 vs float64 {k9_gap:.3e}, plain vs "
+          f"float64 {plain_gap:.3e}, K9 vs plain {_rel_l2(got, plain):.3e}")
+    assert _rel_l2(got, plain) <= 1e-6
+    assert k9_gap <= 1e-6 and k9_gap <= plain_gap
+    with torch.no_grad():
+        again = k9.decoder_payload(latent, pos, slots.lat_idx, slots.mask, ws, bs, grid)
+    assert torch.equal(got, again)
+
+
+def _k9_model(scales):
+    magno = MAGNOConfig(lifting_channels=8, use_geoembed=[True, False], gno_radius=0.45,
+                        in_gno_channel_mlp_hidden_layers=[16, 16],
+                        out_gno_channel_mlp_hidden_layers=[16], projection_channels=16,
+                        edge_chunk_size=128, scales=scales)
+    attn = TransformerConfig(
+        patch_size=2, hidden_size=32, num_layers=2, positional_embedding="rope",
+        attn_config=AttentionConfig(hidden_size=32, num_heads=4, num_kv_heads=2,
+                                    atten_dropout=0.0, attention_dtype="float32"),
+        ffn_config=FFNConfig(hidden_size=64))
+    return init_model(2, 1, "gaot_3d", magno, attn, latent_tokens=(4, 4, 4),
+                      generator=torch.Generator().manual_seed(0), device="cuda").eval()
+
+
+@pytest.mark.parametrize("scales", [[1.0], [1.0, 1.5]])
+def test_decoder_payload_in_the_eval_forward(scales):
+    """An eval forward on the card launches K9 once a scale; query rows
+    without an edge decode to the head's output on zeros, bit for bit; with
+    the gradient on, the same forward takes the plain path (no K9) and agrees
+    within f32 rounding."""
+    model = _k9_model(scales)
+    rng = np.random.default_rng(len(scales))
+    n = 512
+    pos = torch.from_numpy(rng.uniform(-1, 1, (1, n, 3)).astype(np.float32)).cuda()
+    feats = torch.from_numpy(rng.normal(size=(1, n, 2)).astype(np.float32)).cuda()
+    mask = torch.ones(1, n, dtype=torch.bool, device="cuda")
+    mask[0, -9:] = False  # no edges: the decoder's GNO mean is 0 there
+    before = k9.decoder_payload.launches
+    with torch.inference_mode():
+        got = model(pos, feats, mask)
+        chunk = effective_chunk(n, model.magno_config.edge_chunk_size)
+        head = model.decoder.projection(torch.zeros(1, chunk, 8, device="cuda"))
+    torch.cuda.synchronize()
+    assert k9.decoder_payload.launches == before + len(scales)
+    assert torch.equal(got[0, -9:], head[0, -9:])
+    with torch.enable_grad():
+        want = model(pos, feats, mask)
+    torch.cuda.synchronize()
+    assert want.requires_grad and k9.decoder_payload.launches == before + len(scales)
+    torch.testing.assert_close(got, want.detach(), atol=1e-5, rtol=1e-4)
