@@ -25,15 +25,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from ..ops.eigh3 import eigvalsh3x3_desc
 from ..ops.grid_graph import EdgeSlots, LatentGrid
 from ..ops.segment import (fold_count, fold_max, fold_sum_centred, make_segment_fold,
                            segment_max, segment_sum)
-from ..parallel.sharding import (all_reduce_max, all_reduce_sum, data_group, node_group,
-                                 world_group)
+from ..parallel.sharding import (all_reduce_, all_reduce_max, all_reduce_sum, data_group,
+                                 node_group, world_group)
 from .integral_transform import effective_chunk, run_chunk
 
 POINTNET_WIDTH = 32
@@ -69,13 +68,11 @@ def _group_mean_std(flat: torch.Tensor, query_mask: Optional[torch.Tensor], grou
     flat = flat.detach()
     qm = (torch.ones((flat.shape[0], 1), dtype=flat.dtype, device=flat.device)
           if query_mask is None else query_mask.reshape(-1, 1).to(flat.dtype))
-    sums = torch.cat([qm.sum(0), (flat * qm).sum(0)])
-    dist.all_reduce(sums, group=group)
+    sums = all_reduce_(torch.cat([qm.sum(0), (flat * qm).sum(0)]), group)
     count = sums[:1].clamp_min(1.0)
     mean = (sums[1:] / count)[None]
     dev = torch.where(qm > 0, flat - mean, 0.0)
-    sq = (dev * dev).sum(0)
-    dist.all_reduce(sq, group=group)
+    sq = all_reduce_((dev * dev).sum(0), group)
     return mean, torch.sqrt(sq / (count - 1.0).clamp_min(1.0))[None]
 
 

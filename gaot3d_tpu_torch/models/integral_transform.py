@@ -33,7 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid
-from ..parallel.sharding import all_reduce_sum, node_group
+from ..parallel.sharding import all_reduce_, all_reduce_sum, node_group
 from ..ops.segment import (fold_count, fold_max, fold_sum_centred, fold_sum_sorted,
                            gather_table, make_segment_fold, make_segment_fold_presorted,
                            segment_max, segment_sum)
@@ -270,8 +270,7 @@ class IntegralTransform(nn.Module):
         if group is not None:
             # a node-sharded step joins the ranks' states at the global max; that
             # shift cancels in acc / l, so it takes no gradient, the local m does
-            top = m.detach().clone()
-            torch.distributed.all_reduce(top, op=torch.distributed.ReduceOp.MAX, group=group)
+            top = all_reduce_(m.detach().clone(), group, torch.distributed.ReduceOp.MAX)
             top = torch.where(torch.isfinite(top), top, 0.0)
             scale = torch.exp(torch.where(torch.isfinite(m), m, top) - top)
             l = all_reduce_sum(l * scale, group)

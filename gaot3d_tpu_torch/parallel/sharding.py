@@ -39,6 +39,15 @@ chunks by chunks (their node indices are chunk-local), shard-aligned sections
 (`SectionedEdgeSlots.shards` equal to the node count) by each section's
 shard-major rows, and a batch without edges leaves the model to build each
 rank's slots from its own points.
+
+Every all-reduce of a sharded step goes through this module, and
+`all_reduce_.bytes` counts the bytes this process has all-reduced: the
+forward's sums and maxima, their backward's and the gradients'. The
+forward's (`all_reduce_sum`, `all_reduce_max` and the in-place
+`all_reduce_`: the encoder's accumulator, the z-norm sums, the loss's valid
+count and the global loss) run in the span `gaot.node_allreduce`; the
+gradients' in `gaot.train.allreduce` (train/step.py), the backward's in the
+backward.
 """
 from __future__ import annotations
 
@@ -51,7 +60,10 @@ import torch
 import torch.distributed as dist
 
 from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, SectionedEdgeSlots
+from ..tracing import span
 from .mesh import Mesh
+
+NODE_ALLREDUCE = "gaot.node_allreduce"
 
 
 @dataclass(frozen=True)
@@ -82,6 +94,25 @@ def placed(placement: Optional[Placement]):
         _ACTIVE.placement = before
 
 
+def _reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """x reduced over `group` in place, its bytes counted; no span."""
+    dist.all_reduce(x, op=op, group=group)
+    all_reduce_.bytes += x.numel() * x.element_size()
+    return x
+
+
+def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """x reduced over `group` in place (x itself when group is None), not
+    differentiated: the forward's sums that take no gradient."""
+    if group is None:
+        return x
+    with span(NODE_ALLREDUCE):
+        return _reduce(x, group, op)
+
+
+all_reduce_.bytes = 0  # bytes this process has all-reduced, every path
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over a process group; the backward sums the cotangents the same
     way, which is the cotangent of the sum seen from every rank."""
@@ -89,15 +120,11 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return _reduce(x.contiguous().clone(), group)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+        return _reduce(grad.contiguous().clone(), ctx.group), None
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -105,7 +132,8 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     all_reduce_sum.calls += 1
-    return _AllReduceSum.apply(x, group)
+    with span(NODE_ALLREDUCE):
+        return _AllReduceSum.apply(x, group)
 
 
 all_reduce_sum.calls = 0
@@ -117,15 +145,15 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     max, as a max over one concatenated tensor sends it to one element."""
     if group is None:
         return x
-    with torch.no_grad():
-        top = x.detach().clone()
-        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
-        me = float(dist.get_rank(group))
-        first = torch.where(x.detach() == top, me, float(dist.get_world_size(group)))
-        dist.all_reduce(first, op=dist.ReduceOp.MIN, group=group)
-        own = first == me
-    return all_reduce_sum(torch.where(own, x, torch.zeros((), dtype=x.dtype, device=x.device)),
-                          group)
+    all_reduce_sum.calls += 1  # the sum that hands out the max
+    with span(NODE_ALLREDUCE):
+        with torch.no_grad():
+            top = _reduce(x.detach().clone(), group, dist.ReduceOp.MAX)
+            me = float(dist.get_rank(group))
+            first = torch.where(x.detach() == top, me, float(dist.get_world_size(group)))
+            own = _reduce(first, group, dist.ReduceOp.MIN) == me
+        return _AllReduceSum.apply(
+            torch.where(own, x, torch.zeros((), dtype=x.dtype, device=x.device)), group)
 
 
 def node_group() -> Any:
@@ -251,8 +279,7 @@ def all_reduce_gradients(model: torch.nn.Module, mesh: Mesh) -> None:
     for g in grads:
         by_kind.setdefault((g.dtype, g.device), []).append(g)
     for group in by_kind.values():
-        flat = torch.cat([g.reshape(-1) for g in group])
-        dist.all_reduce(flat, group=mesh.world_group)
+        flat = _reduce(torch.cat([g.reshape(-1) for g in group]), mesh.world_group)
         all_reduce_gradients.calls += 1
         off = 0
         for g in group:

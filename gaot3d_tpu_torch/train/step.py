@@ -26,7 +26,8 @@ import torch
 import torch.distributed as dist
 
 from ..models.gaot3d import GAOT3D
-from ..parallel.sharding import active_placement, all_reduce_gradients, world_group
+from ..parallel.sharding import (active_placement, all_reduce_, all_reduce_gradients,
+                                 world_group)
 from ..tracing import span
 from .schedule import ScheduledOptimizer
 
@@ -64,21 +65,14 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> 
     valid count of the whole global batch (the shares sum to the global
     masked mean)."""
     diff = (pred - target) * mask[..., None]
-    count = mask.sum() * pred.shape[-1]
-    group = world_group()
-    if group is not None:
-        dist.all_reduce(count, group=group)
+    count = all_reduce_(mask.sum() * pred.shape[-1], world_group())
     return (diff * diff).sum() / count.clamp_min(1)
 
 
 def _global(loss: torch.Tensor) -> torch.Tensor:
     """The global loss of a sharded step: the ranks' shares summed."""
     group = world_group()
-    if group is None:
-        return loss
-    loss = loss.detach().clone()
-    dist.all_reduce(loss, group=group)
-    return loss
+    return loss if group is None else all_reduce_(loss.detach().clone(), group)
 
 
 def sample_nodes_without_replacement(mask: torch.Tensor, k: int,

@@ -82,8 +82,8 @@ from ..metadata import DATASET_METADATA
 from ..models import init_model
 from ..models.magno import parse_edge_layout, parse_neighbor_strategy
 from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots
-from ..parallel import (Placement, gather_rows, initialize_distributed, make_mesh, placed,
-                        shard_point_batch)
+from ..parallel import (Placement, gather_rows, initialize_distributed, make_mesh,
+                        make_sharded_train_step, placed, shard_point_batch)
 from ..parallel.mesh import local_rank
 from ..utils.rand import manual_seed
 from .checkpoint import load_checkpoint, load_trained_params, save_checkpoint
@@ -156,6 +156,9 @@ class TrainerBase:
         self.is_main = self.rank == 0
         # node sharding splits every sample's points over the node ranks
         self.shard_nodes = self.mesh is not None and self.mesh.node > 1
+        # a sharded step over the rank's rows, which put_batch has cut already
+        self._train_step = train_step if self.mesh is None else make_sharded_train_step(
+            train_step, self.mesh, process_local=True)
         manual_seed(setup.seed + self.rank)
         # the same on every rank: the weights, and the step's randomness (the
         # global batch draws it once; each rank takes its rows' part).
@@ -604,9 +607,8 @@ class StaticTrainer3D(TrainerBase):
 
     def train_step(self, batch) -> torch.Tensor:
         batch = self.put_batch(batch)
-        with placed(self._placement(batch)):
-            loss, self._last_grad_norm = train_step(self.model, self.optimizer, batch,
-                                                    self.generator, self.neural_field)
+        loss, self._last_grad_norm = self._train_step(self.model, self.optimizer, batch,
+                                                      self.generator, self.neural_field)
         return loss
 
     def eval_step(self, batch, replicate_data: bool = False):
