@@ -4,7 +4,7 @@
 
 `--flat-seed` (31) seeds the cloud of phases 13 and 14, for a second reading
 of their limits. `--only` runs just the named phases (k1, attention-train,
-k3, k5, k9, serve-device, serve-buckets, nf, trainer, export (after trainer),
+k3, k5, k9, k10, serve-device, serve-buckets, nf, trainer, export (after trainer),
 trainer-split, trainer-nf, variants, trainer-variants, processor, dist (its
 part (a) after trainer), t1, k7, k6, k8, flat; the last four share one
 cloud), builds each kernel at its first use and prints no record: for work
@@ -14,7 +14,7 @@ itself.
 Phases, each of which raises (exit code 1) on failure:
   1. device: needs CUDA (exits 1 without it), prints the card's name and
      power limit, turns TF32 off;
-  2. build: compiles the thirteen CUDA libraries of gaot3d_tpu_torch/csrc
+  2. build: compiles the fourteen CUDA libraries of gaot3d_tpu_torch/csrc
      with nvcc (K5 and K5b each an f32 and a bf16 body),
      all at the same time, and prints each library's registers and spills
      from `-Xptxas -v`; for each body of K5 and K5b at the recipe's widths
@@ -60,6 +60,15 @@ Phases, each of which raises (exit code 1) on failure:
      before, 2 after; K9's device time (`kernel_ms`), the plain chunks'
      time and the bound: the FP32 pipe's FMAs of the kernel MLP and its
      exact GELUs on the valid slots, the MUFU's, and the bytes;
+  4c. [k10] the slot build (K10) at drivaerml's grid, radius and budget 8
+     (bidirectional, k 1) over the closed surfaces of [k9] at 8,388,608 and
+     1,048,576 points (a request, and a rank's shard of the four-chip
+     training): `build_budgeted_slots` must take K10 (one launch a build,
+     `slot_build.launches`); its slots against the plain build on the card
+     (node chunks of 65,536) bit for bit, two launches the same bits; K10's
+     device time (`kernel_ms`), the plain build's and the bound (bytes: the
+     points and the [N, 8] slots; the FP32 pipe: the per-axis offsets once a
+     point, a sum and a compare a candidate);
   5. [serve] the DrivAerNet++ recipe model (random weights from a seed,
      `kernel_dtype: bfloat16` as tpu_500k.yaml sets it) is exported, loaded
      on the card and answers 2 requests of 524,288 points through K5's bf16
@@ -234,6 +243,7 @@ The last two lines are a JSON record of the kernels and
 """
 import argparse
 import json
+import math
 import os
 import re
 import shutil
@@ -506,19 +516,20 @@ def encoder_loaders():
 def phase_build():
     from gaot3d_tpu_torch.kernels import (build, decoder_payload, dropout_bits,
                                           elementwise_chain, encoder_payload, flash_attention,
-                                          prefix_sum, segment_sum_sorted, tile_segment_sum)
+                                          prefix_sum, segment_sum_sorted, slot_build,
+                                          tile_segment_sum)
 
     t0 = time.perf_counter()
     build.build_together([dropout_bits._library, flash_attention._library,
                           flash_attention._backward_library, flash_attention._split_library,
                           *encoder_loaders(), decoder_payload._library, prefix_sum._library,
                           segment_sum_sorted._library, tile_segment_sum._library,
-                          elementwise_chain._library])
-    print(f"[build] thirteen kernel libraries built together in {time.perf_counter() - t0:.1f} s")
+                          elementwise_chain._library, slot_build._library])
+    print(f"[build] fourteen kernel libraries built together in {time.perf_counter() - t0:.1f} s")
     for name in ("dropout_bits", "flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_split",
                  "encoder_payload", "encoder_payload_bwd", "encoder_payload_bf16",
                  "encoder_payload_bwd_bf16", "decoder_payload", "prefix_sum",
-                 "segment_sum_sorted", "tile_segment_sum", "elementwise_chain"):
+                 "segment_sum_sorted", "tile_segment_sum", "elementwise_chain", "slot_build"):
         regs, spills, serialized, entry = [], [], 0, "?"
         for line in build.build_log(name).splitlines():
             if "Compiling entry function" in line:  # the mangled name keeps the template arguments
@@ -1168,9 +1179,7 @@ def phase_k9():
     decoder = dist_model().decoder
     gno, grid = decoder.gno, decoder.grid
     g = torch.Generator(device="cuda").manual_seed(9)
-    d = torch.randn(1, K9_POINTS, 3, device="cuda", generator=g)
-    d = d / d.norm(dim=-1, keepdim=True)
-    pos = 0.8 * d * (1 + 0.15 * torch.sin(3 * d[..., :1]) * torch.cos(2 * d[..., 1:2]))
+    pos = surface(K9_POINTS, g)
     mask = torch.ones(1, K9_POINTS, dtype=torch.bool, device="cuda")
     slots = build_budgeted_slots(pos, grid, RADIUS, 1, "bidirectional", mask, K9_BUDGET, CHUNK)
     lat, msk = slots.lat_idx, slots.mask
@@ -1231,6 +1240,80 @@ def phase_k9():
     del decoder, slots, lat, msk, means, again, want, got, out, tiles
     torch.cuda.empty_cache()
     return rec
+
+
+K10_POINTS = (8_388_608, 1_048_576)  # a drivaerml request; a rank's shard of its training
+
+
+def surface(n_points, g):
+    """A closed surface of `n_points` points on the card (a deformed sphere
+    inside the grid's box), as the benchmark's meshes are, drawn from the
+    card's generator `g`."""
+    import torch
+
+    d = torch.randn(1, n_points, 3, device="cuda", generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    return 0.8 * d * (1 + 0.15 * torch.sin(3 * d[..., :1]) * torch.cos(2 * d[..., 1:2]))
+
+
+def phase_k10():
+    """[k10]: the slot build at the shapes of a drivaerml request and of a
+    rank's shard of its training."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import slot_build as k10
+    from gaot3d_tpu_torch.ops.grid_graph import LatentGrid, build_budgeted_slots, window_spec
+
+    grid = LatentGrid(dims=LATENT)
+    widths, _, _ = window_spec(grid, RADIUS, 1, "bidirectional")
+    recs = {}
+    for n in K10_POINTS:
+        pos = surface(n, torch.Generator(device="cuda").manual_seed(10))
+        mask = torch.ones(1, n, dtype=torch.bool, device="cuda")
+
+        def build():
+            return build_budgeted_slots(pos, grid, RADIUS, 1, "bidirectional", mask, K9_BUDGET,
+                                        CHUNK)
+
+        def plain():
+            with mock.patch.object(k10, "engages", lambda *a, **kw: False):
+                return build()
+
+        before = k10.slot_build.launches
+        got, again, want = build(), build(), plain()
+        torch.cuda.synchronize()
+        launches = k10.slot_build.launches - before
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        valid = int(got.mask.sum())
+        print(f"[k10] [1, {n:,}] points -> [1, {n:,}, {K9_BUDGET}] slots, {valid} valid "
+              f"({valid / n:.3f} a node), window {widths}: against the plain build bit for bit "
+              f"{same}; two launches the same bits {repeat}; launches {launches} (2 expected)")
+        if not (same and repeat and launches == 2):
+            raise RuntimeError(f"[k10] at {n} points: K10 differs from the plain build or "
+                               f"itself, or did not launch once a build")
+        K = math.prod(widths)
+        moved = pos.numel() * 4 + mask.numel() + got.lat_idx.numel() * 4 + got.mask.numel()
+        # FP32 work of a walk of the whole window: each axis's squared offsets once a point
+        # (product, sum, difference, square), the first two axes' sums once a pair, a sum
+        # and a compare a slot (K10 skips most of the window; the bytes bound it anyway)
+        fp32 = n * (4 * sum(widths) + widths[0] * widths[1] + 2 * K)
+        ops = {"fp32": fp32 / FP32_OPS}
+        lat = torch.empty_like(got.lat_idx)
+        msk = torch.empty_like(got.mask)
+        rec = kernel_ms(build, ["slot_build_kernel"], bare=lambda: bare_launches(
+            lambda: k10.launch_build(pos, mask, grid, RADIUS, 1, "bidirectional", lat, msk)))
+        rec.update(plain_ms=cuda_ms(plain), **bound(moved, **ops), library_ms=None,
+                   launches_per_call=1, valid_slots=valid, points=n)
+        print(f"[k10] K10 {rec['ms']:.3f} ms ({rec['ms_reading']}; cold L2 "
+              f"{rec['device_ms_cold']}), through build_budgeted_slots {rec['call_ms']:.3f} ms, "
+              f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+              f"({rec['bound_by']}: bytes {1e3 * moved / HBM_BYTES_S:.3f}, the FP32 pipe "
+              f"{1e3 * ops['fp32']:.3f})")
+        recs[n] = rec
+        del pos, mask, got, again, want, lat, msk
+        torch.cuda.empty_cache()
+    return recs[K10_POINTS[0]], recs
 
 
 def recipe_model(latent=LATENT, radius=RADIUS, budget=BUDGET, kernel_dtype="bfloat16",
@@ -1300,8 +1383,9 @@ def against_plain(tag, what, fn, got):
     import torch
 
     from gaot3d_tpu_torch.kernels import decoder_payload as k9
+    from gaot3d_tpu_torch.kernels import slot_build as k10
 
-    counters = {**attention_counters(), "k9": k9.decoder_payload}
+    counters = {**attention_counters(), "k9": k9.decoder_payload, "k10": k10.slot_build}
     launched = {n: fn_.launches for n, fn_ in counters.items()}
     with plain_versions():
         plain = fn()
@@ -1376,6 +1460,7 @@ def plain_versions():
     from gaot3d_tpu_torch.kernels import flash_attention as k1
     from gaot3d_tpu_torch.kernels import prefix_sum as k7
     from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
+    from gaot3d_tpu_torch.kernels import slot_build as k10
     from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
     from gaot3d_tpu_torch.models import magno
     from gaot3d_tpu_torch.ops import segment
@@ -1398,7 +1483,9 @@ def plain_versions():
              k6.segment_sum_sorted_reference(data, ids, num_segments)),
             (segment, "tile_segment_sum", plain_tile),
             # the decoder's GNO by node chunks through decoder_chunk instead of K9
-            (magno, "engages", lambda *a, **kw: False)):
+            (magno, "engages", lambda *a, **kw: False),
+            # the slot build by node chunks, window and sort, instead of K10
+            (k10, "engages", lambda *a, **kw: False)):
         stack.enter_context(mock.patch.object(mod, name, plain))
     return stack
 
@@ -2126,6 +2213,7 @@ def phase_serve_device(card):
     from gaot3d_tpu_torch.data.host_graph import build_edge_slots_host
     from gaot3d_tpu_torch.kernels import encoder_payload as k5
     from gaot3d_tpu_torch.kernels import flash_attention as k1
+    from gaot3d_tpu_torch.kernels import slot_build as k10
     from gaot3d_tpu_torch.ops.grid_graph import EdgeSlots, LatentGrid, build_budgeted_slots
     from gaot3d_tpu_torch.serve import export_inference, load_inference
 
@@ -2138,18 +2226,20 @@ def phase_serve_device(card):
 
     fwd, acc = k1.flash_attention, k5.encoder_accumulate
     fwd.launches = acc.launches = acc.launches_bf16 = 0
+    k10_before = k10.slot_build.launches
     requests = []
     with BuildSpy() as spy, PayloadCalls() as payload:
         for i, seed in enumerate((13, 14)):
             pos, feats, _, mask, *_ = cloud(seed, N_POINTS)
-            n1, n5, nb = fwd.launches, acc.launches_bf16, len(spy.builds)
+            n1, n5, nb, n10 = fwd.launches, acc.launches_bf16, len(spy.builds), \
+                k10.slot_build.launches
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
             out = infer(pos, feats, mask)
             end.record()
             end.synchronize()
             total = start.elapsed_time(end)
-            d1, d5 = fwd.launches - n1, acc.launches_bf16 - n5
+            d1, d5, d10 = fwd.launches - n1, acc.launches_bf16 - n5, k10.slot_build.launches - n10
             builds = spy.builds[nb:]
             ok = tuple(out.shape) == (1, N_POINTS, 1) and bool(torch.isfinite(out).all())
             build_ms = sum(spy.ms(nb + j) for j in range(len(builds)))
@@ -2157,8 +2247,8 @@ def phase_serve_device(card):
                   f"{build_ms:.2f} ms (CUDA events), its peak {builds[0]['peak'] / 2 ** 20:.1f} "
                   f"MiB above the memory held before it; forward {total - build_ms:.2f} ms, "
                   f"request {total:.2f} ms; out {tuple(out.shape)} finite={ok}; K1 launches "
-                  f"{d1}, launches of K5's bf16 body {d5}")
-            if not ok or d1 != 10 or d5 != 1 or len(builds) != 1:
+                  f"{d1}, launches of K5's bf16 body {d5}, of K10 {d10}")
+            if not ok or d1 != 10 or d5 != 1 or d10 != 1 or len(builds) != 1:
                 raise RuntimeError(f"[serve-device] request {i + 1}: bad output, launch counts "
                                    f"or builds ({len(builds)})")
             requests.append(((pos, feats, mask), builds[0]["slots"], out))
@@ -2171,7 +2261,8 @@ def phase_serve_device(card):
         warm_build = spy.ms()
     if not torch.isfinite(warm).all():
         raise RuntimeError("[serve-device] the warm request gave a non-finite output")
-    launches = {"k1": fwd.launches, "k5": acc.launches, "k5_bf16": acc.launches_bf16}
+    launches = {"k1": fwd.launches, "k5": acc.launches, "k5_bf16": acc.launches_bf16,
+                "k10": k10.slot_build.launches - k10_before}
     payload.check("serve-device")  # request 1's K5 launch
     args, slots, out = requests[0]
     against_plain("serve-device", "request 1", lambda: (infer(*args),), (out,))
@@ -4101,7 +4192,7 @@ def main():
     parser.add_argument("--flat-seed", type=int, default=31,
                         help="seed of the cloud of the [k6], [k7], [k8] and [flat] phases")
     parser.add_argument("--only", default="",
-                        help="comma-separated subset of k1, attention-train, k3, k5, k9, "
+                        help="comma-separated subset of k1, attention-train, k3, k5, k9, k10, "
                              "serve-device, serve-buckets, nf, trainer, export (after trainer), "
                              "trainer-split, trainer-nf, variants, trainer-variants, "
                              "processor, dist (its part (a) on trainer's data), t1, k7, k6, "
@@ -4149,6 +4240,8 @@ def main():
                 phase_k5()
             elif name == "k9":
                 phase_k9()
+            elif name == "k10":
+                phase_k10()
             elif name == "k3":
                 k3_build_facts()
                 phase_k3()
@@ -4189,6 +4282,7 @@ def main():
     k1 = phase_k1()
     k5, k5b, k5_bf16, k5b_bf16 = phase_k5()
     k9 = phase_k9()
+    k10, _ = phase_k10()
     serve = phase_serve()
     serve_device = phase_serve_device(card)
     serve_buckets = phase_serve_buckets(card)
@@ -4272,6 +4366,10 @@ def main():
         {"name": "decoder_payload", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/decoder_payload.cu",
          "replaces": "gaot3d_tpu/models/integral_transform.py:194", "launches": nf["k9"], **k9},
+        # the budgeted slot build on the card, which JAX leaves to XLA
+        # (gaot3d_tpu/ops/grid_graph.py `build_edge_slots_batched`, then `compact_slots`)
+        {"name": "slot_build", "route": "cuda", "source": "gaot3d_tpu_torch/csrc/slot_build.cu",
+         "replaces": "gaot3d_tpu/ops/grid_graph.py:640", "launches": serve_device["k10"], **k10},
         {"name": "segment_sum_sorted", "route": "cuda",
          "source": "gaot3d_tpu_torch/csrc/segment_sum_sorted.cu",
          "replaces": "gaot3d_tpu/ops/pallas_segment.py:103", "launches": flat["k6"], **k6},

@@ -5,8 +5,9 @@ and `MAGNODecoder`: every variant the JAX model runs).
 Each side takes the edges it is handed, one structure a scale, or, given
 none, builds uniform slots from its points where they lie
 (`ops/grid_graph.build_budgeted_slots`: the stencil window at the radius
-times the scale, then the budget compaction), as the JAX model builds them
-inside its forward. Slots then go through `apply_edge_sampling` (radius caps
+times the scale, then the budget compaction, in one K10 launch on a card
+where `kernels/slot_build.engages`), as the JAX model builds them inside its
+forward. Slots then go through `apply_edge_sampling` (radius caps
 always; 'ratio' and a random 'max_neighbors' draw in training only) before
 the budget compaction; sections and flat edge lists take none of it.
 
@@ -289,7 +290,8 @@ class SlotBuild:
     """The edge build of one side at one scale: uniform slots of `strategy`
     at the config's radius times `scale` and k, compacted to its slot budget
     (but left at the stencil window when the config samples or caps edges,
-    which comes first), in node chunks of its edge_chunk_size."""
+    which comes first): one K10 launch on a card where it engages, else in
+    node chunks of its edge_chunk_size."""
 
     def __init__(self, config: MAGNOConfig, grid: LatentGrid, strategy: str, scale: float = 1.0):
         self.grid = grid

@@ -162,6 +162,19 @@ def stencil_widths(grid: LatentGrid, radius: float, k_neighbors: int,
     return tuple(widths)
 
 
+def window_spec(grid: LatentGrid, radius: float, k_neighbors: int,
+                strategy: str) -> Tuple[Tuple[int, int, int], bool, int]:
+    """(window widths, whether the radius test runs, kNN picks a row) of a
+    build of `strategy`; 'reverse' builds 'bidirectional''s slots."""
+    if strategy not in DECODER_STRATEGIES:
+        raise ValueError(f"unknown neighbor strategy: {strategy}")
+    eff = "bidirectional" if strategy == "reverse" else strategy
+    widths = stencil_widths(grid, radius, k_neighbors, eff)
+    K = widths[0] * widths[1] * widths[2]
+    knn = max(0, min(k_neighbors, K)) if eff in ("knn", "bidirectional") else 0
+    return widths, eff in ("radius", "bidirectional"), knn
+
+
 def _candidate_window(points: torch.Tensor, grid: LatentGrid, widths: Tuple[int, int, int]):
     """Per-axis candidate cells [..., N, w_a] (int32, clamped inside the grid)
     and their coordinates, in the JAX build's f32 operations, each rounded
@@ -200,12 +213,9 @@ def build_edge_slots_batched(points: torch.Tensor, grid: LatentGrid, radius: flo
     - point_mask [B, N] (all true by default): false rows hold no edge.
     The JAX build's f32 operations one by one, so the same bits on the CPU
     and on the card."""
-    if strategy not in DECODER_STRATEGIES:
-        raise ValueError(f"unknown neighbor strategy: {strategy}")
+    widths, radius_test, k = window_spec(grid, radius, k_neighbors, strategy)
     if points.ndim != 3 or points.shape[-1] != 3:
         raise ValueError(f"points must be [B, N, 3], got {tuple(points.shape)}")
-    eff = "bidirectional" if strategy == "reverse" else strategy
-    widths = stencil_widths(grid, radius, k_neighbors, eff)
     B, N, _ = points.shape
     K = widths[0] * widths[1] * widths[2]
     with torch.no_grad():
@@ -221,11 +231,10 @@ def build_edge_slots_batched(points: torch.Tensor, grid: LatentGrid, radius: flo
         dist2 = (d0 * d0 + d1 * d1 + d2 * d2).reshape(B, N, K)
         del d0, d1, d2
         mask = torch.zeros((B, N, K), dtype=torch.bool, device=points.device)
-        if eff in ("radius", "bidirectional"):
+        if radius_test:
             r = np.float32(radius)
             mask |= dist2 <= torch.full((), r * r, dtype=points.dtype, device=points.device)
-        if eff in ("knn", "bidirectional"):
-            k = min(k_neighbors, K)
+        if k:
             left = dist2 if k <= 1 else dist2.clone()
             for j in range(k):
                 pick = left.argmin(dim=-1, keepdim=True)
@@ -253,9 +262,18 @@ def build_budgeted_slots(points: torch.Tensor, grid: LatentGrid, radius: float,
                          budget: Optional[int] = None,
                          chunk: Optional[int] = None) -> EdgeSlots:
     """`build_edge_slots_batched`, then `compact_slots` to `budget` where it
-    is below the window's K, over node chunks of `chunk` rows so that one
-    chunk's [B, chunk, K] window is the largest transient. Both steps work
-    row by row, so the chunks give one build's bits."""
+    is below the window's K. On a card, where `kernels/slot_build.py`
+    `engages`, one launch of K10 does both and writes [B, N, budget] alone;
+    otherwise the plain version runs over node chunks of `chunk` rows, so
+    that one chunk's [B, chunk, K] window is the largest transient. Both
+    steps work row by row, so the chunks give one build's bits, and K10
+    gives them too."""
+    from ..kernels import slot_build as k10  # imports this module: not at its top
+
+    if k10.engages(points.device, points.dtype, grid, radius, k_neighbors, strategy, budget):
+        return k10.slot_build(points.detach().contiguous(), grid, radius, k_neighbors,
+                              strategy, None if point_mask is None else point_mask.contiguous(),
+                              budget)
     n = points.shape[1]
     step = n if not chunk or chunk >= n else int(chunk)
     parts = []

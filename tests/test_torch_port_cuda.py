@@ -6,6 +6,8 @@ JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -17,12 +19,13 @@ from gaot3d_tpu_torch.kernels import encoder_payload as k5
 from gaot3d_tpu_torch.kernels import flash_attention as k1
 from gaot3d_tpu_torch.kernels import prefix_sum as k7
 from gaot3d_tpu_torch.kernels import segment_sum_sorted as k6
+from gaot3d_tpu_torch.kernels import slot_build as k10
 from gaot3d_tpu_torch.kernels import tile_segment_sum as k8
 from gaot3d_tpu_torch.models import (AttentionConfig, FFNConfig, MAGNOConfig,
                                      TransformerConfig, init_model)
 from gaot3d_tpu_torch.models.integral_transform import IntegralTransform, effective_chunk
 from gaot3d_tpu_torch.ops.grid_graph import (EdgeSlots, LatentGrid, build_budgeted_slots,
-                                             build_edge_slots_batched)
+                                             build_edge_slots_batched, window_spec)
 
 pytestmark = [
     pytest.mark.cuda,
@@ -984,6 +987,160 @@ def test_edge_build_on_card_equals_cpu_bit_for_bit(B, N, k, strategy, budget):
     assert torch.equal(card.mask.cpu(), cpu.mask)
 
 
+# ---- K10: the budgeted slot build (kernels/slot_build.py) ----------------------------------
+
+# (dims, lo, hi, radius, low, high): the recipe's grid; an anisotropic box; one axis of one
+# cell with lo == hi (h = 0); a grid of spacing 0.5 whose cell centres and midpoints are exact
+# in f32, so kNN picks meet ties (tests/test_torch_port_device_edges.py `GRIDS`)
+SLOT_GRIDS = {
+    "recipe": ((64, 64, 32), (-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), 0.033, -1.05, 1.05),
+    "anisotropic": ((8, 5, 12), (-1.0, -0.5, 0.0), (1.0, 0.5, 3.0), 0.3, -1.3, 3.3),
+    "flat-axis": ((6, 1, 7), (-1.0, 0.25, -1.0), (1.0, 0.25, 1.0), 0.4, -1.2, 1.2),
+    "exact": ((5, 5, 5), (-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), 0.5, -1.0, 1.0),
+}
+
+
+def _slot_cloud(name, B, N, seed):
+    """(grid, radius, points, point mask) on the CPU: points in the grid's
+    box and beyond it, on the 'exact' grid the first rows on cell centres and
+    midpoints; the last sample's last fifth padded (point mask false)."""
+    dims, lo, hi, radius, low, high = SLOT_GRIDS[name]
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(low, high, (B, N, 3)).astype(np.float32)
+    if name == "exact":
+        c = np.linspace(-1.0, 1.0, 5, dtype=np.float32)
+        pts[0, :5] = c[:, None]
+        pts[0, 5:9] = (c[:4] + 0.25)[:, None]
+    mask = np.ones((B, N), bool)
+    mask[-1, -N // 5:] = False
+    return LatentGrid(dims, lo, hi), radius, torch.from_numpy(pts), torch.from_numpy(mask)
+
+
+def _k10_against_cpu(pts, grid, radius, k, strategy, mask, budget):
+    """K10's slots (one launch, counted) against the CPU build, bit for bit;
+    the card's slots."""
+    before = k10.slot_build.launches
+    card = build_budgeted_slots(pts.cuda(), grid, radius, k, strategy,
+                                None if mask is None else mask.cuda(), budget, 65_536)
+    torch.cuda.synchronize()
+    assert k10.slot_build.launches == before + 1
+    cpu = build_budgeted_slots(pts, grid, radius, k, strategy, mask, budget, 65_536)
+    assert card.lat_idx.shape == cpu.lat_idx.shape == (*pts.shape[:2], budget)
+    assert torch.equal(card.lat_idx.cpu(), cpu.lat_idx)
+    assert torch.equal(card.mask.cpu(), cpu.mask)
+    return card
+
+
+@pytest.mark.parametrize("grid", sorted(SLOT_GRIDS))
+@pytest.mark.parametrize("strategy", ["knn", "radius", "bidirectional", "reverse"])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_slot_build_kernel_equals_cpu_bit_for_bit(grid, strategy, k):
+    """Ragged batches of three with padded rows and points outside the grid,
+    at budgets 1, 4, 8 and K - 1: rows with more valid slots than the budget
+    drop the same ones, rows with fewer fill the same masked cells."""
+    tgrid, radius, pts, mask = _slot_cloud(grid, 3, 1_001, len(grid) + k)
+    K = math.prod(window_spec(tgrid, radius, k, strategy)[0])
+    for budget in sorted({1, 4, 8, K - 1} & set(range(1, K))):
+        card = _k10_against_cpu(pts, tgrid, radius, k, strategy, mask, budget)
+        assert not card.mask[-1, -200:].any()
+
+
+@pytest.mark.parametrize("N,budget,cloud", [(524_288, 5, "box"), (524_288, 8, "box"),
+                                            (8_388_608, 8, "surface")])
+def test_slot_build_kernel_at_the_recipes_sizes(N, budget, cloud):
+    """The recipe's grid, radius 0.033, bidirectional, k 1: its 524,288-point
+    cloud and drivaerml's 8,388,608 points of a closed surface; two launches
+    give the same bits."""
+    grid = LatentGrid(dims=(64, 64, 32))
+    if cloud == "box":
+        rng = np.random.default_rng(N + budget)
+        pts = torch.from_numpy(rng.uniform(-1.05, 1.05, (1, N, 3)).astype(np.float32))
+    else:
+        g = torch.Generator().manual_seed(22)
+        d = torch.randn(1, N, 3, generator=g)
+        d = d / d.norm(dim=-1, keepdim=True)
+        pts = 0.8 * d * (1 + 0.15 * torch.sin(3 * d[..., :1]) * torch.cos(2 * d[..., 1:2]))
+    mask = torch.ones(1, N, dtype=torch.bool)
+    card = _k10_against_cpu(pts, grid, 0.033, 1, "bidirectional", mask, budget)
+    again = build_budgeted_slots(pts.cuda(), grid, 0.033, 1, "bidirectional", mask.cuda(),
+                                 budget)
+    assert torch.equal(card.lat_idx, again.lat_idx) and torch.equal(card.mask, again.mask)
+    assert card.mask.any(dim=-1).all()  # bidirectional: every point has its nearest cell
+
+
+@pytest.mark.parametrize("radius,k,strategy,budget", [
+    (0.033, 1, "bidirectional", None),  # no budget: the whole window
+    (0.033, 9, "knn", 8),               # more picks than K10 takes
+    (0.3, 1, "radius", 8),              # widths 22, 22, 12
+])
+def test_slot_build_off_k10_keeps_the_plain_bits(radius, k, strategy, budget):
+    """Builds on the card that K10 does not take: no launch, the CPU build's
+    bits."""
+    grid = LatentGrid(dims=(64, 64, 32))
+    rng = np.random.default_rng(k)
+    pts = torch.from_numpy(rng.uniform(-1.05, 1.05, (2, 777, 3)).astype(np.float32))
+    mask = torch.ones(2, 777, dtype=torch.bool)
+    mask[1, 500:] = False
+    assert not k10.engages(torch.device("cuda"), torch.float32, grid, radius, k, strategy,
+                           budget)
+    before = k10.slot_build.launches
+    card = build_budgeted_slots(pts.cuda(), grid, radius, k, strategy, mask.cuda(), budget, 300)
+    torch.cuda.synchronize()
+    assert k10.slot_build.launches == before
+    cpu = build_budgeted_slots(pts, grid, radius, k, strategy, mask, budget, 300)
+    assert torch.equal(card.lat_idx.cpu(), cpu.lat_idx) and torch.equal(card.mask.cpu(), cpu.mask)
+
+
+def test_slot_build_kernel_without_a_point_mask_and_as_the_model_calls_it():
+    """No point mask (every row live), points sliced from a larger batch (not
+    contiguous: `build_budgeted_slots` hands K10 a copy), and the model's own
+    build (`SlotBuild`, one for both sides) launch K10 once each."""
+    grid = LatentGrid(dims=(64, 64, 32))
+    rng = np.random.default_rng(7)
+    big = torch.from_numpy(rng.uniform(-1.05, 1.05, (2, 4_000, 3)).astype(np.float32))
+    pts = big[:, 1_000:3_000]
+    assert not pts.is_contiguous()
+    _k10_against_cpu(pts, grid, 0.033, 1, "bidirectional", None, 8)
+    model = _k9_model([1.0], slot_budget=8)  # radius slots in a 4x4x4 window, both sides
+    feats = torch.from_numpy(rng.normal(size=(1, 512, 2)).astype(np.float32)).cuda()
+    before = k10.slot_build.launches
+    with torch.no_grad():
+        model(big[:1, :512].cuda(), feats, torch.ones(1, 512, dtype=torch.bool, device="cuda"))
+    torch.cuda.synchronize()
+    assert k10.slot_build.launches == before + 1
+
+
+@pytest.mark.parametrize("case", ["float64", "shape", "strided", "mask dtype", "mask shape",
+                                  "mask strided", "mask device", "budget K", "picks"])
+def test_slot_build_kernel_rejects_what_it_does_not_take(case):
+    grid = LatentGrid(dims=(64, 64, 32))
+    pts = torch.zeros(2, 50, 3, device="cuda")
+    mask = torch.ones(2, 50, dtype=torch.bool, device="cuda")
+    budget, k = 8, 1
+    if case == "float64":
+        pts = pts.double()
+    elif case == "shape":
+        pts = torch.zeros(2, 50, 2, device="cuda")
+    elif case == "strided":
+        pts = torch.zeros(2, 3, 50, device="cuda").transpose(1, 2)
+    elif case == "mask dtype":
+        mask = mask.to(torch.uint8)
+    elif case == "mask shape":
+        mask = mask[:, :49].contiguous()
+    elif case == "mask strided":
+        mask = torch.ones(50, 2, dtype=torch.bool, device="cuda").t()
+    elif case == "mask device":
+        mask = mask.cpu()
+    elif case == "budget K":
+        budget = 144
+    elif case == "picks":
+        k = 9
+    before = k10.slot_build.launches
+    with pytest.raises(ValueError):
+        k10.slot_build(pts, grid, 0.033, k, "bidirectional", mask, budget)
+    assert k10.slot_build.launches == before
+
+
 # ---- K9: the decoder's GNO mean (kernels/decoder_payload.py) -------------------------------
 
 def _decoder_mlp(rng, sizes):
@@ -1085,11 +1242,11 @@ def test_decoder_payload_at_drivaerml_size():
     assert torch.equal(got, again)
 
 
-def _k9_model(scales):
+def _k9_model(scales, slot_budget=None):
     magno = MAGNOConfig(lifting_channels=8, use_geoembed=[True, False], gno_radius=0.45,
                         in_gno_channel_mlp_hidden_layers=[16, 16],
                         out_gno_channel_mlp_hidden_layers=[16], projection_channels=16,
-                        edge_chunk_size=128, scales=scales)
+                        edge_chunk_size=128, scales=scales, slot_budget=slot_budget)
     attn = TransformerConfig(
         patch_size=2, hidden_size=32, num_layers=2, positional_embedding="rope",
         attn_config=AttentionConfig(hidden_size=32, num_heads=4, num_kv_heads=2,
