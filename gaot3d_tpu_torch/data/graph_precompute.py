@@ -18,6 +18,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from ..edges import parse_neighbor_strategy
+
 logger = logging.getLogger(__name__)
 
 
@@ -38,7 +40,6 @@ def compute_sample_edge_slots(
     """Edge slots for one sample (both directions, all scales), from RAW
     positions (applies the same rescale the training pipeline uses —
     stat.py:168-171 does the rescale before the neighbor search too)."""
-    from ..models.magno import parse_neighbor_strategy
     from .host_graph import build_edge_slots_host
     from .transforms import rescale, rescale_new
 

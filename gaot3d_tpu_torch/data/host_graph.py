@@ -17,9 +17,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..edges import (DECODER_STRATEGIES, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots,
+                     stencil_widths)
 from ..kernels.build import REPO_ROOT, load_library
-from ..ops.grid_graph import (DECODER_STRATEGIES, FlatEdgeChunks, LatentGrid,
-                              SectionedEdgeSlots, stencil_widths)
 
 _GRAPH_SRC = os.path.join(REPO_ROOT, "native", "gaot_graph.cpp")
 

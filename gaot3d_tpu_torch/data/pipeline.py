@@ -28,6 +28,7 @@ from typing import Dict, Iterator, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..edges import EdgeSlots, effective_chunk, parse_edge_layout
 from ..metadata import Metadata
 from ..tracing import span
 from .dataset import DatasetConfig, MeshDataset
@@ -145,8 +146,6 @@ class BatchLoader:
         self.slot_mode = slot_mode
         self.build_slots = build_slots
         self.num_scales = num_scales
-        from ..models.magno import parse_edge_layout
-
         self.edge_layout = parse_edge_layout(edge_layout)  # (enc, dec)
         self.edge_chunk_size = edge_chunk_size
         self.flat_order = flat_order
@@ -216,8 +215,6 @@ class BatchLoader:
         target, _ = padded("x", cout)
         enc_slots = dec_slots = None
         if self.slot_mode != "device" and "slots" in samples[0]:
-            from ..ops.grid_graph import EdgeSlots
-
             def pad_slots_np(direction):
                 """Padded host arrays [B, n_pad, K] of one direction, a pair a
                 scale."""
@@ -328,8 +325,6 @@ class BatchLoader:
         back to a divisor of n when `edge_chunk_size` does not divide it; far
         below the configured size that means many small chunks a step, so say
         so once."""
-        from ..models.integral_transform import effective_chunk
-
         chunk = effective_chunk(n, self.edge_chunk_size)
         want = self.edge_chunk_size
         if want and chunk < min(want, n) // 2 and not self._warned_chunk:

@@ -36,8 +36,8 @@ from typing import Sequence
 
 import torch
 
-from ..ops.grid_graph import LatentGrid
-from ..ops.segment import gather_table
+from ..edges import LatentGrid
+from ..utils.scatter import gather_table
 from .build import load_cuda_library
 from .encoder_payload import (SUPPORTED_WIDTHS, TILE_ROWS, _check_shared_memory, _pack_mlp,
                               kernel_mlp, tile_map)

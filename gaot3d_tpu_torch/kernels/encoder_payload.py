@@ -63,8 +63,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.grid_graph import LatentGrid
-from ..ops.segment import segment_sum
+from ..edges import LatentGrid
+from ..utils.scatter import segment_sum
 from .build import load_cuda_library
 
 SUPPORTED_WIDTHS = ((64, 32), (64, 16), (32, 32), (32, 16), (16, 16), (16, 8))  # (hidden, C)

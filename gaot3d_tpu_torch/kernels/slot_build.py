@@ -9,14 +9,14 @@ sorts it. K10 does the whole build in one launch, a thread a point, and
 writes only the compacted [B, N, budget] `EdgeSlots`, with the plain
 version's bits (the kernel's source says how).
 
-- `engages` is the one predicate `build_budgeted_slots` asks: points on a
-  card in float32, a budget below the window's K and at most MAX_BUDGET,
-  window widths of at most MAX_WIDTH and at most MAX_KNN kNN picks.
-  Everything else keeps the plain path: CPU tensors (the plain version the
-  CPU tests use), no budget (edge sampling and caps), wider windows, more
-  picks or larger budgets.
-- `slot_build` is the build: K10 for CUDA tensors, the plain version for
-  CPU tensors. It checks its inputs on either device.
+- `engages` is the one predicate, which `build_budgeted_slots` alone asks:
+  points on a card in float32, a budget below the window's K and at most
+  MAX_BUDGET, window widths of at most MAX_WIDTH and at most MAX_KNN kNN
+  picks. Everything else keeps the plain path: CPU tensors (the plain
+  version the CPU tests use), no budget (edge sampling and caps), wider
+  windows, more picks or larger budgets.
+- `slot_build` is K10 on CUDA tensors; it checks its inputs, then refuses
+  any other device.
 
 `slot_build.launches` counts K10's launches.
 """
@@ -29,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.grid_graph import EdgeSlots, LatentGrid, build_budgeted_slots, window_spec
+from ..edges import EdgeSlots, LatentGrid, window_spec
 from .build import load_cuda_library
 
 MAX_WIDTH = 16    # cells a window spans on one axis
@@ -89,13 +89,10 @@ def _check(points, point_mask, widths, knn, budget):
 def slot_build(points: torch.Tensor, grid: LatentGrid, radius: float, k_neighbors: int,
                strategy: str, point_mask: Optional[torch.Tensor], budget: int) -> EdgeSlots:
     """`build_budgeted_slots` of points [B, N, 3] float32 (point_mask [B, N]
-    bool or None) at `budget` -> EdgeSlots [B, N, budget]: K10 for CUDA
-    tensors, the plain version for CPU tensors."""
+    bool or None, on the same card) at `budget` -> EdgeSlots [B, N, budget],
+    in one launch of K10."""
     widths, _, knn = window_spec(grid, radius, k_neighbors, strategy)
     _check(points, point_mask, widths, knn, budget)
-    if points.device.type == "cpu":
-        return build_budgeted_slots(points, grid, radius, k_neighbors, strategy, point_mask,
-                                    budget)
     if points.device.type != "cuda":
         raise ValueError(f"slot_build: no kernel for device {points.device}")
     B, N, _ = points.shape

@@ -5,9 +5,9 @@ from typing import Optional
 
 import torch
 
-from ..ops.grid_graph import LatentGrid
+from ..edges import LatentGrid, parse_edge_layout
 from .gaot3d import GAOT3D
-from .magno import MAGNOConfig, MAGNODecoder, MAGNOEncoder, parse_edge_layout
+from .magno import MAGNOConfig, MAGNODecoder, MAGNOEncoder
 from .mlp import ConditionedNorm, reset_linear_
 from .transformer import AttentionConfig, FFNConfig, TransformerConfig
 

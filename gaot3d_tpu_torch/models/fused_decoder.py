@@ -17,10 +17,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.grid_graph import EdgeSlots
+from ..edges import EdgeSlots, effective_chunk
 from ..parallel.sharding import world_group
 from .geoembed import GeometricEmbedding, znorm_mlp
-from .integral_transform import IntegralTransform, effective_chunk, run_chunk
+from .integral_transform import IntegralTransform, run_chunk
 
 
 class FusedDecoderScale:

@@ -52,15 +52,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..edges import EdgeSlots, LatentGrid, effective_chunk
 from ..kernels.encoder_payload import accumulate, moment_rows, payload_rows
 from ..ops.eigh3 import eigvalsh3x3_desc
-from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots
 from ..ops.segment import (fold_sum, fold_sum_sorted, fold_sum_tile_lite, make_segment_fold,
                            make_segment_fold_presorted, make_tile_fold,
                            pallas_segment_sum_presorted, segment_sum)
 from ..parallel.sharding import all_reduce_sum, data_group, node_group
 from .geoembed import StatisticalGeoEmbedding, znorm_mlp
-from .integral_transform import IntegralTransform, effective_chunk
+from .integral_transform import IntegralTransform
 
 __all__ = ["FusedEncoderScale", "StatisticalGeoEmbedding"]
 
@@ -99,39 +99,18 @@ class FusedEncoderScale:
         B, N = point_pos.shape[:2]
         acc = torch.zeros((B, self.grid.num_tokens, self.width + 11), dtype=torch.float32,
                           device=point_pos.device)
-        if isinstance(slots, FlatEdgeChunks):
-            nc = slots.num_chunks
-            if N % nc != 0:
-                raise ValueError(f"flat chunks ({nc}) must divide N ({N})")
-            chunk = N // nc
-            for c in range(nc):
-                rows = slice(c * chunk, (c + 1) * chunk)
-                acc = acc + self._pass_chunk_flat(
-                    _node_rows(lifted_feats, rows), point_pos[:, rows], slots.src[:, c],
-                    slots.dst[:, c], slots.mask[:, c])
-        elif isinstance(slots, SectionedEdgeSlots):
+        if slots.layout == "flat":
+            for e, pts, fe in slots.blocks(point_pos, lifted_feats):
+                acc = acc + self._pass_chunk_flat(fe, pts, *e)
+        elif slots.layout == "sectioned":
             # one accumulator threaded through the sections in node order
             if slots.num_nodes != N:
                 raise ValueError(f"sectioned slots cover {slots.num_nodes} nodes, "
                                  f"points have {N}")
-            S = slots.shards
-            pos_v = point_pos.reshape(B, S, N // S, -1)
-            feats_v = (None if lifted_feats is None
-                       else lifted_feats.reshape(B, S, N // S, lifted_feats.shape[-1]))
-            off = 0
-            for sec in slots.sections:
-                ns = int(sec.lat_idx.shape[-2]) // S  # a shard's rows of the section
-                pts = pos_v[:, :, off:off + ns].reshape(B, S * ns, -1)
-                fe = (None if feats_v is None
-                      else feats_v[:, :, off:off + ns].reshape(B, S * ns, -1))
+            for sec, pts, fe in slots.blocks(point_pos, lifted_feats):
                 acc = self._run_slotted(sec, pts, fe, acc)
-                off += ns
-        elif isinstance(slots, EdgeSlots):
-            acc = self._run_slotted(slots, point_pos, lifted_feats, acc)
         else:
-            raise NotImplementedError(
-                f"edge layout {type(slots).__name__} is not ported "
-                "(supported: EdgeSlots, SectionedEdgeSlots, FlatEdgeChunks)")
+            acc = self._run_slotted(slots, point_pos, lifted_feats, acc)
         return self._finalize(all_reduce_sum(acc, node_group()))
 
     def _kernel_mlp(self):
@@ -169,7 +148,8 @@ class FusedEncoderScale:
                 weights, biases, self.grid, acc, chunk=chunk, kernel_dtype=self.kernel_dtype)
         for c0 in range(0, n, chunk):
             rows = slice(c0, c0 + chunk)
-            acc = acc + self._pass_chunk(_node_rows(lifted_feats, rows), point_pos[:, rows],
+            feats_c = None if lifted_feats is None else lifted_feats[:, rows]
+            acc = acc + self._pass_chunk(feats_c, point_pos[:, rows],
                                          slots.lat_idx[:, rows], slots.mask[:, rows])
         return acc
 
@@ -254,7 +234,3 @@ class FusedEncoderScale:
         feats = torch.where((cnt > 0)[..., None], feats, zero)
         # the grid is replicated over a node group; the batch is split over data ranks
         return gno_out, znorm_mlp(feats, self.geoembed.mlp, group=data_group())
-
-
-def _node_rows(feats: Optional[torch.Tensor], rows: slice) -> Optional[torch.Tensor]:
-    return None if feats is None else feats[:, rows]

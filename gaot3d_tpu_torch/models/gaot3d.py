@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots
+from ..edges import LatentGrid
 from ..parallel.sharding import active_placement
 from ..tracing import span
 from .magno import MAGNOConfig, MAGNODecoder, MAGNOEncoder
@@ -50,72 +50,6 @@ def patch_positions(dims, patch_size) -> np.ndarray:
     gx, gy, gz = np.meshgrid(np.arange(nd, dtype=np.float32), np.arange(nh, dtype=np.float32),
                              np.arange(nw, dtype=np.float32), indexing="ij")
     return np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
-
-
-def _slot_sections(slots) -> Sequence[EdgeSlots]:
-    if isinstance(slots, SectionedEdgeSlots):
-        return slots.sections
-    if isinstance(slots, EdgeSlots):
-        return (slots,)
-    raise NotImplementedError(
-        f"edge layout {type(slots).__name__} is not ported "
-        "(supported: EdgeSlots, SectionedEdgeSlots, FlatEdgeChunks)")
-
-
-def check_flat_edges(flat: FlatEdgeChunks, batch: int, num_nodes: int, num_cells: int,
-                     sorted_by: Optional[str] = None) -> None:
-    """Validate call-time flat edge lists: int32 src and dst and a bool mask
-    of [B, nc, E] with nc dividing the node count, every valid edge's node
-    inside its chunk and its cell inside the grid. With `sorted_by` ('src' or
-    'dst'), also the order a presorted reduction trusts: that key never
-    decreases along a chunk's valid edges and the padding sits at the tail.
-    One device sync in all."""
-    if flat.src.dtype != torch.int32 or flat.dst.dtype != torch.int32 \
-            or flat.mask.dtype != torch.bool:
-        raise ValueError("flat edges need int32 src and dst and a bool mask")
-    if flat.src.ndim != 3 or flat.src.shape != flat.dst.shape \
-            or flat.src.shape != flat.mask.shape or flat.src.shape[0] != batch:
-        raise ValueError(f"flat edges must be [{batch}, nc, E], got {tuple(flat.src.shape)}")
-    nc = flat.num_chunks
-    if nc == 0 or num_nodes % nc != 0:
-        raise ValueError(f"flat chunks ({nc}) must divide N ({num_nodes})")
-    chunk = num_nodes // nc
-    bad = flat.mask & ((flat.src < 0) | (flat.src >= chunk)
-                       | (flat.dst < 0) | (flat.dst >= num_cells))
-    flags = [bad.any()]
-    if sorted_by is not None:
-        # padding takes the largest key, as the folds map it (ops/segment.py)
-        ids = flat.src if sorted_by == "src" else flat.dst
-        key = torch.where(flat.mask, ids, torch.full_like(ids, torch.iinfo(torch.int32).max))
-        flags.append((key[..., 1:] < key[..., :-1]).any())
-    flags = torch.stack(flags).tolist()
-    if flags[0]:
-        raise ValueError(f"a valid flat edge points outside its chunk [0, {chunk}) or outside "
-                         f"the latent grid [0, {num_cells})")
-    if flags[-1]:
-        raise ValueError(f"flat edges are not sorted by {sorted_by} within a chunk with the "
-                         f"padding at the tail, as this side's reduction needs (build them with "
-                         f"flatten_slots_host(..., order='{sorted_by}'))")
-
-
-def check_slots(slots, batch: int, num_nodes: int, num_cells: int,
-                sorted_by: Optional[str] = None) -> None:
-    """Validate call-time edges. Slots: int32 cell ids and bool masks of
-    [B, n, K], and every valid slot's cell inside the grid (one device sync).
-    Flat edge lists: see `check_flat_edges`, which alone reads `sorted_by`."""
-    if isinstance(slots, FlatEdgeChunks):
-        return check_flat_edges(slots, batch, num_nodes, num_cells, sorted_by)
-    bad = None
-    for sec in _slot_sections(slots):
-        if sec.lat_idx.dtype != torch.int32 or sec.mask.dtype != torch.bool:
-            raise ValueError("slots need int32 lat_idx and bool mask")
-        if sec.lat_idx.ndim != 3 or sec.lat_idx.shape != sec.mask.shape \
-                or sec.lat_idx.shape[0] != batch:
-            raise ValueError(f"slots must be [{batch}, n, K], got {tuple(sec.lat_idx.shape)}")
-        out = (sec.mask & ((sec.lat_idx < 0) | (sec.lat_idx >= num_cells))).any()
-        bad = out if bad is None else bad | out
-    if bad is not None and bool(bad):
-        raise ValueError(f"a valid slot points outside the latent grid [0, {num_cells})")
 
 
 class GAOT3D(nn.Module):
@@ -222,17 +156,15 @@ class GAOT3D(nn.Module):
 
     def _check_edges(self, enc: Optional[list], dec: Optional[list],
                      point_pos: torch.Tensor, query_pos: torch.Tensor) -> None:
-        """Validate each side's call-time edges; the decoder's where they are
-        not the encoder's own slots or sections, which are checked once."""
+        """Validate each side's call-time edges (their `check`); the decoder's
+        where they are not the encoder's own slots or sections."""
         if enc is not None:
             # the encoder folds by cell when its lists come sorted so; the
             # decoder always folds by node, so one flat list cannot serve both
             enc_order = "dst" if self.encoder.flat_dst_sorted else None
             for e in enc:
-                check_slots(e, point_pos.shape[0], point_pos.shape[1], self.grid.num_tokens,
-                            enc_order)
+                e.check(point_pos.shape[0], point_pos.shape[1], self.grid.num_tokens, enc_order)
         if dec is not None:
             for s, d in enumerate(dec):
-                if enc is None or d is not enc[s] or isinstance(d, FlatEdgeChunks):
-                    check_slots(d, query_pos.shape[0], query_pos.shape[1],
-                                self.grid.num_tokens, "src")
+                if enc is None or d is not enc[s] or d.layout == "flat":
+                    d.check(query_pos.shape[0], query_pos.shape[1], self.grid.num_tokens, "src")

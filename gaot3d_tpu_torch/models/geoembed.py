@@ -27,13 +27,13 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..edges import EdgeSlots, LatentGrid, effective_chunk
 from ..ops.eigh3 import eigvalsh3x3_desc
-from ..ops.grid_graph import EdgeSlots, LatentGrid
 from ..ops.segment import (fold_count, fold_max, fold_sum_centred, make_segment_fold,
                            segment_max, segment_sum)
 from ..parallel.sharding import (all_reduce_, all_reduce_max, all_reduce_sum, data_group,
                                  node_group, world_group)
-from .integral_transform import effective_chunk, run_chunk
+from .integral_transform import run_chunk
 
 POINTNET_WIDTH = 32
 
@@ -277,7 +277,7 @@ class GeometricEmbedding(nn.Module):
         z-normalisation."""
         if direction not in ("encoder", "decoder"):
             raise ValueError(f"direction must be encoder|decoder, got {direction}")
-        if not isinstance(slots, EdgeSlots):
+        if slots.layout != "slots":
             raise NotImplementedError(
                 f"edge layout {type(slots).__name__} is not ported for GeometricEmbedding "
                 "(supported: EdgeSlots)")

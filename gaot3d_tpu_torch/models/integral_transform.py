@@ -1,8 +1,8 @@
 """Kernel integral transform (GNO) over edge slots (port of
-gaot3d_tpu/models/integral_transform.py `effective_chunk` and
-`IntegralTransform`: both directions, the three transform types and the
-per-edge attention; callers slice node chunks directly instead of
-`reshape_chunks`).
+gaot3d_tpu/models/integral_transform.py `IntegralTransform`: both
+directions, the three transform types and the per-edge attention; callers
+slice node chunks directly instead of `reshape_chunks`; `effective_chunk`
+is in gaot3d_tpu_torch/edges.py).
 
 Per edge from a source to a query, kernel = MLP([source | query coords]
 (+ source features for 'nonlinear' and 'nonlinear_kernelonly')) at
@@ -32,26 +32,16 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid
-from ..parallel.sharding import all_reduce_, all_reduce_sum, node_group
+from ..edges import EdgeSlots, LatentGrid, effective_chunk
 from ..ops.segment import (fold_count, fold_max, fold_sum_centred, fold_sum_sorted,
-                           gather_table, make_segment_fold, make_segment_fold_presorted,
-                           segment_max, segment_sum)
+                           make_segment_fold, make_segment_fold_presorted, segment_max)
+from ..parallel.sharding import all_reduce_, all_reduce_sum, node_group
+from ..utils.scatter import gather_table, segment_sum
 from .mlp import ChannelMLP, kernel_mlp_apply
 
 TRANSFORM_TYPES = ("linear", "nonlinear", "nonlinear_kernelonly")
 ATTENTION_TYPES = ("cosine", "dot_product")
 ATTENTION_DIM = 64  # width of the dot-product query and key projections
-
-
-def effective_chunk(N: int, chunk: Optional[int]) -> int:
-    """Largest divisor of N that is <= chunk (N when chunk is None or >= N)."""
-    if chunk is None or chunk >= N:
-        return N
-    for d in range(int(chunk), 0, -1):
-        if N % d == 0:
-            return d
-    return N
 
 
 def run_chunk(remat: bool, fn, *args):
@@ -289,19 +279,13 @@ class IntegralTransform(nn.Module):
         if direction not in ("encoder", "decoder"):
             raise ValueError(f"direction must be encoder|decoder, got {direction}")
         N = point_pos.shape[1]
-        if isinstance(slots, FlatEdgeChunks):
+        if slots.layout == "flat":
             if direction != "decoder":
                 raise ValueError("flat edge layout: encoder direction goes through the fused "
                                  "encoder (FusedEncoderScale), not IntegralTransform")
-            nc = slots.num_chunks
-            if N % nc != 0:
-                raise ValueError(f"flat chunks ({nc}) must divide N ({N})")
-            chunk = N // nc
-            return torch.cat([
-                self.decoder_chunk_flat(src_feats, point_pos[:, c * chunk:(c + 1) * chunk],
-                                        slots.src[:, c], slots.dst[:, c], slots.mask[:, c])
-                for c in range(nc)], dim=1)
-        if not isinstance(slots, EdgeSlots):
+            return torch.cat([self.decoder_chunk_flat(src_feats, pts, *e)
+                              for e, pts in slots.blocks(point_pos)], dim=1)
+        if slots.layout != "slots":
             raise NotImplementedError(
                 f"edge layout {type(slots).__name__} is not ported for IntegralTransform "
                 "(supported: EdgeSlots, FlatEdgeChunks)")

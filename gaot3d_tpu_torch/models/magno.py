@@ -28,8 +28,8 @@ every node (kernels/decoder_payload.py), and only the combination and the
 head run by chunks.
 
 `MAGNOConfig` has the JAX fields and defaults, so one config drives both
-packages. The model dispatches on the type of the edge structure it is
-handed; four fields say how the encoder reduces, as in the JAX package:
+packages. The model dispatches on the `layout` of the edge structure it is
+handed (gaot3d_tpu_torch/edges.py); four fields say how the encoder reduces, as in the JAX package:
 `segment_impl` (scatter | sort | tile) for slots, sections and src-ordered
 flat lists, `flat_order` (src | dst) for how the encoder's flat lists were
 built, `flat_reduce_impl` (fold | pallas) for dst-ordered flat lists.
@@ -58,21 +58,22 @@ and ignored.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Any, Iterator, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
+from ..edges import (EdgeSlots, FlatEdgeChunks, LatentGrid, effective_chunk,
+                     parse_edge_layout, parse_geoembed_strategy, parse_neighbor_strategy,
+                     parse_remat)
 from ..kernels.decoder_payload import decoder_payload, engages
 from ..kernels.encoder_payload import KERNEL_DTYPES
-from ..ops.grid_graph import (EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots,
-                              build_budgeted_slots, compact_slots)
+from ..ops.grid_graph import build_budgeted_slots, compact_slots
 from ..ops.sampling import cap_per_query_gather, cap_per_query_scatter, dropout_edges
 from .fused_decoder import FusedDecoderScale
 from .fused_encoder import FusedEncoderScale
 from .geoembed import GeometricEmbedding
-from .integral_transform import (ATTENTION_TYPES, TRANSFORM_TYPES, IntegralTransform,
-                                 effective_chunk, run_chunk)
+from .integral_transform import ATTENTION_TYPES, TRANSFORM_TYPES, IntegralTransform, run_chunk
 from .mlp import ChannelMLP, kernel_weights
 
 
@@ -124,56 +125,6 @@ class MAGNOConfig:
     flat_order: str = "src"
     edge_layout: Any = "slots"
     sectioned_profile: Optional[List[int]] = None
-
-
-def parse_neighbor_strategy(neighbor_strategy: Union[str, List[str]]) -> Tuple[str, str]:
-    """scalar-or-pair -> (encoder, decoder)."""
-    if isinstance(neighbor_strategy, str):
-        return neighbor_strategy, neighbor_strategy
-    if isinstance(neighbor_strategy, (list, tuple)) and len(neighbor_strategy) == 2:
-        return neighbor_strategy[0], neighbor_strategy[1]
-    raise ValueError(
-        f"neighbor_strategy must be str or list of length 2, got {neighbor_strategy}")
-
-
-def parse_geoembed_strategy(use_geoembed: Union[bool, List[bool]]) -> Tuple[bool, bool]:
-    """scalar-or-pair -> (encoder, decoder)."""
-    if isinstance(use_geoembed, bool):
-        return use_geoembed, use_geoembed
-    if isinstance(use_geoembed, (list, tuple)) and len(use_geoembed) == 2:
-        return bool(use_geoembed[0]), bool(use_geoembed[1])
-    raise ValueError(f"use_geoembed must be bool or list of length 2, got {use_geoembed}")
-
-
-def parse_remat(remat) -> Tuple[bool, bool]:
-    """(encoder, decoder) remat flags from a bool or an [encoder, decoder] pair."""
-    if isinstance(remat, (list, tuple)):
-        if len(remat) != 2:
-            raise ValueError(f"remat must be a bool or a [encoder, decoder] pair, got {remat}")
-        return bool(remat[0]), bool(remat[1])
-    return bool(remat), bool(remat)
-
-
-def parse_edge_layout(edge_layout: Union[str, List[str]]) -> Tuple[str, str]:
-    """scalar-or-pair -> (encoder, decoder) layout, each 'slots' | 'flat' |
-    'sectioned'. 'sectioned' must cover both sides: its degree sort permutes
-    the sample's nodes, so a mixed pair would feed one side permuted inputs
-    against unpermuted edges."""
-    if isinstance(edge_layout, str):
-        pair = (edge_layout, edge_layout)
-    elif isinstance(edge_layout, (list, tuple)) and len(edge_layout) == 2:
-        pair = (edge_layout[0], edge_layout[1])
-    else:
-        raise ValueError(f"edge_layout must be str or list of length 2, got {edge_layout}")
-    for side in pair:
-        if side not in ("slots", "flat", "sectioned"):
-            raise ValueError(f"unknown edge_layout: {side!r}")
-    if "sectioned" in pair and pair != ("sectioned", "sectioned"):
-        raise ValueError("edge_layout 'sectioned' applies to both sides (the degree-sort "
-                         f"permutation reorders the sample's nodes), got {pair}")
-    return pair
-
-
 
 
 def _uses_fused(cfg: MAGNOConfig, geo: bool, side_fused: bool) -> bool:
@@ -311,18 +262,6 @@ class SlotBuild:
             (other.grid, other.strategy, other.radius, other.k_neighbors, other.budget)
 
 
-def _layout(slots) -> str:
-    if isinstance(slots, FlatEdgeChunks):
-        return "flat"
-    if isinstance(slots, SectionedEdgeSlots):
-        return "sectioned"
-    if isinstance(slots, EdgeSlots):
-        return "slots"
-    raise NotImplementedError(
-        f"edge layout {type(slots).__name__} is not ported "
-        "(supported: EdgeSlots, SectionedEdgeSlots, FlatEdgeChunks)")
-
-
 class _Side(nn.Module):
     """What the encoder and the decoder share: the per-scale slot builds,
     the edge sampling before the budget compaction, and the scale
@@ -358,7 +297,7 @@ class _Side(nn.Module):
         """One scale's edges as the forward runs them: slots sampled, then
         compacted to the slot budget; sections and flat lists as they are
         (with JAX's refusals)."""
-        layout = _layout(slots)
+        layout = slots.layout
         if layout != "slots":
             enc_layout, dec_layout = ((layout, "slots") if direction == "encoder"
                                       else ("slots", layout))
@@ -540,21 +479,16 @@ class MAGNODecoder(_Side):
 
     def _decode_flat(self, latent_feats, pos, scale_slots: Sequence[FlatEdgeChunks]):
         ncs = {s.num_chunks for s in scale_slots}
-        n = pos.shape[1]
-        nc = ncs.pop()
-        if ncs or n % nc != 0:
-            raise ValueError(f"flat chunks ({nc}) must divide N ({n}), one chunking "
-                             "for every scale")
-        chunk = n // nc
+        if len(ncs) != 1:
+            raise ValueError(f"flat chunks ({ncs.pop()}) must divide N ({pos.shape[1]}), one "
+                             "chunking for every scale")
         if not self.fused_head:
             per_scale = [self.gno(s, pos, latent_feats) for s in scale_slots]
             return self.projection(self.combine_scales(per_scale, pos))
         outs = []
-        for c in range(nc):
-            pos_c = pos[:, c * chunk:(c + 1) * chunk]
-            per_scale = [self.gno.decoder_chunk_flat(latent_feats, pos_c, s.src[:, c],
-                                                     s.dst[:, c], s.mask[:, c])
-                         for s in scale_slots]
+        for chunks in zip(*(s.blocks(pos) for s in scale_slots)):
+            pos_c = chunks[0][1]
+            per_scale = [self.gno.decoder_chunk_flat(latent_feats, pos_c, *e) for e, _ in chunks]
             outs.append(self.projection(self.combine_scales(per_scale, pos_c)))
         return torch.cat(outs, dim=1)
 
@@ -583,7 +517,7 @@ class MAGNODecoder(_Side):
         if slots is None:
             slots = [build(query_pos, query_mask) for build in self.builds]
         scale_slots = [self.prepare(s, "decoder", rng) for s in slots]
-        layouts = {_layout(s) for s in scale_slots}
+        layouts = {s.layout for s in scale_slots}
         if len(layouts) != 1:
             raise ValueError("all scales must share the edge layout")
         layout = layouts.pop()
@@ -594,19 +528,8 @@ class MAGNODecoder(_Side):
             if sect.num_nodes != query_pos.shape[1]:
                 raise ValueError(f"sectioned slots cover {sect.num_nodes} nodes, "
                                  f"queries have {query_pos.shape[1]}")
-            # shard-aligned sections (shards S > 1): a section's query rows
-            # come through the [B, S, N/S, 3] view, and the outputs go back
-            # shard by shard into the permuted global node order
-            B, N = query_pos.shape[:2]
-            S = sect.shards
-            qpos_v = query_pos.reshape(B, S, N // S, -1)
-            outs, off = [], 0
-            for sec in sect.sections:
-                ns = int(sec.lat_idx.shape[-2]) // S
-                qsec = qpos_v[:, :, off:off + ns].reshape(B, S * ns, -1)
-                outs.append(self._decode(latent_feats, qsec, [sec]).reshape(B, S, ns, -1))
-                off += ns
-            return torch.cat(outs, dim=2).reshape(B, N, -1)
+            return sect.unblock([self._decode(latent_feats, qsec, [sec])
+                                 for sec, qsec in sect.blocks(query_pos)])
         if layout == "flat":
             # packed edge lists: src must be ascending within a chunk (the
             # fold by node trusts it)

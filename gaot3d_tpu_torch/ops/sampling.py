@@ -17,7 +17,7 @@ from typing import Optional, Union
 
 import torch
 
-from .grid_graph import EdgeSlots
+from ..edges import EdgeSlots
 
 Rng = Union[torch.Generator, torch.Tensor]
 

@@ -1,10 +1,11 @@
 """Masked segment reductions (port of gaot3d_tpu/ops/segment.py: every
 reduction it holds).
 
-`segment_sum` is the plain PyTorch form of the scatter that the
-encoder-payload kernel (kernels/encoder_payload.py) fuses with the payload
-computation; `segment_max`, `gather_table` and `segment_softmax` are plain
-PyTorch too, as they are XLA in the JAX package. The sorted folds below
+`segment_sum` (the plain PyTorch form of the scatter that the
+encoder-payload kernel, kernels/encoder_payload.py, fuses with the payload
+computation) and `gather_table` come from utils/scatter.py, beneath the
+kernels; `segment_max` and `segment_softmax` are plain PyTorch too, as they
+are XLA in the JAX package. The sorted folds below
 them reduce through the kernels K6, K7 and K8; `fold_max` is a plain segment
 max over the sorted rows (JAX's segmented cummax gives the same values).
 """
@@ -17,26 +18,7 @@ import torch
 from ..kernels.segment_sum_sorted import segment_sum_sorted
 from ..kernels.tile_segment_sum import (boundary_difference, tile_boundaries, tile_segment_sum,
                                         tile_starts)
-
-
-def segment_sum(
-    data: torch.Tensor,  # [E, ...]
-    segment_ids: torch.Tensor,  # [E] integer
-    num_segments: int,
-    mask: Optional[torch.Tensor] = None,  # [E] bool
-) -> torch.Tensor:
-    """[E, ...] -> [num_segments, ...]. Masked rows contribute nothing, and
-    their segment id is never used, whatever it holds: they are routed to an
-    extra segment that is dropped."""
-    ids = segment_ids.long()
-    if mask is not None:
-        ids = torch.where(mask, ids, torch.full_like(ids, num_segments))
-        m = mask.reshape(mask.shape + (1,) * (data.ndim - mask.ndim))
-        data = torch.where(m, data, torch.zeros((), dtype=data.dtype, device=data.device))
-    out = torch.zeros((num_segments + 1,) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    out.index_add_(0, ids, data)
-    return out[:num_segments]
+from ..utils.scatter import gather_table, segment_sum  # noqa: F401
 
 
 def _segment_amax(data: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -63,33 +45,6 @@ def segment_max(
         ids = torch.where(mask, ids, torch.full_like(ids, num_segments))
     out = _segment_amax(data, ids, num_segments)[:num_segments]
     return torch.where(out == float("-inf"), torch.full_like(out, empty_value), out)
-
-
-class _GatherTable(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, table, idx, mask):
-        S = table.shape[0]
-        ctx.save_for_backward(idx, mask)
-        ctx.num_rows = S
-        return table[idx.long().clamp(0, S - 1)] * mask[:, None].to(table.dtype)
-
-    @staticmethod
-    def backward(ctx, ct):
-        idx, mask = ctx.saved_tensors
-        S = ctx.num_rows
-        # the masked segment sum at the unclipped index: a row whose index
-        # lies outside the table gives it nothing, as jax.ops.segment_sum
-        # drops it (autograd's backward of the clipped gather would not)
-        keep = mask & (idx >= 0) & (idx < S)
-        return segment_sum(ct, idx, S, keep), None, None
-
-
-def gather_table(table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Masked row gather: table [S, C], idx [E], mask [E] -> [E, C], the
-    index clipped into the table and masked rows 0. Its backward is the
-    masked segment sum of the cotangent at the unclipped index, as the JAX
-    function's custom backward."""
-    return _GatherTable.apply(table, idx, mask)
 
 
 def segment_softmax(

@@ -34,11 +34,12 @@ the step read, and the collectives are explicit:
     wrongly.
 
 A global batch is split by `shard_point_batch`: its batch rows by data rank,
-its node rows by node rank. Uniform slots split with their rows, flat edge
-chunks by chunks (their node indices are chunk-local), shard-aligned sections
-(`SectionedEdgeSlots.shards` equal to the node count) by each section's
-shard-major rows, and a batch without edges leaves the model to build each
-rank's slots from its own points.
+its node rows by node rank. Each edge format cuts itself (`map` and
+`node_shard`, gaot3d_tpu_torch/edges.py): uniform slots with their rows, flat
+edge chunks by chunks (their node indices are chunk-local), shard-aligned
+sections (`SectionedEdgeSlots.shards` equal to the node count) by each
+section's shard-major rows; a batch without edges leaves the model to build
+each rank's slots from its own points.
 
 Every all-reduce of a sharded step goes through this module, and
 `all_reduce_.bytes` counts the bytes this process has all-reduced: the
@@ -59,7 +60,6 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, SectionedEdgeSlots
 from ..tracing import span
 from .mesh import Mesh
 
@@ -178,37 +178,6 @@ def _rows(x, lo: int, hi: int, axis: int):
     return x[index]
 
 
-def _split_edges(edges, mesh: Mesh, b0: int, b1: int, shard_nodes: bool):
-    """One scale's edge structure, cut to batch rows [b0, b1) and, with
-    `shard_nodes`, to this rank's node shard."""
-    S, s = mesh.node, mesh.node_rank
-    if isinstance(edges, SectionedEdgeSlots):
-        out = SectionedEdgeSlots(tuple(EdgeSlots(_rows(t.lat_idx, b0, b1, 0),
-                                                 _rows(t.mask, b0, b1, 0))
-                                       for t in edges.sections), edges.shards)
-        if not shard_nodes:
-            return out
-        if edges.shards != S:
-            raise ValueError(f"sections laid out for {edges.shards} shards, the mesh has "
-                             f"{S} node ranks (set the loader's section_shards to node_shards)")
-        return out.shard(s)
-    if isinstance(edges, FlatEdgeChunks):
-        parts = [_rows(t, b0, b1, 0) for t in (edges.src, edges.dst, edges.mask)]
-        if shard_nodes:
-            nc = edges.num_chunks
-            if nc % S:
-                raise ValueError(f"{nc} flat chunks do not split over {S} node ranks")
-            parts = [_rows(t, s * nc // S, (s + 1) * nc // S, 1) for t in parts]
-        return FlatEdgeChunks(*parts)
-    if isinstance(edges, EdgeSlots):
-        parts = [_rows(t, b0, b1, 0) for t in (edges.lat_idx, edges.mask)]
-        if shard_nodes:
-            n = parts[0].shape[1]
-            parts = [_rows(t, s * n // S, (s + 1) * n // S, 1) for t in parts]
-        return EdgeSlots(*parts)
-    raise NotImplementedError(f"edge layout {type(edges).__name__} cannot be sharded")
-
-
 def shard_point_batch(batch, mesh: Mesh, shard_nodes: bool = False,
                       process_local: bool = False) -> Tuple[Any, int]:
     """This rank's part of a global batch, and its batch offset.
@@ -246,13 +215,13 @@ def shard_point_batch(batch, mesh: Mesh, shard_nodes: bool = False,
     def side(edges):
         if edges is None:
             return None
-        many = isinstance(edges, (list, tuple)) and not isinstance(
-            edges, (EdgeSlots, FlatEdgeChunks))
+        many = not hasattr(edges, "layout")  # a structure a scale, or one structure
         memo = {}
 
         def one(e):
             if id(e) not in memo:  # aliased encoder and decoder edges stay one
-                memo[id(e)] = _split_edges(e, mesh, b0, b1, shard_nodes)
+                cut = e.map(lambda t: t[b0:b1])
+                memo[id(e)] = cut.node_shard(mesh.node_rank, mesh.node) if shard_nodes else cut
             return memo[id(e)]
         return type(edges)(one(e) for e in edges) if many else one(edges)
 

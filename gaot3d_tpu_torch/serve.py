@@ -59,10 +59,10 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from .edges import LatentGrid
 from .models import MAGNOConfig, TransformerConfig, init_model, require_device
 from .models.gaot3d import GAOT3D
 from .models.transformer import AttentionConfig, FFNConfig
-from .ops.grid_graph import LatentGrid
 from .tracing import span
 
 EDGE_MODES = ("args", "device")

@@ -48,8 +48,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     from ..config import load_run_config
+    from ..edges import parse_edge_layout
     from ..models import init_model
-    from ..models.magno import parse_edge_layout
     from ..serve import export_inference, export_inference_buckets
     from ..train.checkpoint import load_trained_params
 

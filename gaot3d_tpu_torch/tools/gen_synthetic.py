@@ -26,8 +26,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..config import load_run_config
     from ..data.dataset import generate_synthetic_dataset
     from ..data.graph_precompute import update_sample_files_with_edges
+    from ..edges import LatentGrid
     from ..metadata import DATASET_METADATA
-    from ..ops.grid_graph import LatentGrid
     from .repack_gsb import repack
 
     cfg = load_run_config(args.config)

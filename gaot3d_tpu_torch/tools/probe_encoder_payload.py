@@ -36,9 +36,10 @@ import numpy as np
 import torch
 
 from gaot3d_tpu_torch.data.host_graph import build_edge_slots_host, section_slots_by_degree_np
+from gaot3d_tpu_torch.edges import LatentGrid
 from gaot3d_tpu_torch.kernels import encoder_payload as k5
 from gaot3d_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, find_nvcc
-from gaot3d_tpu_torch.ops.grid_graph import LatentGrid, build_budgeted_slots
+from gaot3d_tpu_torch.ops.grid_graph import build_budgeted_slots
 
 N_POINTS, LATENT, RADIUS, BUDGET, CHUNK, C = 524_288, (64, 64, 32), 0.033, 5, 65_536, 32
 REPS = 7

@@ -78,10 +78,9 @@ from ..data.dataset import (DatasetConfig, MeshDataset, compute_or_load_stats,
 from ..data.host_graph import build_edge_slots_host
 from ..data.pipeline import (BatchLoader, SamplePreprocessor, pinned_to_device,
                              prefetch_to_device)
+from ..edges import LatentGrid, parse_edge_layout, parse_neighbor_strategy
 from ..metadata import DATASET_METADATA
 from ..models import init_model
-from ..models.magno import parse_edge_layout, parse_neighbor_strategy
-from ..ops.grid_graph import EdgeSlots, FlatEdgeChunks, LatentGrid, SectionedEdgeSlots
 from ..parallel import (Placement, gather_rows, initialize_distributed, make_mesh,
                         make_sharded_train_step, placed, shard_point_batch)
 from ..parallel.mesh import local_rank
@@ -107,18 +106,9 @@ def _process_rss_gb() -> float:
 def _edges_to_device(edges, device, memo: dict):
     """One scale's edge structure (CPU tensors) on `device`; `memo` keeps
     aliased encoder and decoder structures one set of device tensors."""
-    if id(edges) in memo:
-        return memo[id(edges)]
-    put = lambda t: pinned_to_device(t, device, memo)  # noqa: E731
-    if isinstance(edges, SectionedEdgeSlots):
-        out = SectionedEdgeSlots(tuple(EdgeSlots(put(s.lat_idx), put(s.mask))
-                                       for s in edges.sections), edges.shards)
-    elif isinstance(edges, FlatEdgeChunks):
-        out = FlatEdgeChunks(put(edges.src), put(edges.dst), put(edges.mask))
-    else:
-        out = EdgeSlots(put(edges.lat_idx), put(edges.mask))
-    memo[id(edges)] = out
-    return out
+    if id(edges) not in memo:
+        memo[id(edges)] = edges.map(lambda t: pinned_to_device(t, device, memo))
+    return memo[id(edges)]
 
 
 class TrainerBase:

@@ -28,6 +28,7 @@ from gaot3d_tpu_torch.data import transforms as ttr
 from gaot3d_tpu_torch.metadata import DATASET_METADATA as TMETA
 from gaot3d_tpu_torch.models.magno import MAGNOConfig as TMAGNOConfig
 from gaot3d_tpu_torch.ops import grid_graph as tgg
+from gaot3d_tpu_torch.train.trainer import _edges_to_device
 import test_torch_port_cpu  # noqa: F401  (torch on this worker's share of the cores)
 
 META = "synthetic/unit_cube"
@@ -346,6 +347,16 @@ def test_loader_batches_agree(swept, layout, kw):
         orders.append(tl._indices().tolist())
         batches = _assert_same_batches(jl, tl)
     assert orders[0] != orders[1] and sorted(orders[0]) == list(range(5))
+    for b in batches:
+        # the trainer's device put, each format's `map`: the same format and
+        # bits, aliased directions one structure
+        memo = {}
+        put = [_edges_to_device(side[0], "cpu", memo) for side in (b.enc_slots, b.dec_slots)]
+        for side, e in zip((b.enc_slots, b.dec_slots), put):
+            assert e.layout == side[0].layout
+            assert all(np.array_equal(x, y) for x, y in zip(_edge_arrays(e),
+                                                            _edge_arrays(side[0])))
+        assert (put[0] is put[1]) == (b.enc_slots[0] is b.dec_slots[0])
     last = batches[-1]  # 5 samples in batches of 2: the last is half empty
     assert last.num_nodes.tolist()[1] == 0 and not last.node_mask[1].any()
     assert last.pos.shape == (2, 384, 3)

@@ -220,12 +220,25 @@ def test_section_slots_shared_shard_aligned_matches_jax(shards):
     # a shard's rows of every section are the unsharded layout of its point range
     n_local = lat.shape[1] // shards
     for s in range(shards):
-        own = touts[0].shard(s)
+        own = touts[0].node_shard(s, shards)
         assert own.shards == 1 and own.num_nodes == n_local
         rows = tperm[:, s * n_local:(s + 1) * n_local]
         got = np.concatenate([sec.mask.numpy().sum(-1) for sec in own.sections], axis=1)
         want = mask[np.arange(2)[:, None], rows].sum(-1)
         assert np.array_equal(got, want)
+    # the shard-major walk hands each section the point rows of its slots,
+    # and its inverse puts per-section rows back in the permuted node order
+    rows = torch.from_numpy(tperm.astype(np.int64))
+    walked = list(touts[0].blocks(rows[..., None], None))
+    assert len(walked) == len(touts[0].sections)
+    assert all(w is sec and none is None for (w, _, none), sec in zip(walked, touts[0].sections))
+    got = np.concatenate([sec.mask.numpy().sum(-1) for sec in touts[0].sections], axis=1)
+    want = mask[np.arange(2)[:, None], np.concatenate([r[..., 0].numpy() for _, r, _ in walked],
+                                                      axis=1)].sum(-1)
+    assert np.array_equal(got, want)
+    assert torch.equal(touts[0].unblock([r for _, r, _ in walked])[..., 0], rows)
+    with pytest.raises(ValueError, match=f"laid out for {shards} shards"):
+        touts[0].node_shard(0, 2 * shards)
     with pytest.raises(ValueError, match="must divide N"):
         thg.section_slots_shared(pairs, 48, shards=shards)
     with pytest.raises(ValueError, match="must divide N"):
@@ -354,6 +367,20 @@ def test_shard_point_batch_splits_every_layout():
     with pytest.raises(ValueError, match="2 shards"):
         shard_point_batch(dataclasses.replace(batch, enc_slots=sect, dec_slots=sect),
                           Mesh(1, 4, 1), shard_nodes=True)
+    # each format cuts itself: a list of one structure a scale, data rank 1's rows
+    def tensors(edges):
+        out = []
+        edges.map(lambda t: out.append(t) or t)
+        return out
+
+    for edges in (slots, flat, sect):
+        local, _ = shard_point_batch(dataclasses.replace(batch, enc_slots=[edges],
+                                                         dec_slots=None), Mesh(2, 1, 1))
+        assert isinstance(local.enc_slots, list) and local.enc_slots[0].layout == edges.layout
+        cut, whole = tensors(local.enc_slots[0]), tensors(edges)
+        assert len(cut) == len(whole) and all(torch.equal(a, b[2:]) for a, b in zip(cut, whole))
+    with pytest.raises(ValueError, match="4 flat chunks do not split over 3 node ranks"):
+        flat.node_shard(0, 3)
 
 
 def _save_case(path, models, dense, batches, cases):

@@ -19,6 +19,7 @@ from gaot3d_tpu.ops.grid_graph import EdgeSlots as JaxEdgeSlots
 from gaot3d_tpu.ops.grid_graph import LatentGrid as JaxLatentGrid
 from gaot3d_tpu.ops.grid_graph import build_edge_slots_batched, section_slots_by_degree_batched
 from gaot3d_tpu.torch_export import state_dict_from_params
+from gaot3d_tpu_torch.data.host_graph import flatten_slots_host_batched
 from gaot3d_tpu_torch.models import (AttentionConfig, FFNConfig, MAGNOConfig,
                                      TransformerConfig, init_model)
 from gaot3d_tpu_torch.ops.grid_graph import EdgeSlots, SectionedEdgeSlots
@@ -231,6 +232,34 @@ def test_unsupported_inputs_raise():
             if hasattr(m, "atten_dropout"):
                 m.atten_dropout = 0.1
         drop.train()(t(pos), t(feats), t(mask), encoder_slots=[uni], decoder_slots=[uni])
+
+
+@pytest.mark.parametrize("layout", ["slots", "sectioned", "flat"])
+def test_call_time_edges_check_themselves(layout, monkeypatch):
+    """Each edge format's `check` (gaot3d_tpu_torch/edges.py), as the
+    forward runs it on call-time edges: good edges pass with one device sync
+    (every section at once); int64 ids, another batch and a valid edge
+    outside the grid raise the forward's messages."""
+    pos, _, _, _, lat_c, msk_c = _problem(seed=61)
+    edges = {"slots": lambda: EdgeSlots.from_numpy(lat_c, msk_c),
+             "sectioned": lambda: _sections(lat_c, msk_c)[2],
+             "flat": lambda: flatten_slots_host_batched(lat_c, msk_c, 16, pad_multiple=8)}[layout]()
+    assert edges.layout == layout and (layout != "sectioned" or len(edges.sections) > 1)
+    B, N = pos.shape[:2]
+    syncs = []
+    for name in ("__bool__", "tolist"):
+        real = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name,
+                            lambda t, real=real: syncs.append(t.numel()) or real(t))
+    edges.check(B, N, 64, "src")
+    assert len(syncs) == 1
+    ids = lambda f: edges.map(lambda t: f(t) if t.dtype == torch.int32 else t)  # noqa: E731
+    with pytest.raises(ValueError, match="int32"):
+        ids(lambda t: t.long()).check(B, N, 64)
+    with pytest.raises(ValueError, match=r"must be \[2, n"):
+        edges.map(lambda t: t[:1]).check(B, N, 64)
+    with pytest.raises(ValueError, match="outside"):
+        ids(lambda t: t + 64).check(B, N, 64)
 
 
 def test_entry_points_default_to_the_card(tmp_path):

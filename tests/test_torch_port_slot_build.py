@@ -1,7 +1,7 @@
 """The budgeted slot build, K10 (`gaot3d_tpu_torch/kernels/slot_build.py`),
-on the CPU: the predicate that picks it, the wrapper's checks, and the plain
-build whose bits K10 repeats, held to JAX's build then `compact_slots` at any
-budget.
+on the CPU: the predicate that picks it, the wrapper's checks and its
+refusal of CPU tensors, and the plain build whose bits K10 repeats, held to
+JAX's build then `compact_slots` at any budget.
 
 K10 itself runs only on the card (tests/test_torch_port_cuda.py); here the
 predicate must pick it for float32 points on a card at a budget below the
@@ -94,17 +94,20 @@ def test_plain_build_equals_jax_compact_slots_at_any_budget(grid, strategy, k):
         assert tgg.max_slot_degree(got) == min(budget, top)
 
 
-def test_wrapper_on_cpu_tensors_is_the_plain_build():
-    """`slot_build` on CPU tensors gives `build_budgeted_slots`' bits and
-    launches nothing; neither does `build_budgeted_slots` on the CPU."""
+def test_build_on_the_cpu_launches_nothing_and_the_wrapper_refuses_it():
+    """`build_budgeted_slots` on CPU tensors gives the plain build's bits (the
+    window, then `compact_slots`) and launches nothing; `slot_build`, K10
+    alone, refuses CPU tensors after its checks pass."""
     tgrid, _, radius, pts, mask = _cloud("recipe", 3, 999, 3)
+    pts, mask = torch.from_numpy(pts), torch.from_numpy(mask)
     before = k10.slot_build.launches
-    got = k10.slot_build(torch.from_numpy(pts), tgrid, radius, 1, "bidirectional",
-                         torch.from_numpy(mask), 8)
-    want = tgg.build_budgeted_slots(torch.from_numpy(pts), tgrid, radius, 1, "bidirectional",
-                                    torch.from_numpy(mask), 8, 200)
+    got = tgg.build_budgeted_slots(pts, tgrid, radius, 1, "bidirectional", mask, 8, 200)
+    want = tgg.compact_slots(
+        tgg.build_edge_slots_batched(pts, tgrid, radius, 1, "bidirectional", mask), 8)
     assert torch.equal(got.lat_idx, want.lat_idx) and torch.equal(got.mask, want.mask)
     assert got.lat_idx.shape == (3, 999, 8) and got.mask.any()
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        k10.slot_build(pts, tgrid, radius, 1, "bidirectional", mask, 8)
     assert k10.slot_build.launches == before
 
 
