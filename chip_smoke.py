@@ -27,9 +27,13 @@ Phases, each of which raises (exit code 1) on failure:
      16-64 without wgmma, or any mma.sync, fails);
   3. [k1] flash-attention forward vs its plain version at B1 H8 S16384 D32
      bf16 and at a ragged S=1000;
-  4. [k5] encoder payload + scatter vs its plain version on the degree
-     sections of a 524,288-point cloud (radius 0.033, slot budget 5, 64x64x32
-     grid), the accumulator and its value columns each to 1e-5 relative, and
+  4. [k5] encoder payload + scatter (the f32 body, over the tile map of
+     valid rows) vs its plain version on the degree sections of a
+     524,288-point cloud (radius 0.033, slot budget 5, 64x64x32 grid), the
+     accumulator and its value columns each to 1e-5 relative, then at the
+     shape of a drivaerml request, [1, 8,388,608, 8] of slots K10 builds on
+     [k9]'s closed surface: one launch a call, over the tile map, to the same
+     limits; its valid-row share, its time (median of 5) and bound; and
      [k5b] its backward (dfeats, dW, db) vs autograd through the plain
      version on the same sections, dfeats the same bits in two launches; both
      timed as the five launches alone and through their wrappers, with the
@@ -712,11 +716,16 @@ def encoder_build_facts():
             ffma = sum(1 for line in text.splitlines() if "FFMA" in line)
             ctas = getattr(lib, f"{fn}_occupancy")(2, 64, 32)
             smem = getattr(lib, f"{fn}_smem")(2, 64, 32)
+            # the f32 forward's CTA holds groups of 8 warps, a template argument of its kernel
+            groups = getattr(lib, f"{fn}_groups", lambda *a: 0)(2, 64, 32)
+            if groups:
+                kernel += f"Li{groups}E"
             regs, spill = next(((r, sp) for entry, (r, sp) in ptxas_entries(name).items()
                                 if kernel in entry), ("?", "?"))
             print(f"[build] {name} at the recipe's widths: {regs} registers, {spill}; "
-                  f"{smem / 1024:.1f} KiB shared, {ctas} CTA(s) of 8 warps an SM; SASS of the "
-                  f"library: {hmma['TF32']} HMMA...TF32, {hmma['BF16']} HMMA...BF16, {ffma} FFMA")
+                  f"{smem / 1024:.1f} KiB shared, {ctas} CTA(s) of {8 * (groups or 1)} warps an "
+                  f"SM; SASS of the library: {hmma['TF32']} HMMA...TF32, {hmma['BF16']} "
+                  f"HMMA...BF16, {ffma} FFMA")
             missing = [kind for kind in need if hmma[kind] == 0]
             if missing:
                 raise RuntimeError(f"{name}: no {missing} tensor-core instruction in its SASS")
@@ -805,6 +814,7 @@ def phase_k5():
     sections = [(pos_t[:, o:o + lat.shape[1]], feats[:, o:o + lat.shape[1]].contiguous(), lat,
                  msk) for o, (lat, msk) in zip(offsets, sec_t)]
     params, n_mid, hid = k5._pack_mlp(ws, bs), len(ws) - 2, ws[0].shape[0]
+    maps = [k5.tile_map(msk, CHUNK) for *_, msk in sections]
 
     def run(fn):
         acc.zero_()
@@ -813,8 +823,8 @@ def phase_k5():
         return acc
 
     def launches_alone():
-        for p, f, lat, msk in sections:
-            k5.launch_accumulate(p, f, lat, msk, params, n_mid, hid, grid, acc)
+        for (p, f, lat, msk), tm in zip(sections, maps):
+            k5.launch_accumulate(p, f, lat, msk, params, n_mid, hid, grid, acc, "float32", tm)
 
     got = run(k5.encoder_accumulate).clone()
     ref = run(k5.encoder_accumulate_reference).clone()
@@ -849,8 +859,8 @@ def phase_k5():
     # parameter a launch's output at the fastest rate measured
     arows = acc_rows(sections, grid.num_tokens)
     red = probe_payload.red_rates(probe_payload.build_red_probe(), arows, C, grid.num_tokens)
-    print(f"[k5] red.global.add alone on the recipe's valid rows: K5's mix of v2 and scalar "
-          f"{red['k5_ms']:.3f} ms ({red['k5_per_s']:.3e} reductions a second), every column "
+    print(f"[k5] red.global.add alone on the recipe's valid rows: the mix of v2 and scalar "
+          f"{red['mix_ms']:.3f} ms ({red['mix_per_s']:.3e} reductions a second), every column "
           f"scalar {red['scalar_ms']:.3f} ms ({red['scalar_per_s']:.3e}), every pair v2 into rows "
           f"of 48 floats {red['v2_ms']:.3f} ms ({red['v2_per_s']:.3e}), v4 on the 16-byte aligned "
           f"groups {red['v4_ms']:.3f} ms ({red['v4_per_s']:.3e}) (median of 7)")
@@ -864,8 +874,9 @@ def phase_k5():
     rec = {"max_abs_err": err, "ms": cuda_ms(launches_alone),
            "plain_ms": cuda_ms(lambda: run(k5.encoder_accumulate_reference)),
            **bound(moved + 2 * acc.numel() * 4, **fwd_ops), "library_ms": None}
-    # the wrapper's five calls (checks, packing, launch), the accumulator's zeroing outside
-    wrapper_ms = cuda_ms(lambda: [k5.encoder_accumulate(p, f, lat, msk, ws, bs, grid, acc)
+    # the wrapper's five calls (checks, packing, tile map, launch), the accumulator's zeroing
+    # outside
+    wrapper_ms = cuda_ms(lambda: [k5.encoder_accumulate(p, f, lat, msk, ws, bs, grid, acc, CHUNK)
                                   for p, f, lat, msk in sections])
     print(f"[k5] all sections of 524,288 points: the five launches {rec['ms']:.3f} ms "
           f"(through the wrapper {wrapper_ms:.3f} ms: its share {wrapper_ms - rec['ms']:.3f} "
@@ -875,6 +886,7 @@ def phase_k5():
           f"{1e3 * fwd_ops['l2']:.3f} for {l2_count} as {l2_mode}, bytes "
           f"{1e3 * (moved + 2 * acc.numel() * 4) / HBM_BYTES_S:.3f}; as f32 FMAs "
           f"{1e3 * flops / F32_FLOPS:.3f}) (median of 5)")
+    rec.update(k5_serve_shape(ws, bs, grid, gelu, red))
 
     # K5b: gradients of the five sections from one accumulator cotangent
     g = torch.from_numpy(rng.standard_normal((1, grid.num_tokens, C + 11),
@@ -952,30 +964,107 @@ def phase_k5():
     return rec, rec_b, rec_bf, rec_b_bf
 
 
-# The bf16 bodies before their valid-row tiles (node-major tiles of every slot, K5b once a
-# node chunk), their launches alone as this script timed them on an H100 80GB HBM3 at 700 W
-# (PERF.md section 6)
+def k5_serve_shape(ws, bs, grid, gelu, red):
+    """[k5] at the shape of a drivaerml request: [1, K9_POINTS, K9_BUDGET]
+    slots K10 builds on [k9]'s closed surface, the recipe's kernel MLP `ws`,
+    `bs`. One `encoder_accumulate` call must launch K5 once, over the tile
+    map, and agree with the plain version to K5_BOUND (the accumulator and
+    its value columns, relative to the max abs). Returns the record's
+    `serve_*` entries: the valid-row share, the launch alone (median of 5),
+    the plain version's time and the bound (the terms of the sections'
+    bound, `red`'s rates, for these rows)."""
+    import torch
+
+    from gaot3d_tpu_torch.kernels import encoder_payload as k5
+    from gaot3d_tpu_torch.ops.grid_graph import build_budgeted_slots
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    pos = surface(K9_POINTS, g)
+    mask = torch.ones(1, K9_POINTS, dtype=torch.bool, device="cuda")
+    slots = build_budgeted_slots(pos, grid, RADIUS, 1, "bidirectional", mask, K9_BUDGET, CHUNK)
+    lat, msk = slots.lat_idx.contiguous(), slots.mask.contiguous()
+    C = ws[-1].shape[0]
+    feats = torch.randn(1, K9_POINTS, C, device="cuda", generator=g)
+    acc = torch.zeros((1, grid.num_tokens, C + 11), device="cuda")
+    taken = []
+    launch = k5.launch_accumulate
+
+    def spy(*args, **kw):
+        taken.append(args[10] if len(args) > 10 else kw.get("tiles"))
+        return launch(*args, **kw)
+
+    with mock.patch.object(k5, "launch_accumulate", spy):
+        k5.encoder_accumulate(pos, feats, lat, msk, ws, bs, grid, acc, CHUNK)
+    got = acc.clone()
+    acc.zero_()
+    ref = k5.encoder_accumulate_reference(pos, feats, lat, msk, ws, bs, grid, acc, CHUNK)
+    torch.cuda.synchronize()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    rel_vals = ((got[..., :C] - ref[..., :C]).abs().max() / ref[..., :C].abs().max()).item()
+    valid = int(msk.sum())
+    print(f"[k5] [1, {K9_POINTS:,}, {K9_BUDGET}] slots built on the card, {valid} valid "
+          f"({100 * valid / msk.numel():.1f}% of the slots, {valid / K9_POINTS:.3f} a node): "
+          f"launches {len(taken)}, over the tile map {all(t is not None for t in taken)}; "
+          f"against the plain version relative {rel:.3e}, its value columns {rel_vals:.3e}")
+    if not (len(taken) == 1 and taken[0] is not None and bool(torch.isfinite(got).all())
+            and rel <= K5_BOUND and rel_vals <= K5_BOUND):
+        raise RuntimeError(f"[k5] at the serve shape: launches {len(taken)}, tile map "
+                           f"{taken}, relative {rel}, values {rel_vals}")
+    params, tiles = k5._pack_mlp(ws, bs), k5.tile_map(msk, CHUNK)
+    n_weights = sum(w.numel() for w in ws)
+    hidden = valid * sum(w.shape[0] for w in ws[:-1])
+    l2_s, l2_mode, l2_count = l2_scatter(acc_rows([(pos, feats, lat, msk)], grid.num_tokens), C,
+                                         red)
+    ops = {"tensor": 3 * valid * 2 * n_weights / TF32_FLOPS,
+           "fp32": hidden * gelu["gelu"][0] / FP32_OPS,
+           "sfu": hidden * gelu["gelu"][1] / SFU_OPS, "l2": l2_s}
+    moved = (pos.numel() + feats.numel()) * 4 + lat.numel() * 5 + 2 * acc.numel() * 4
+    ms = cuda_ms(lambda: k5.launch_accumulate(pos, feats, lat, msk, params, len(ws) - 2,
+                                              ws[0].shape[0], grid, acc, "float32", tiles))
+    map_ms = cuda_ms(lambda: k5.tile_map(msk, CHUNK))
+    plain_ms = cuda_ms(lambda: k5.encoder_accumulate_reference(pos, feats, lat, msk, ws, bs,
+                                                               grid, acc, CHUNK), reps=1)
+    b = bound(moved, **ops)
+    print(f"[k5] [1, {K9_POINTS:,}, {K9_BUDGET}]: the launch alone {ms:.3f} ms (node-major "
+          f"tiles of every slot, before: {NODE_MAJOR_MS[('k5', 'serve')]:.1f} ms), its tile map "
+          f"{map_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+          f"({b['bound_by']}: tensor {1e3 * ops['tensor']:.3f}, GELU FP32 "
+          f"{1e3 * ops['fp32']:.3f}, MUFU {1e3 * ops['sfu']:.3f}, L2 reductions "
+          f"{1e3 * ops['l2']:.3f} for {l2_count} as {l2_mode}, bytes "
+          f"{1e3 * moved / HBM_BYTES_S:.3f}) (median of 5, CUDA events)")
+    out = {"serve_valid_share": valid / msk.numel(), "serve_ms": ms, "serve_map_ms": map_ms,
+           "serve_plain_ms": plain_ms, "serve_bound_ms": b["bound_ms"],
+           "serve_bound_by": b["bound_by"], "serve_max_abs_err": (got - ref).abs().max().item()}
+    del pos, feats, lat, msk, slots, acc, got, ref, tiles
+    torch.cuda.empty_cache()
+    return out
+
+
+# The bodies before their valid-row tiles (node-major tiles of every slot, K5b once a node
+# chunk), their launches alone as this script timed them on an H100 80GB HBM3 at 700 W
+# (PERF.md section 6); the f32 K5 at the serve shape beside the valid-row body, in one run
 NODE_MAJOR_MS = {("k5-bf16", "recipe"): 0.666, ("k5-bf16", "nf"): 0.107,
-           ("k5b-bf16", "recipe"): 4.112, ("k5b-bf16", "nf"): 0.621}
+                 ("k5b-bf16", "recipe"): 4.112, ("k5b-bf16", "nf"): 0.621,
+                 ("k5", "serve"): 37.5}
 
 
 def l2_scatter(arows, C, red):
     """The L2 term of K5's bound for the valid rows whose accumulator rows
     are `arows`: the least time among the ways `red` (probe_encoder_payload
-    `red_rates`) measured of adding their payloads (K5's v2 and scalar mix,
+    `red_rates`) measured of adding their payloads (the v2 and scalar mix,
     every column scalar, v4 on the 16-byte aligned groups), each its count of
     reductions over its measured rate. Returns (seconds, mode, reductions)."""
     from gaot3d_tpu_torch.tools.probe_encoder_payload import reduction_counts
 
     counts = reduction_counts(arows, C)
-    return min((counts[m] / red[m + "_per_s"], m, counts[m]) for m in ("k5", "scalar", "v4"))
+    return min((counts[m] / red[m + "_per_s"], m, counts[m]) for m in ("mix", "scalar", "v4"))
 
 
 def l2_dw(slices, n_params, red):
     """The L2 term of K5b's bound: one reduction a parameter for each of
     `slices` dW outputs (a node chunk's slice, or a launch's whole dW), at
     the fastest rate `red` measured."""
-    return slices * n_params / max(red[m + "_per_s"] for m in ("k5", "scalar", "v2", "v4"))
+    return slices * n_params / max(red[m + "_per_s"] for m in ("mix", "scalar", "v2", "v4"))
 
 
 def acc_rows(sections, M):
@@ -1124,8 +1213,8 @@ def bf16_bodies(label, key, sections, ws, bs, g, grid, counts, red, f32_ms=None)
             k5.launch_backward(g, p, f, lat, msk, params, n_mid, hid, grid, df, dp, bf, tm)
 
     def f32_launches():
-        for p, f, lat, msk in sections:
-            k5.launch_accumulate(p, f, lat, msk, params, n_mid, hid, grid, acc)
+        for (p, f, lat, msk), tm in zip(sections, maps):
+            k5.launch_accumulate(p, f, lat, msk, params, n_mid, hid, grid, acc, "float32", tm)
 
     f32_outs = [(torch.empty_like(f), torch.zeros_like(params)) for _, f, _, _ in sections]
 

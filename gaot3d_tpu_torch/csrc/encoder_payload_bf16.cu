@@ -24,15 +24,16 @@
 // memory each for the recipe), so one CTA's loads and scatter overlap the
 // other's products and erf.
 //
-// The scatter: the accumulator's rows are C+11 floats, so a row starts
-// 16-byte aligned one time in four. A warp writes its rows' payloads into
-// shared memory shifted by their misalignment, then adds every 16-byte
-// aligned group of four columns with one v4 `red.global.add` and the up to
-// three columns before and after them one at a time: about 13 reductions a
-// row of the recipe's 43 columns, where v2 pairs and scalar moments took 35
-// (the reductions' rate in L2 bounds the scatter;
-// tools/probe_encoder_payload.py `red_rates` measures both). The sum order,
-// and so the last bits, change from run to run.
+// The scatter (encoder_tiles.cuh `scatter_rows_v4`, shared with the f32
+// body): the accumulator's rows are C+11 floats, so a row starts 16-byte
+// aligned one time in four. A warp writes its rows' payloads into shared
+// memory shifted by their misalignment, then adds every 16-byte aligned group
+// of four columns with one v4 `red.global.add` and the up to three columns
+// before and after them one at a time: about 13 reductions a row of the
+// recipe's 43 columns, where v2 pairs and scalar moments took 35 (the
+// reductions' rate in L2 bounds the scatter; tools/probe_encoder_payload.py
+// `red_rates` measures both). The sum order, and so the last bits, change
+// from run to run.
 //
 // What bounds it on an H100: the accumulator's reductions in L2, then the
 // GELU's erf on the FP32 pipe (the products are a sixth of it).
@@ -64,74 +65,6 @@ struct Bf16FwdLayout {
     return (size_t)(weight_floats(n_mid) + STAGES) * sizeof(float);
   }
 };
-
-// The payload of the warp's rows row0 + g (+8), vals = (o + bias) * feats and
-// the 11 moment columns (K5's arithmetic, `scatter_rows`), into `stage`
-// (16 rows of ROW floats, each shifted by its accumulator row's misalignment
-// in floats), then added into acc at arows[r] (none where negative): v4
-// reductions on the 16-byte aligned groups of four columns, scalar ones on
-// the columns around them.
-// floats from p back to the 16-byte boundary before it
-__device__ __forceinline__ int shift_of(const float* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
-}
-
-template <int C, int ROW>
-__device__ __forceinline__ void scatter_rows_v4(const float (&o)[C / 8][4], const float* bl,
-                                                const float* F, const float* x0,
-                                                const int* arows, float* stage,
-                                                float* __restrict__ acc, int row0, int lane) {
-  constexpr int N = C + 11;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = row0 + g + 8 * hr;
-    const int arow = arows[r];
-    if (arow < 0) continue;
-    float* row = stage + (g + 8 * hr) * ROW + shift_of(acc + (long long)arow * N);
-#pragma unroll
-    for (int nt = 0; nt < C / 8; ++nt) {
-      const int c = 8 * nt + 2 * t;
-      const float2 f = *reinterpret_cast<const float2*>(F + Mat<C>::at(r, c));
-      row[c] = (o[nt][2 * hr] + bl[c]) * f.x;
-      row[c + 1] = (o[nt][2 * hr + 1] + bl[c + 1]) * f.y;
-    }
-    // moments, rounded like the reference: lane t writes columns C + t, C + t + 4, C + t + 8
-    const float4 pc = *reinterpret_cast<const float4*>(x0 + X0::at(r, 0));
-    const float4 cc = *reinterpret_cast<const float4*>(x0 + X0::at(r, 4));
-    const float yx = __fsub_rn(pc.x, pc.w), yy = __fsub_rn(pc.y, cc.x),
-                yz = __fsub_rn(pc.z, cc.y);
-    const float xx = __fmul_rn(yx, yx), xy = __fmul_rn(yx, yy), xz = __fmul_rn(yx, yz);
-    const float y2 = __fmul_rn(yy, yy), yz2 = __fmul_rn(yy, yz), z2 = __fmul_rn(yz, yz);
-    const float dist = sqrtf(__fadd_rn(__fadd_rn(xx, y2), z2));
-    const float mom[12] = {1.f, dist, yx, yy, yz, xx, xy, xz, y2, yz2, z2, 0.f};
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const int col = t + 4 * q;
-      if (col < 11) row[C + col] = mom[col];
-    }
-  }
-  __syncwarp();
-  // lane l takes groups l, l + 32, ... of the warp's 16 rows x ROW / 4 groups
-  for (int i = lane; i < 16 * (ROW / 4); i += 32) {
-    const int rr = i / (ROW / 4), q = i - rr * (ROW / 4);
-    const int arow = arows[row0 + rr];
-    if (arow < 0) continue;
-    const int c0 = 4 * q - shift_of(acc + (long long)arow * N);  // the group's first column
-    if (c0 >= N || c0 + 4 <= 0) continue;
-    float* dst = acc + (long long)arow * N + c0;
-    const float4 v = *reinterpret_cast<const float4*>(stage + rr * ROW + 4 * q);
-    if (c0 >= 0 && c0 + 4 <= N) {
-      atomicAdd(reinterpret_cast<float4*>(dst), v);
-    } else {
-      const float vs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (c0 + e >= 0 && c0 + e < N) atomicAdd(dst + e, vs[e]);
-    }
-  }
-  __syncwarp();  // the stage is rewritten by the warp's next rows
-}
 
 template <int HID, int C>
 __global__ void __launch_bounds__(THREADS, 2)

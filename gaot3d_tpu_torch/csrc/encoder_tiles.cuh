@@ -1,8 +1,10 @@
 // Tile machinery shared by the encoder payload's forward (K5,
 // encoder_payload.cu) and backward (K5b, encoder_payload_bwd.cu) on Hopper
-// (sm_90a): node-major tiles, the asynchronous loads of a tile's inputs, the
-// shared-memory layout, and the kernel MLP's layer products on the tensor
-// cores, at f32 grade (3xTF32) or as the bf16 kernel MLP takes them.
+// (sm_90a), and by the decoder payload (K9): the tile map of valid rows and
+// the node-major tiles, the asynchronous loads of a tile's inputs, the
+// shared-memory layout, the kernel MLP's layer products on the tensor cores,
+// at f32 grade (3xTF32) or as the bf16 kernel MLP takes them, and K5's
+// scatter.
 //
 // Products: 3xTF32. Each f32 operand x is split as x = hi + lo with hi
 // rounded to TF32 (to nearest, ties away from zero, as `cvt.rna.tf32.f32`)
@@ -37,12 +39,13 @@
 // of bank conflicts: rows g (0..7) at columns 2t, 2t+1 (an accumulator's
 // pattern, as float2), and rows 2t, 2t+1 at column g (a B operand's pattern).
 //
-// Tiles (the f32 bodies): a tile holds whole nodes, floor(R / K) of them,
-// with all K slots of each (row = node * K + slot), so a node's rows are
-// adjacent and a sum over its slots stays inside the tile. When K > R a node
-// takes ceil(K / R) consecutive tiles of one CTA. Rows past the tile's nodes
-// are padding and count as masked. The bf16 bodies take only valid rows, from
-// a tile map (`TileMap` below).
+// Tiles: both bodies of K5, K5b's bf16 body and K9 take only valid rows,
+// from a tile map (`TileMap` below). Node-major tiles now serve K5b's f32
+// body alone: a tile holds whole nodes, floor(R / K) of them, with all K
+// slots of each (row = node * K + slot), so a node's rows are adjacent and a
+// sum over its slots stays inside the tile. When K > R a node takes
+// ceil(K / R) consecutive tiles of one CTA. Rows past the tile's nodes are
+// padding and count as masked.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -509,41 +512,42 @@ __device__ __forceinline__ void bias_gelu(float (&z)[N][4], const float* b, int 
   }
 }
 
-__device__ __forceinline__ void red2(float* p, float a, float b, bool vec) {
-  if (vec) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
-  } else {
-    atomicAdd(p, a);
-    atomicAdd(p + 1, b);
-  }
+// floats from p back to the 16-byte boundary before it
+__device__ __forceinline__ int shift_of(const float* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
-// K5's scatter for the warp's rows row0 + g (+8): vals = (o + bias) * feats
-// and the 11 moment columns of row r added into acc at arows[r] (none where
-// it is negative) by `red.global.add` (float atomics without a return value):
-// two columns at a time as a v2 reduction where the accumulator row is
-// 8-byte aligned (its row stride is C+11 floats, so every other cell), one at
-// a time elsewhere.
-template <int C>
-__device__ __forceinline__ void scatter_rows(const float (&o)[C / 8][4], const float* bl,
-                                             const float* F, const float* x0, const int* arows,
-                                             float* __restrict__ acc, int row0, int lane) {
+// K5's scatter for the warp's rows row0 + g (+8): their payloads, vals =
+// (o + bias) * feats and the 11 moment columns, written into `stage` (16
+// rows of ROW floats, each shifted by its accumulator row's misalignment in
+// floats), then added into acc at arows[r] (none where it is negative) by
+// `red.global.add` (float atomics without a return value). The accumulator's
+// rows are C+11 floats, so a row starts 16-byte aligned one time in four:
+// every 16-byte aligned group of four columns takes one v4 reduction and the
+// up to three columns before and after them one each, about 13 reductions a
+// row of the recipe's 43 columns where v2 pairs and scalar moments took 35.
+// The sum order, and so the last bits, change from run to run.
+template <int C, int ROW>
+__device__ __forceinline__ void scatter_rows_v4(const float (&o)[C / 8][4], const float* bl,
+                                                const float* F, const float* x0,
+                                                const int* arows, float* stage,
+                                                float* __restrict__ acc, int row0, int lane) {
+  constexpr int N = C + 11;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int r = row0 + g + 8 * hr;
     const int arow = arows[r];
     if (arow < 0) continue;
-    float* dst = acc + (long long)arow * (C + 11);
-    // the row stride is C + 11 floats: pairs are 8-byte aligned on every other row
-    const bool vec = (reinterpret_cast<uintptr_t>(dst) & 7) == 0;
+    float* row = stage + (g + 8 * hr) * ROW + shift_of(acc + (long long)arow * N);
 #pragma unroll
     for (int nt = 0; nt < C / 8; ++nt) {
       const int c = 8 * nt + 2 * t;
       const float2 f = *reinterpret_cast<const float2*>(F + Mat<C>::at(r, c));
-      red2(dst + c, (o[nt][2 * hr] + bl[c]) * f.x, (o[nt][2 * hr + 1] + bl[c + 1]) * f.y, vec);
+      row[c] = (o[nt][2 * hr] + bl[c]) * f.x;
+      row[c + 1] = (o[nt][2 * hr + 1] + bl[c + 1]) * f.y;
     }
-    // moments, rounded like the reference: lane t adds columns C + t, C + t + 4, C + t + 8
+    // moments, rounded like the reference: lane t writes columns C + t, C + t + 4, C + t + 8
     const float4 pc = *reinterpret_cast<const float4*>(x0 + X0::at(r, 0));
     const float4 cc = *reinterpret_cast<const float4*>(x0 + X0::at(r, 4));
     const float yx = __fsub_rn(pc.x, pc.w), yy = __fsub_rn(pc.y, cc.x),
@@ -555,9 +559,29 @@ __device__ __forceinline__ void scatter_rows(const float (&o)[C / 8][4], const f
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
       const int col = t + 4 * q;
-      if (col < 11) atomicAdd(dst + C + col, mom[col]);
+      if (col < 11) row[C + col] = mom[col];
     }
   }
+  __syncwarp();
+  // lane l takes groups l, l + 32, ... of the warp's 16 rows x ROW / 4 groups
+  for (int i = lane; i < 16 * (ROW / 4); i += 32) {
+    const int rr = i / (ROW / 4), q = i - rr * (ROW / 4);
+    const int arow = arows[row0 + rr];
+    if (arow < 0) continue;
+    const int c0 = 4 * q - shift_of(acc + (long long)arow * N);  // the group's first column
+    if (c0 >= N || c0 + 4 <= 0) continue;
+    float* dst = acc + (long long)arow * N + c0;
+    const float4 v = *reinterpret_cast<const float4*>(stage + rr * ROW + 4 * q);
+    if (c0 >= 0 && c0 + 4 <= N) {
+      atomicAdd(reinterpret_cast<float4*>(dst), v);
+    } else {
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c0 + e >= 0 && c0 + e < N) atomicAdd(dst + e, vs[e]);
+    }
+  }
+  __syncwarp();  // the stage is rewritten by the warp's next rows
 }
 
 // ---- asynchronous copies --------------------------------------------------------------
@@ -714,7 +738,8 @@ struct LaunchCache {
   std::atomic<int> per_sm[DEVICES][DEPTHS];
 
   template <class Kernel>
-  int get(Kernel kern, size_t smem, int n_mid, int& per_sm_out, int& sms_out) {
+  int get(Kernel kern, size_t smem, int n_mid, int& per_sm_out, int& sms_out,
+          int threads = THREADS) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
@@ -732,7 +757,7 @@ struct LaunchCache {
     sms_out = sms[dev].load();
     int p = n_mid < DEPTHS ? per_sm[dev][n_mid].load() : 0;
     if (p == 0) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p, kern, THREADS, smem);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p, kern, threads, smem);
       if (e != cudaSuccess) return (int)e;
       if (n_mid < DEPTHS) per_sm[dev][n_mid].store(p);
     }
@@ -741,8 +766,8 @@ struct LaunchCache {
   }
 };
 
-// ---- valid-row tiles (the bf16 bodies) ------------------------------------------------
-// The bf16 bodies walk a tile map the wrapper builds from the masks
+// ---- valid-row tiles (K5's bodies, K5b's bf16 body, K9) -----------------------------------
+// These kernels walk a tile map the wrapper builds from the masks
 // (kernels/encoder_payload.py `tile_map`): in node-major order, each (sample,
 // node chunk) segment's valid rows are numbered from a start rounded to a
 // window of S = R - K + 1 positions (S = 1 when K > R), and item t holds the
@@ -766,22 +791,43 @@ __device__ __forceinline__ void item_range(const TileMap& M, int cta, int ctas, 
   last = (int)(n * (cta + 1) / ctas);
 }
 
+// The threads that walk a tile map together: the whole block, or one of the
+// groups of THREADS threads (8 warps) that share a block's staged weights,
+// group g syncing on named barrier g + 1 (barrier 0 is __syncthreads').
+struct WholeBlock {
+  __device__ __forceinline__ int rank() const { return threadIdx.x; }
+  __device__ __forceinline__ int size() const { return blockDim.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+struct WarpGroup {
+  int g;
+  __device__ __forceinline__ int rank() const { return threadIdx.x - g * THREADS; }
+  __device__ __forceinline__ int size() const { return THREADS; }
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(THREADS) : "memory");
+  }
+};
+
 // The rows of pass `pass` of an item: the valid slots among the flat slot
 // indices [s0, s1), in order, from position pass * R on, their flat indices
 // into slots[0, min(R, count - pass * R)). Returns the item's valid count.
-// `scratch` holds WARPS ints. Every thread of the block calls it.
+// `scratch` holds a word a warp of the group. Every thread of the group
+// calls it.
+template <class Group = WholeBlock>
 __device__ __forceinline__ int gather_rows(const uint8_t* __restrict__ mask, long long s0,
-                                           long long s1, int pass, int* slots, int* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+                                           long long s1, int pass, int* slots, int* scratch,
+                                           const Group& grp = Group()) {
+  const int rank = grp.rank(), lane = rank & 31, warp = rank >> 5, n = grp.size();
   int count = 0;
-  for (long long base = s0; base < s1; base += blockDim.x) {
-    const long long s = base + threadIdx.x;
+  for (long long base = s0; base < s1; base += n) {
+    const long long s = base + rank;
     const bool v = s < s1 && mask[s] != 0;
     const unsigned bal = __ballot_sync(0xffffffffu, v);
     if (lane == 0) scratch[warp] = __popc(bal);
-    __syncthreads();
+    grp.sync();
     int before = count, total = count;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    for (int w = 0; w < (n >> 5); ++w) {
       const int c = scratch[w];
       before += w < warp ? c : 0;
       total += c;
@@ -791,7 +837,7 @@ __device__ __forceinline__ int gather_rows(const uint8_t* __restrict__ mask, lon
       if (p >= 0 && p < R) slots[p] = (int)s;
     }
     count = total;
-    __syncthreads();  // scratch is rewritten by the next batch
+    grp.sync();  // scratch is rewritten by the next batch
   }
   return count;
 }

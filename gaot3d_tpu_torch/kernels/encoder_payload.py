@@ -46,10 +46,12 @@ points from autograd through `kernel_mlp`; on the card K5b is launched once
 a call and adds each chunk's f32 gradient into its own slice, and the
 wrapper rounds and sums the slices (`sum_chunk_slices`).
 
-The bf16 bodies take valid rows only, from a tile map that `tile_map` builds
-on the device from the masks (no host sync): items of whole nodes of one
-node chunk with at most TILE_ROWS valid rows each. The forward builds it
-once and `accumulate` hands it to the backward.
+Both bodies of K5 and K5b's bf16 body take valid rows only, from a tile map
+that `tile_map` builds on the device from the masks (no host sync): items of
+whole nodes of one node chunk with at most TILE_ROWS valid rows each, so a
+masked slot costs a mask byte and never enters the MLP. The forward builds
+it once, for either dtype, and `accumulate` hands it to the backward; K5b's
+f32 body walks node-major tiles of every slot and takes no map.
 
 `encoder_accumulate.launches` counts every K5 launch and
 `encoder_accumulate.launches_bf16` those of the bf16 body; the same two
@@ -83,7 +85,7 @@ def _built(name: str, kernel_dtype: str) -> str:
     return f"{name}_bf16" if check_kernel_dtype(kernel_dtype) == "bfloat16" else name
 
 
-# the bf16 bodies' extra arguments: the tile map (node_first, n_items, max_items) and chunk
+# the tile map's arguments (node_first, n_items, max_items, chunk): K5's bodies, K5b's bf16 one
 _MAP_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
 
 
@@ -92,8 +94,8 @@ def _library(kernel_dtype: str = "float32") -> ctypes.CDLL:
     lib = load_cuda_library(name, f"{name}.cu", ["encoder_tiles.cuh"])
     lib.gaot_encoder_accumulate.restype = ctypes.c_int
     lib.gaot_encoder_accumulate.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6
-        + (_MAP_ARGS if kernel_dtype == "bfloat16" else []) + [ctypes.c_void_p] * 2)
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6 + _MAP_ARGS
+        + [ctypes.c_void_p] * 2)
     lib.gaot_encoder_accumulate_smem.restype = ctypes.c_longlong
     lib.gaot_encoder_accumulate_smem.argtypes = [ctypes.c_int] * 3
     lib.gaot_encoder_accumulate_occupancy.restype = ctypes.c_int
@@ -272,16 +274,16 @@ class TileMap(NamedTuple):
 
 
 def tile_map(mask: torch.Tensor, chunk: Optional[int] = None) -> TileMap:
-    """The bf16 kernels' tiles of valid rows, by plain tensor operations on
-    the mask's device, with no host sync. In node-major order (sample, node)
-    the valid rows of each segment (one sample's node chunk of `chunk` nodes;
-    the whole sample when None) are numbered from a start that is a multiple
-    of S = TILE_ROWS - K + 1 (1 when K > TILE_ROWS), at least one window past
-    the previous segment's last row; item t holds the nodes whose first row
-    lies in [t * S, (t + 1) * S). An item so holds whole nodes of one segment
-    and at most TILE_ROWS rows (when K > TILE_ROWS, at most one node with
-    rows, whose rows take several passes). Masked slots take no row, wherever
-    they lie among a node's slots."""
+    """The kernels' tiles of valid rows (K5, K5b's bf16 body, K9), by plain
+    tensor operations on the mask's device, with no host sync. In node-major
+    order (sample, node) the valid rows of each segment (one sample's node
+    chunk of `chunk` nodes; the whole sample when None) are numbered from a
+    start that is a multiple of S = TILE_ROWS - K + 1 (1 when K > TILE_ROWS),
+    at least one window past the previous segment's last row; item t holds
+    the nodes whose first row lies in [t * S, (t + 1) * S). An item so holds
+    whole nodes of one segment and at most TILE_ROWS rows (when K >
+    TILE_ROWS, at most one node with rows, whose rows take several passes).
+    Masked slots take no row, wherever they lie among a node's slots."""
     B, n, K = mask.shape
     step = n if chunk is None else min(int(chunk), n)
     n_chunks = -(-n // step)
@@ -355,11 +357,13 @@ def _check(pos, feats, lat_idx, mask, weights, biases, grid, acc, kernel_dtype="
                          f"supported: {SUPPORTED_WIDTHS}")
 
 
-def _map_args(kernel_dtype: str, tiles: Optional[TileMap]) -> list:
-    if kernel_dtype != "bfloat16":
+def _map_args(kernel_dtype: str, tiles: Optional[TileMap], backward: bool = False) -> list:
+    """The tile map's launch arguments: both bodies of K5 and K5b's bf16 body
+    walk it; K5b's f32 body takes none."""
+    if backward and kernel_dtype != "bfloat16":
         return []
     if tiles is None:
-        raise ValueError("the bf16 bodies need the tile map (`tile_map`)")
+        raise ValueError("K5's bodies and K5b's bf16 body need the tile map (`tile_map`)")
     return [tiles.node_first.data_ptr(), tiles.n_items.data_ptr(), tiles.max_items, tiles.chunk]
 
 
@@ -369,8 +373,8 @@ def launch_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Ten
                       tiles: Optional[TileMap] = None) -> None:
     """K5 alone: one launch of the body for `kernel_dtype` on CUDA tensors
     that `_check` accepted, with the MLP packed by `_pack_mlp` (n_mid
-    hidden-to-hidden layers of width hid); the bf16 body over `tiles`, the
-    mask's `tile_map`."""
+    hidden-to-hidden layers of width hid), over `tiles`, the mask's
+    `tile_map`."""
     B, n, K = lat_idx.shape
     C = feats.shape[-1]
     _, d1, d2 = grid.dims
@@ -405,7 +409,8 @@ def launch_backward(g: torch.Tensor, pos: torch.Tensor, feats: torch.Tensor,
         err = _backward_library(kernel_dtype).gaot_encoder_backward(
             pos.data_ptr(), feats.data_ptr(), lat_idx.data_ptr(), mask.data_ptr(),
             params.data_ptr(), params.numel(), n_mid, hid, C, B, n, K, grid.num_tokens, d1,
-            d2, *grid.lo, *grid.spacing, *_map_args(kernel_dtype, tiles), g.data_ptr(),
+            d2, *grid.lo, *grid.spacing, *_map_args(kernel_dtype, tiles, backward=True),
+            g.data_ptr(),
             dfeats.data_ptr(), dparams.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"encoder_payload_bwd launch failed: cudaError {err}")
@@ -431,9 +436,10 @@ def encoder_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Te
                        tiles: Optional[TileMap] = None) -> torch.Tensor:
     """Add the payload of every valid (node, slot) row into acc[b, cell]:
     pos [B,n,3], feats [B,n,C], lat_idx/mask [B,n,K], acc [B,M,C+11]
-    (updated in place and returned). `chunk` only bounds the twin's memory;
-    `params`, the MLP already packed by `_pack_mlp`, and `tiles`, the mask's
-    `tile_map` (the bf16 body), save building them again."""
+    (updated in place and returned). `chunk` bounds the twin's memory and
+    cuts the tile map's segments; `params`, the MLP already packed by
+    `_pack_mlp`, and `tiles`, the mask's `tile_map`, save building them
+    again."""
     if pos.device.type == "cpu":
         return encoder_accumulate_reference(pos, feats, lat_idx, mask, weights,
                                             biases, grid, acc, chunk, kernel_dtype)
@@ -445,7 +451,7 @@ def encoder_accumulate(pos: torch.Tensor, feats: torch.Tensor, lat_idx: torch.Te
                          "the forward", hid, C, n_mid)
     if params is None:
         params = _pack_mlp(weights, biases)
-    if kernel_dtype == "bfloat16" and tiles is None:
+    if tiles is None:
         tiles = tile_map(mask, chunk)
     launch_accumulate(pos, feats, lat_idx, mask, params, n_mid, hid, grid, acc, kernel_dtype,
                       tiles)
@@ -503,20 +509,27 @@ encoder_accumulate_backward.launches = 0
 encoder_accumulate_backward.launches_bf16 = 0
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether the wrappers launch the kernels for tensors on t's device
+    (CUDA), rather than run the plain versions (CPU)."""
+    return t.device.type == "cuda"
+
+
 class _EncoderAccumulate(torch.autograd.Function):
     """K5 forward, K5b backward. `acc` is updated in place and returned; its
     gradient is the identity, so one accumulator can be threaded through the
-    degree sections. On CUDA the MLP is packed once, in the forward, and the
-    packed tensor (and the bf16 bodies' tile map) kept for the backward."""
+    degree sections. On CUDA the MLP is packed and the tile map built once,
+    in the forward, and both kept for the backward (whose f32 body takes no
+    map)."""
 
     @staticmethod
     def forward(ctx, acc, pos, feats, lat_idx, mask, grid, chunk, kernel_dtype, *mlp):
         n_layers = len(mlp) // 2
         weights = [w.detach() for w in mlp[:n_layers]]
         biases = [b.detach() for b in mlp[n_layers:]]
-        cuda = pos.device.type == "cuda"
+        cuda = _on_card(pos)
         params = _pack_mlp(weights, biases) if cuda else None
-        tiles = tile_map(mask, chunk) if cuda and kernel_dtype == "bfloat16" else None
+        tiles = tile_map(mask, chunk) if cuda else None
         encoder_accumulate(pos, feats, lat_idx, mask, weights, biases, grid, acc, chunk,
                            params=params, kernel_dtype=kernel_dtype, tiles=tiles)
         ctx.mark_dirty(acc)

@@ -10,13 +10,14 @@ timed on the five degree sections of a 524,288-point cloud, the recipe of
 `chip_smoke.py` `[k5]` (uniform points, 64x64x32 grid, radius 0.033, slot
 budget 5, sections at chunk 65,536, the 6-64-64-64-32 kernel MLP), as the
 five launches between two CUDA events, median of 7, and held against the
-shipped kernel; the bf16 variants also on the neural-field step's uniform
-[1, 40,000, 5] slots, where four slots in five are masked, and on the slots
-the card builds for the whole cloud ([1, 524,288, 5], about half masked). Each
-bf16 variant's registers and spills are printed. A probe of back-to-back TF32
-`mma.sync` gives the rate the kernels' product instruction reaches on this
-card, and one of `red.global.add` (`red_rates`) the rate of K5's scatter into
-the accumulator.
+shipped kernel; K5's variants, both bodies, also on the slots the card
+builds for the whole cloud ([1, 524,288, 5], about half masked), the bf16
+ones on the neural-field step's uniform [1, 40,000, 5] slots too, where four
+slots in five are masked. Each variant of K5 and of K5b's bf16 body prints
+its registers and spills. A probe of back-to-back TF32 `mma.sync` gives the
+rate the kernels' product instruction reaches on this card, and one of
+`red.global.add` (`red_rates`) the rates of the ways of adding K5's payloads
+into the accumulator.
 
     python -m gaot3d_tpu_torch.tools.probe_encoder_payload
 
@@ -50,15 +51,13 @@ _CVT = ('  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));\n'
         '  const float rest = x - __uint_as_float(hi);\n'
         '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));')
 _ONE_PASS = ("  mma_tf32(d, al, bh[0], bh[1]);\n  mma_tf32(d, ah, bl[0], bl[1]);\n", "")
-_DST = "float* dst = acc + (long long)arow * (C + 11);"
-_VEC = "const bool vec = (reinterpret_cast<uintptr_t>(dst) & 7) == 0;"
-_NO_SCATTER = ("if (arow < 0) continue;", "if (arow >= -1 && o[0][0] != 1.2345e30f) continue;")
 _NO_BIAS_GELU = [(f"z[nt][{e}] = gelu(z[nt][{e}] + b{e % 2});",
                   f"z[nt][{e}] = z[nt][{e}] + b{e % 2};") for e in range(4)]
 _ONE_CTA = ("__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS, 1)")
+_ONE_GROUP = ("bytes(n_mid, 2) <= SMEM_LIMIT ? 2 : 1", "bytes(n_mid, 2) < 0 ? 2 : 1")
 _V4_CALL = ("scatter_rows_v4<C, L::ROW>(o, sb + HID * (n_mid + 1), f_of(s), x0, arows_of(s),\n"
             "                               staged + wrow * L::ROW, acc, wrow, lane);")
-_V2_CALL = "scatter_rows<C>(o, sb + HID * (n_mid + 1), f_of(s), x0, arows_of(s), acc, wrow, lane);"
+_NO_SCATTER = (_V4_CALL, "if (n_mid < 0) " + _V4_CALL)
 # every slot a row again (masked ones invalid), over a tile map of an all-true mask
 _ALL_SLOTS_TILES = ("const bool v = s < s1 && mask[s] != 0;", "const bool v = s < s1;")
 _ALL_SLOTS_KERNEL = ("load_slot_row(in, T, row_i, rows, slots, pos, lat_idx);",
@@ -193,15 +192,13 @@ _K5B_WGMMA = [
 # the kernels: fwd, bwd (f32 bodies), fwd_bf16, bwd_bf16
 VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]], List[Tuple[str, str]], str]] = {
     "k5": ("fwd", [], [], "as shipped"),
-    "k5_scalar_red": ("fwd", [], [(_VEC, "const bool vec = false;")],
-                      "every column a scalar red, no v2"),
-    "k5_padded_48": ("fwd", [], [(_DST, "float* dst = acc + (long long)arow * 48;"),
-                                 (_VEC, "const bool vec = true;")],
-                     "into a zeroed [B, M, 48] scratch, all pairs v2, then added into acc, "
-                     "each launch"),
-    "k5_no_scatter": ("fwd", [], [_NO_SCATTER], "the MLP without the scatter"),
+    "k5_no_scatter": ("fwd", [_NO_SCATTER], [], "the MLP without the scatter"),
+    "k5_no_gelu": ("fwd", [], _NO_BIAS_GELU, "bias without GELU (wrong numerics)"),
     "k5_cvt_split": ("fwd", [], [(_SPLIT, _CVT)], "the split by cvt.rna.tf32.f32"),
     "k5_one_pass": ("fwd", [], [_ONE_PASS], "hi*hi only (wrong numerics: cost of 3 passes)"),
+    "k5_one_group": ("fwd", [_ONE_GROUP], [], "one group of 8 warps a CTA, not two"),
+    "k5_all_slots": ("fwd", [_ALL_SLOTS_FWD], [_ALL_SLOTS_TILES],
+                     "every slot a row, masked ones invalid (the node-major tiles' rows)"),
     "k5b": ("bwd", [], [], "as shipped"),
     "k5b_cvt_split": ("bwd", [], [(_SPLIT, _CVT)], "the split by cvt.rna.tf32.f32"),
     "k5b_no_weight_products": ("bwd", _BWD_WGRADS, [], "no dW, db products"),
@@ -210,10 +207,7 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]], List[Tuple[str, str]], str
                          "gelu and gelu' in the backward replaced by z and 1"),
     "k5b_one_pass": ("bwd", [], [_ONE_PASS], "hi*hi only (wrong numerics: cost of 3 passes)"),
     "k5_bf16": ("fwd_bf16", [], [], "as shipped"),
-    "k5_bf16_no_scatter": ("fwd_bf16", [(_V4_CALL, "if (n_mid < 0) " + _V4_CALL)], [],
-                           "the MLP without the scatter"),
-    "k5_bf16_v2_scatter": ("fwd_bf16", [(_V4_CALL, _V2_CALL)], [],
-                           "K5's v2 and scalar scatter (scatter_rows) in place of the v4 one"),
+    "k5_bf16_no_scatter": ("fwd_bf16", [_NO_SCATTER], [], "the MLP without the scatter"),
     "k5_bf16_no_gelu": ("fwd_bf16", [], _NO_BIAS_GELU, "bias without GELU (wrong numerics)"),
     "k5_bf16_all_slots": ("fwd_bf16", [_ALL_SLOTS_FWD], [_ALL_SLOTS_TILES],
                           "every slot a row, masked ones invalid (the earlier node-major tiles)"),
@@ -264,8 +258,9 @@ extern "C" int run_probe(float* out, int blocks, int threads, int iters) {
 """
 
 # K5's scatter alone: four threads a row, each adding its columns 8 nt + 2 t (+1) for
-# nt < C / 8 as K5's lane t does, then the moment columns C + t, C + t + 4, C + t + 8 (< 11).
-# mode 0: v2 where the row is 8-byte aligned, scalar elsewhere (K5); 1: every column scalar;
+# nt < C / 8 as a warp's lane t holds them, then the moment columns C + t, C + t + 4, C + t + 8
+# (< 11). mode 0: v2 where the row is 8-byte aligned, scalar elsewhere (the f32 body's scatter
+# on node-major tiles); 1: every column scalar;
 # 2: every pair v2 (the row stride `stride` must be even); 3: v4 on every 16-byte aligned group
 # of four columns of the row's c + 11, scalar before and after them
 RED_PROBE = r"""
@@ -398,7 +393,7 @@ def _ms(fn) -> float:
 def reduction_counts(arows: torch.Tensor, c: int) -> Dict[str, int]:
     """The reductions (instructions) each mode of `red_rates` issues to add
     one payload of c + 11 floats a row into the accumulator rows `arows`:
-    {'k5': a v2 a pair on 8-byte aligned rows, a scalar a column elsewhere,
+    {'mix': a v2 a pair on 8-byte aligned rows, a scalar a column elsewhere,
     and 11 scalar moments; 'scalar': every column; 'v2': every pair and the
     moments, into rows of 48 floats; 'v4': a v4 a 16-byte aligned group of
     four columns, a scalar each column around them}."""
@@ -407,7 +402,7 @@ def reduction_counts(arows: torch.Tensor, c: int) -> Dict[str, int]:
     aligned = int((start % 2 == 0).sum())  # 8-byte aligned rows
     a0 = (4 - start % 4) % 4  # columns before the first 16-byte aligned group
     groups = (c + 11 - a0) // 4
-    return {"k5": aligned * (c // 2) + (rows - aligned) * c + 11 * rows,
+    return {"mix": aligned * (c // 2) + (rows - aligned) * c + 11 * rows,
             "scalar": rows * (c + 11), "v2": rows * (c // 2 + 11),
             "v4": int((groups + (c + 11 - 4 * groups)).sum())}
 
@@ -415,7 +410,7 @@ def reduction_counts(arows: torch.Tensor, c: int) -> Dict[str, int]:
 def red_rates(lib: ctypes.CDLL, arows: torch.Tensor, c: int, m_rows: int) -> Dict[str, float]:
     """K5's scatter alone for the accumulator rows `arows` (int32 on the card,
     one a valid row, in K5's order), c value columns and an accumulator of
-    m_rows rows: {'k5_ms': K5's mix of v2 and scalar reductions into rows of
+    m_rows rows: {'mix_ms': the mix of v2 and scalar reductions into rows of
     c + 11 floats, 'scalar_ms': every column scalar, 'v2_ms': every pair v2
     into rows of 48 floats, 'v4_ms': v4 on the 16-byte aligned groups of a
     row of c + 11, scalar around them, and each mode's reductions
@@ -430,7 +425,7 @@ def red_rates(lib: ctypes.CDLL, arows: torch.Tensor, c: int, m_rows: int) -> Dic
     wide = torch.zeros((m_rows, 48), device="cuda")
     counts = reduction_counts(arows, c)
     out = {}
-    for mode, (name, buf, stride) in enumerate((("k5", acc, c + 11), ("scalar", acc, c + 11),
+    for mode, (name, buf, stride) in enumerate((("mix", acc, c + 11), ("scalar", acc, c + 11),
                                                 ("v2", wide, 48), ("v4", acc, c + 11))):
         def launch():
             err = fn(buf.data_ptr(), arows.data_ptr(), rows, c, stride, mode, stream)
@@ -458,9 +453,9 @@ def _slots(pos: np.ndarray, grid: LatentGrid):
 
 
 def run() -> Dict[str, float]:
-    """Build, time and print every variant; returns {name: ms} (bf16 ones
-    also '<name>@nf' at [1, 40,000, 5] and '<name>@device' at the
-    device-built [1, 524,288, 5]), the mma probe's TFLOP/s under
+    """Build, time and print every variant; returns {name: ms} (K5's also
+    '<name>@device' at the device-built [1, 524,288, 5], the bf16 ones also
+    '<name>@nf' at [1, 40,000, 5]), the mma probe's TFLOP/s under
     'mma_tflops_<warps an SM>' and the red probe's readings under 'red_*'.
     Raises without a card."""
     if not torch.cuda.is_available():
@@ -505,7 +500,6 @@ def run() -> Dict[str, float]:
                built.mask.contiguous())]
     M = grid.num_tokens
     acc = torch.zeros((1, M, C + 11), device="cuda")
-    scratch = torch.zeros((1, M, 48), device="cuda")
     g = torch.from_numpy(rng.standard_normal((1, M, C + 11), dtype=np.float32)).cuda()
     _, d1, d2 = grid.dims
     geometry = (M, d1, d2, *grid.lo, *grid.spacing)
@@ -515,7 +509,7 @@ def run() -> Dict[str, float]:
     red = red_rates(libs["red_probe"], arows, C, M)
     results.update({f"red_{k}": v for k, v in red.items()})
     print(f"[probe] red.global.add, K5's scatter alone for the {arows.numel()} valid rows of the "
-          f"recipe's sections: K5's mix {red['k5_ms']:.3f} ms ({red['k5_per_s']:.3e} reductions "
+          f"recipe's sections: the v2 mix {red['mix_ms']:.3f} ms ({red['mix_per_s']:.3e} reductions "
           f"a second), every column scalar {red['scalar_ms']:.3f} ms ({red['scalar_per_s']:.3e}), "
           f"every pair v2 into rows of 48 {red['v2_ms']:.3f} ms ({red['v2_per_s']:.3e}), v4 where "
           f"16-byte aligned {red['v4_ms']:.3f} ms ({red['v4_per_s']:.3e})")
@@ -527,30 +521,7 @@ def run() -> Dict[str, float]:
     def launcher(name, kind, case):
         lib = libs[name]
         all_slots = name.endswith("all_slots")
-        if kind == "fwd":
-            fn = lib.gaot_encoder_accumulate
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6
-                           + [ctypes.c_void_p] * 2)
-            padded = name == "k5_padded_48"
-
-            def launches():
-                for p, f, lat_s, msk_s in case:
-                    if padded:
-                        scratch.zero_()
-                    err = fn(p.data_ptr(), f.data_ptr(), lat_s.data_ptr(), msk_s.data_ptr(),
-                             params.data_ptr(), params.numel(), 2, 64, C, 1, lat_s.shape[1],
-                             lat_s.shape[2], *geometry, (scratch if padded else acc).data_ptr(),
-                             stream)
-                    if err:
-                        raise RuntimeError(f"{name}: cudaError {err}")
-                    if padded:
-                        acc.add_(scratch[..., :C + 11])
-
-            def result():
-                acc.zero_()
-                launches()
-                return acc.clone()
-        elif kind == "fwd_bf16":
+        if kind in ("fwd", "fwd_bf16"):
             fn = lib.gaot_encoder_accumulate
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 6
                            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
@@ -606,8 +577,9 @@ def run() -> Dict[str, float]:
     shipped = {}
     for name, (kind, _, _, what) in VARIANTS.items():
         bf16 = kind.endswith("bf16")
-        cases = [("", sections)] + ([("@nf", nf), ("@device", device)] if bf16 else [])
-        extra = f"; {ptxas_summary(LOGS[name])}" if bf16 else ""
+        cases = ([("", sections)] + ([("@nf", nf)] if bf16 else [])
+                 + ([("@device", device)] if kind != "bwd" else []))
+        extra = f"; {ptxas_summary(LOGS[name])}" if kind != "bwd" else ""
         for tag, case in cases:
             launches, result = launcher(name, kind, case)
             got = result()

@@ -138,8 +138,8 @@ def test_encoder_autograd_threads_one_accumulator():
 
 
 def _edge_problem(hid, C, K, B, n, n_mid, seed, valid=0.7):
-    """Slots that reach every edge of K5's and K5b's node-major tiles: n not
-    a multiple of the nodes a tile holds, masked slots (a share 1 - valid,
+    """Slots that reach every edge of K5's tile map and K5b's node-major
+    tiles: n not a multiple of the nodes a tile holds, masked slots (a share 1 - valid,
     anywhere among a node's slots) holding any index, and valid slots off the
     grid (dropped), in every batch."""
     rng = np.random.default_rng(seed)
@@ -175,8 +175,9 @@ def _relative(a, b):
 ])
 def test_encoder_kernels_at_tile_edges(hid, C, K, B, n, n_mid):
     """K5 (relative 1e-5 of the accumulator) and K5b (relative 1e-4 of each
-    of dfeats, dW, db) against their plain versions at the edges of the
-    node-major tiles, every supported width and depths 0 to 3."""
+    of dfeats, dW, db) against their plain versions at the edges of K5's
+    valid-row items and K5b's node-major tiles, every supported width and
+    depths 0 to 3."""
     args, ws, bs, grid, g = _edge_problem(hid, C, K, B, n, n_mid, seed=hid + C + K + n)
     acc = torch.zeros((B, grid.num_tokens, C + 11), device="cuda")
     k5.encoder_accumulate(*args, ws, bs, grid, acc)
@@ -278,6 +279,30 @@ def test_encoder_bf16_valid_row_tiles(K, B, n, chunk, valid):
     for a, b in pairs:
         assert a.shape == b.shape and torch.isfinite(a).all()
         assert _rel_l2(a, b) <= K5B_BF16
+
+
+@pytest.mark.parametrize("K,B,n,chunk,valid,n_mid", [
+    (5, 1, 3001, 1000, 0.1, 2),   # uniform slots, mostly masked
+    (8, 2, 999, None, 0.02, 2),   # nearly every slot masked, nodes without any valid slot
+    (8, 1, 5000, 700, 0.3, 2),    # K10's budget 8 at drivaerml's valid share
+    (130, 1, 37, None, 0.9, 2),   # nodes with more than 128 valid slots
+    (300, 2, 11, 4, 0.7, 2),      # a node's rows over three passes, chunks of 4 nodes, B = 2
+    (5, 1, 2000, None, 0.5, 3),   # three hidden layers at width 64: one group of 8 warps
+])
+def test_encoder_f32_valid_row_tiles(K, B, n, chunk, valid, n_mid):
+    """K5's f32 body over the tile map's valid rows against its plain
+    version (relative 1e-5 of the accumulator), one launch a call, where
+    most slots are masked, where a node has more than 128 valid slots, at
+    chunk sizes that are no multiple of a tile, at B = 2, and at the depth
+    where two groups' stages no longer fit beside the weights."""
+    args, ws, bs, grid, g = _edge_problem(64, 32, K, B, n, n_mid, seed=K + n + 3, valid=valid)
+    acc = torch.zeros((B, grid.num_tokens, 43), device="cuda")
+    before = k5.encoder_accumulate.launches
+    k5.encoder_accumulate(*args, ws, bs, grid, acc, chunk)
+    ref = k5.encoder_accumulate_reference(*args, ws, bs, grid, torch.zeros_like(acc), chunk)
+    torch.cuda.synchronize()
+    assert k5.encoder_accumulate.launches == before + 1
+    assert torch.isfinite(acc).all() and _relative(acc, ref) <= 1e-5
 
 
 def test_encoder_bf16_backward_dfeats_repeat_bit_for_bit():
